@@ -11,18 +11,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build: every CUDA kernel of the port from the sources in the checkout,
    one ``nvcc`` per source, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, at the shapes the serving path gives it, in float32 and bfloat16,
-   with per-shape times of the kernel, the plain version, one PyTorch
-   library call as a yardstick (never used by the port) and the least time
-   the card could take (the bound);
+   card, in float32 and bfloat16: the forward at the shapes the serving
+   path gives it, the two backward kernels (dK/dV, dQ) at the training
+   shape and at masked, causal, windowed, cross-length, ragged and
+   small-tile cases; with per-shape times of the kernel, the plain
+   version, one PyTorch library call as a yardstick (never used by the
+   port) and the least time the card could take (the bound);
 4. serve: BERT-base (``bert_12_768_12``, full width and depth, float32,
    seeded random weights) through ``serve.CompiledModel`` over the
    ``{"batch": (1, 32), "seq": (8, 512)}`` bucket table and
    ``serve.DynamicBatcher`` (5 ms deadline), fed ragged requests from four
-   client threads; every kernel must have launched on that run, and served
-   outputs must match unbatched forwards on the plain attention path;
-5. profile: one forward at the largest bucket, timed with CUDA events and
-   split by kernel with ``torch.profiler``.
+   client threads; the forward kernel must have launched on that run and
+   the backward kernels not, and served outputs must match unbatched
+   forwards on the plain attention path;
+5. profile: one serving forward at the largest bucket, timed with CUDA
+   events and split by kernel with ``torch.profiler``;
+6. train: the port bench (``incubator_mxnet_tpu_torch/bench.py``, the
+   configuration of ``bench.py``'s default workload: BERT-base pretraining
+   in bfloat16, dropout 0.1, batch 8, sequence 512, AdamW with fp32 master
+   weights); prints its JSON line; every step's loss finite and the last
+   below the first; each of the three kernels launched 12 times per step;
+   then one step split by kernel with ``torch.profiler``;
+7. train gradients: one step's parameter gradients of a 2-layer BERT at
+   full width (float32, dropout 0) on the kernels, against the same step
+   on the plain attention path (``MXTPU_ATTN_IMPL=xla``).
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -40,10 +52,11 @@ import time
 import numpy as onp
 import torch
 
-from incubator_mxnet_tpu_torch import models, serve
+from incubator_mxnet_tpu_torch import bench, models, serve
 from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
 from incubator_mxnet_tpu_torch.ops.cuda import _build
 from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+from incubator_mxnet_tpu_torch.util import getenv
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): fp32 outside
 # the tensor cores, bf16 on them, and HBM3 bandwidth.
@@ -55,6 +68,16 @@ PEAK_BYTES = 3.35e12
 # rounding at another running maximum dominate.
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1.6e-2)}
 LSE_ATOL = 1e-4
+# backward kernels vs plain backward, on the card: (atol, rtol). float32:
+# dK/dV sum the products of up to 512 query rows (dQ of 512 keys) in
+# another order than the plain version's GEMMs; bfloat16: one ulp of the
+# output (2**-8..2**-7 relative), P and dS rounded at the same places.
+TOL_BWD = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1.6e-2)}
+# train gradients on the kernels vs on the plain attention path, float32:
+# another summation order and another formula for the softmax gradient
+# (delta = rowsum(dO o) against autograd through softmax), through two
+# layers: per parameter, max abs err <= GRAD_RTOL * max |grad|
+GRAD_RTOL = 1e-3
 # served (padded, batched, flash kernel) vs unbatched (plain attention)
 # forwards of BERT-base in float32 without TF32: other GEMM shapes and the
 # kernel's summation order, through 12 layers
@@ -65,6 +88,8 @@ SEQ_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 # (about half the measured capacity), then all at once
 N_REQUESTS, OFFERED_RATE = 320, 160.0
 HEADS, HEAD_DIM = 12, 64
+# the training phase's attention shape: bench.py's batch 8, sequence 512
+TRAIN_SHAPE = (8, 512)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -157,8 +182,9 @@ def kernel_case(gen, dtype, B, Lq, Lk, case, timed, results):
     if case == "mask":
         check(bool((o[0] == 0).all()), f"{fa.KERNEL}: a row that sees no "
               "key must give exactly 0")
-    rec = {"dtype": str(dtype).replace("torch.", ""), "B": B, "H": H,
-           "Lq": Lq, "Lk": Lk, "D": D, "case": case, "max_abs_err": err}
+    rec = {"kernel": fa.KERNEL, "dtype": str(dtype).replace("torch.", ""),
+           "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": D, "case": case,
+           "max_abs_err": err}
     if timed:
         pairs = visible_pairs(B, Lq, Lk, key_mask, causal, window, dev)
         b_ms, b_by = bound_ms(B, H, Lq, Lk, D, dtype, pairs,
@@ -204,6 +230,145 @@ def phase_kernels(results) -> dict:
     # the largest bucket the serving phase runs
     main = kernel_case(gen, torch.float32, 32, 512, 512, "mask", True,
                        results)
+    return main
+
+
+def bwd_bound_ms(B, H, Lq, Lk, D, dtype, pairs, masked) -> dict:
+    """Least time of each backward kernel: the larger of the operations the
+    data needs (dK/dV: 8 per visible pair and head dim, four products; dQ:
+    6, three products) over the peak for the input type, and the bytes
+    (q, k, v, dO, lse, delta, mask read once; dK and dV, or dQ, written
+    once) over HBM bandwidth."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    reads = B * H * (2 * Lq + 2 * Lk) * D * e + 2 * B * H * Lq * 4
+    if masked:
+        reads += B * Lk * 4
+    out = {}
+    for name, ops, writes in ((fa.KERNEL_BWD_DKV, 8.0, 2 * B * H * Lk * D * e),
+                              (fa.KERNEL_BWD_DQ, 6.0, B * H * Lq * D * e)):
+        t_ops = ops * H * D * pairs / PEAK_OPS[dtype] * 1e3
+        t_bytes = (reads + writes) / PEAK_BYTES * 1e3
+        out[name] = ((t_ops, "operations") if t_ops >= t_bytes
+                     else (t_bytes, "bytes"))
+    return out
+
+
+def bwd_case(gen, dtype, B, Lq, Lk, case, timed, results):
+    """Both backward kernels vs their plain versions on one shape; returns
+    {kernel name: result record}."""
+    D, H, dev = HEAD_DIM, HEADS, "cuda"
+    q, do = (torch.randn(B, H, Lq, D, device=dev, generator=gen).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, H, Lk, D, device=dev, generator=gen).to(dtype)
+            for _ in range(2))
+    key_mask, causal, window = None, False, None
+    if case in ("mask", "full"):
+        vl = torch.randint(1, Lk + 1, (B,), device=dev, generator=gen)
+        if case == "full":     # the training path: every key valid
+            vl[:] = Lk
+        else:
+            vl[0] = 0          # a row that sees no key: dQ must be 0
+            vl[-1] = Lk
+        key_mask = (torch.arange(Lk, device=dev)[None] < vl[:, None]
+                    ).to(torch.int32)
+    elif case in ("causal", "causal_window"):
+        causal = True
+        window = max(1, Lk // 4) if case == "causal_window" else None
+    scale = D ** -0.5
+    o, lse = fa.flash_attention_reference(q, k, v, key_mask, causal, scale,
+                                          window)
+    delta = fa._delta(o, do)
+    args = (q, k, v, key_mask, causal, scale, window, lse, do, delta)
+    dk, dv = fa._bwd_dkv_cuda(*args)
+    dq = fa._bwd_dq_cuda(*args)
+    torch.cuda.synchronize()
+    rdk, rdv = fa.flash_attention_bwd_dkv_reference(*args)
+    rdq = fa.flash_attention_bwd_dq_reference(*args)
+    atol, rtol = TOL_BWD[dtype]
+    errs = {}
+    for name, pairs in ((fa.KERNEL_BWD_DKV, ((dk, rdk, "dk"), (dv, rdv, "dv"))),
+                        (fa.KERNEL_BWD_DQ, ((dq, rdq, "dq"),))):
+        errs[name] = 0.0
+        for got, want, label in pairs:
+            err = (got.float() - want.float()).abs().max().item()
+            check(torch.allclose(got.float(), want.float(), atol=atol,
+                                 rtol=rtol),
+                  f"{name} {label} {dtype} B={B} Lq={Lq} Lk={Lk} {case}: "
+                  f"max abs err {err} beyond atol={atol} rtol={rtol}")
+            errs[name] = max(errs[name], err)
+    if case == "mask":
+        check(bool((dq[0] == 0).all()), f"{fa.KERNEL_BWD_DQ}: a row that "
+              "sees no key must give exactly 0")
+    base = {"dtype": str(dtype).replace("torch.", ""), "B": B, "H": H,
+            "Lq": Lq, "Lk": Lk, "D": D, "case": case}
+    recs = {name: dict(base, kernel=name, max_abs_err=err)
+            for name, err in errs.items()}
+    if timed:
+        pairs = visible_pairs(B, Lq, Lk, key_mask, causal, window, dev)
+        bounds = bwd_bound_ms(B, H, Lq, Lk, D, dtype, pairs,
+                              key_mask is not None)
+        # yardstick: SDPA forward + backward minus SDPA forward, on the
+        # same inputs (one library call computes dQ, dK and dV together);
+        # the visibility goes in as a boolean mask, since SDPA's is_causal
+        # aligns the band top-left where the port aligns it bottom-right
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        attn_mask = fa._visible(q, Lk, key_mask, causal, window)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def sdpa_fwd_bwd():
+            out = sdpa(*leaves, attn_mask=attn_mask, scale=scale)
+            torch.autograd.grad(out, leaves, do)
+
+        sdpa_bwd = (cuda_ms(sdpa_fwd_bwd)
+                    - cuda_ms(lambda: sdpa(*leaves, attn_mask=attn_mask,
+                                           scale=scale)))
+        timing = {
+            fa.KERNEL_BWD_DKV: (lambda: fa._bwd_dkv_cuda(*args),
+                                lambda: fa.flash_attention_bwd_dkv_reference(
+                                    *args)),
+            fa.KERNEL_BWD_DQ: (lambda: fa._bwd_dq_cuda(*args),
+                               lambda: fa.flash_attention_bwd_dq_reference(
+                                   *args))}
+        for name, (kern, plain) in timing.items():
+            b_ms, b_by = bounds[name]
+            recs[name].update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                              library_ms=sdpa_bwd, bound_ms=b_ms,
+                              bound_by=b_by)
+            r = recs[name]
+            print(f"  {name:24s} {r['dtype']:8s} B={B} Lq={Lq} Lk={Lk} "
+                  f"{case:6s} "
+                  f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+                  f"sdpa bwd {sdpa_bwd:.4f} ms  bound {b_ms:.4f} ms "
+                  f"({b_by})  err {r['max_abs_err']:.2e}", flush=True)
+    results.extend(recs.values())
+    return recs
+
+
+def phase_kernels_bwd(results) -> dict:
+    """The backward kernels on every case; returns the timed float32
+    records at the training shape, by kernel name."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    print("kernels: flash_attention_bwd_dkv / _dq vs their plain versions "
+          f"(f32 atol/rtol {TOL_BWD[torch.float32]}, bf16 "
+          f"{TOL_BWD[torch.bfloat16]})", flush=True)
+    B, L = TRAIN_SHAPE
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in ("full", "mask", "causal", "causal_window"):
+            recs = bwd_case(gen, dtype, B, L, L, case, case == "full",
+                            results)
+            if dtype == torch.float32 and case == "full":
+                main = recs
+        bwd_case(gen, dtype, B, 128, 256, "causal", True, results)
+        bwd_case(gen, dtype, B, 100, 100, "mask", True, results)
+    # small tiles: many tiles per block and a ragged last one
+    os.environ["MXTPU_FLASH_BQ"], os.environ["MXTPU_FLASH_BK"] = "16", "48"
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for case in ("mask", "causal_window"):
+                bwd_case(gen, dtype, B, L, L, case, False, results)
+    finally:
+        del os.environ["MXTPU_FLASH_BQ"], os.environ["MXTPU_FLASH_BK"]
     return main
 
 
@@ -271,8 +436,7 @@ def phase_serve(n_requests: int, rate: float, seed: int) -> dict:
     gaps = rng.exponential(4.0 / rate, n_requests)  # per client: rate / 4
 
     batcher = serve.DynamicBatcher(cm, max_delay_ms=5.0)
-    for mod in cuda_ops.KERNELS.values():
-        mod.launches = 0
+    cuda_ops.reset_launches()
     batcher.start()
     try:
         # paced: 4 clients with seeded exponential gaps; burst: the same
@@ -281,14 +445,15 @@ def phase_serve(n_requests: int, rate: float, seed: int) -> dict:
                 "burst": drive(batcher, cm, reqs, onp.zeros(n_requests))}
     finally:
         batcher.stop()
-    launches = {name: mod.launches for name, mod in cuda_ops.KERNELS.items()}
+    launches = cuda_ops.launch_counts()
     batches = sum(r["snapshot"]["batches"] for r in runs.values())
     n_layers = models.BERT_CONFIGS["bert_12_768_12"]["num_layers"]
     check(launches[fa.KERNEL] >= n_layers * batches > 0,
           f"{fa.KERNEL} launched {launches[fa.KERNEL]} times for "
           f"{batches} batches of {n_layers} layers")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the serving path")
+    for name in (fa.KERNEL_BWD_DKV, fa.KERNEL_BWD_DQ):
+        check(launches[name] == 0, f"serving (inference_mode) launched the "
+              f"backward kernel {name} {launches[name]} times")
     outs = runs["paced"]["outs"]
     for a, b in zip(outs, runs["burst"]["outs"]):
         check(a[0].shape == b[0].shape
@@ -300,7 +465,7 @@ def phase_serve(n_requests: int, rate: float, seed: int) -> dict:
     picks = [picks[int(j)] for j in onp.linspace(0, n_requests - 1, 8)]
     dev = next(model.parameters()).device
     worst = 0.0
-    before = fa.launches
+    before = cuda_ops.launch_counts()
     os.environ["MXTPU_ATTN_IMPL"] = "xla"
     try:
         with torch.inference_mode():
@@ -322,7 +487,8 @@ def phase_serve(n_requests: int, rate: float, seed: int) -> dict:
                             (got_pooled - pooled[0].cpu()).abs().max().item())
     finally:
         del os.environ["MXTPU_ATTN_IMPL"]
-    check(fa.launches == before, "impl='xla' reached the kernel")
+    check(cuda_ops.launch_counts() == before,
+          "impl='xla' reached a kernel")
     check(worst <= SERVE_ATOL, f"served vs unbatched xla forward: max abs "
           f"err {worst} > {SERVE_ATOL}")
     res = {"model": model, "requests": n_requests,
@@ -349,6 +515,53 @@ def phase_serve(n_requests: int, rate: float, seed: int) -> dict:
     return res
 
 
+def device_split(fn) -> tuple:
+    """Run ``fn`` once under ``torch.profiler`` and return ``(wall_ms,
+    {kernel name: device ms})``, device-side events only (CPU operators
+    also carry their kernels' time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us() / 1e3)
+    return wall, per_kernel
+
+
+def summarize(tag: str, per_kernel: dict) -> dict:
+    """Shares of the flash kernels and the GEMMs, and the top kernels."""
+    total = sum(per_kernel.values())
+    res = {"profiled_device_ms": total, "kernels": len(per_kernel),
+           "top": []}
+    if total <= 0:
+        print(f"{tag}: the profiler saw no device time", flush=True)
+        return res
+    groups = {fa.KERNEL: "flash_fwd_kernel",
+              fa.KERNEL_BWD_DKV: "flash_bwd_dkv_kernel",
+              fa.KERNEL_BWD_DQ: "flash_bwd_dq_kernel"}
+    res["ms_by_group"] = {g: sum(t for k, t in per_kernel.items() if m in k)
+                          for g, m in groups.items()}
+    res["ms_by_group"]["gemm"] = sum(t for k, t in per_kernel.items()
+                                     if "gemm" in k.lower())
+    res["ms_by_group"]["other"] = total - sum(res["ms_by_group"].values())
+    for k, t in sorted(per_kernel.items(), key=lambda r: -r[1])[:8]:
+        res["top"].append({"kernel": k[:90], "ms": t, "share": t / total})
+        print(f"  {t:9.3f} ms {t / total:6.1%}  {k[:90]}", flush=True)
+    print(f"{tag}: {total:.3f} ms of device time in {len(per_kernel)} "
+          "kernels; " + ", ".join(f"{g} {t:.3f} ms ({t / total:.1%})"
+                                  for g, t in res["ms_by_group"].items()),
+          flush=True)
+    return res
+
+
 def phase_profile(model, B: int = 32, L: int = 512) -> dict:
     """Device time of one BERT forward at the largest bucket, and its
     split by kernel from ``torch.profiler`` (self device time)."""
@@ -359,38 +572,104 @@ def phase_profile(model, B: int = 32, L: int = 512) -> dict:
     vl = torch.full((B,), float(L), device="cuda")
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model(ids, tt, vl), target_ms=300.0)
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model(ids, tt, vl)
-            torch.cuda.synchronize()
-    # device-side events only (CPU ops also carry their kernels' time)
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
-                                  + e.time_range.elapsed_us())
-    rows = list(per_kernel.items())
-    total = sum(t for _, t in rows)
-    res = {"bucket": [B, L], "forward_ms": fwd_ms,
-           "profiled_device_ms": total / 1e3, "kernels": len(rows), "top": []}
+        _, per_kernel = device_split(lambda: model(ids, tt, vl))
     print(f"profile: forward at bucket (batch {B}, seq {L}): {fwd_ms:.3f} ms "
           f"(CUDA events)", flush=True)
-    if total <= 0:
-        print("profile: the profiler saw no device time", flush=True)
-        return res
-    flash = sum(t for k, t in rows if "flash_fwd_kernel" in k)
-    gemm = sum(t for k, t in rows if "gemm" in k.lower())
-    res.update(flash_share=flash / total, gemm_share=gemm / total)
-    for k, t in sorted(rows, key=lambda r: -r[1])[:6]:
-        res["top"].append({"kernel": k[:90], "ms": t / 1e3,
-                           "share": t / total})
-        print(f"  {t / 1e3:9.3f} ms {t / total:6.1%}  {k[:90]}", flush=True)
-    print(f"profile: {total / 1e3:.3f} ms of device time in {len(rows)} "
-          f"kernels; flash_attention_fwd {flash / total:.1%}, GEMMs "
-          f"{gemm / total:.1%}", flush=True)
+    res = {"bucket": [B, L], "forward_ms": fwd_ms}
+    res.update(summarize("profile", per_kernel))
     return res
+
+
+def phase_train() -> dict:
+    """The port bench at full width and depth: its JSON line, the loss
+    trajectory, the kernels' launches per step, and one step split by
+    kernel."""
+    t0 = time.perf_counter()
+    trainer, batch, info = bench.build("cuda")
+    print(f"train: {info['model']} bfloat16, {info['params']} parameters, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    steps = int(getenv("MXTPU_BENCH_STEPS"))
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    dt, losses = bench.measure(trainer, batch, steps)
+    launches = cuda_ops.launch_counts()
+    losses = [float(x) for x in losses]
+    record = bench.result(info, dt, losses)
+    print(json.dumps(record), flush=True)
+    n_steps, n_layers = len(losses), info["cfg"]["num_layers"]
+    check(all(onp.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(bool(trainer.last_finite), "the last step's loss or gradient "
+          "norm is not finite")
+    for name, n in launches.items():
+        check(n == n_layers * n_steps, f"{name} launched {n} times in "
+              f"{n_steps} steps of {n_layers} layers")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {n_steps} "
+          f"steps, grad norm {trainer.last_grad_norm:.4f}, launches "
+          f"{launches}, peak memory {peak_gb:.2f} GiB", flush=True)
+    placed = trainer.place(*batch)
+    wall, per_kernel = device_split(lambda: trainer.step(*placed))
+    res = {"record": record, "losses": losses, "launches": launches,
+           "steps": n_steps, "peak_memory_gib": peak_gb,
+           "profiled_step_wall_ms": wall}
+    res.update(summarize("train profile", per_kernel))
+    busy = res["profiled_device_ms"]
+    res["device_idle_share"] = max(0.0, 1.0 - busy / wall)
+    print(f"train profile: one step {wall:.3f} ms wall under the profiler, "
+          f"device busy {busy:.3f} ms, idle share "
+          f"{res['device_idle_share']:.1%}", flush=True)
+    return res
+
+
+def phase_train_grads(num_layers: int = 2) -> dict:
+    """One step's parameter gradients on the kernels against the plain
+    attention path: BERT-base width, ``num_layers`` layers, float32,
+    dropout 0, the bench's batch."""
+    net = models.get_bert("bert_12_768_12", vocab_size=bench.VOCAB,
+                          max_length=TRAIN_SHAPE[1], dropout=0.0,
+                          dtype="float32", device="cuda",
+                          num_layers=num_layers)
+    batch = [torch.from_numpy(a).cuda() for a in bench.make_batch(
+        *TRAIN_SHAPE)]
+
+    def step():
+        net.zero_grad(set_to_none=True)
+        net.train()
+        loss = models.bert_pretrain_loss(net(*batch[:4]), *batch[4:])
+        loss.backward()
+        return loss.detach().item(), {n: p.grad.detach().clone()
+                             for n, p in net.named_parameters()}
+
+    cuda_ops.reset_launches()
+    loss_k, grads_k = step()
+    launches = cuda_ops.launch_counts()
+    for name, n in launches.items():
+        check(n == num_layers, f"{name} launched {n} times in one step of "
+              f"{num_layers} layers")
+    os.environ["MXTPU_ATTN_IMPL"] = "xla"
+    try:
+        loss_x, grads_x = step()
+    finally:
+        del os.environ["MXTPU_ATTN_IMPL"]
+    check(cuda_ops.launch_counts() == launches,
+          "impl='xla' reached a kernel")
+    worst, worst_name = 0.0, ""
+    for name, gx in grads_x.items():
+        ratio = ((grads_k[name] - gx).abs().max()
+                 / gx.abs().max().clamp_min(1e-30)).item()
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    loss_err = abs(loss_k - loss_x)
+    print(f"train gradients: {len(grads_x)} parameters, {num_layers} layers "
+          f"at full width, kernels vs plain attention: worst max abs err / "
+          f"max |grad| {worst:.2e} ({worst_name}, tol {GRAD_RTOL}), loss "
+          f"{loss_k:.6f} vs {loss_x:.6f}", flush=True)
+    check(worst <= GRAD_RTOL, f"gradients differ: {worst} at {worst_name}")
+    check(loss_err <= 1e-5 * abs(loss_x), f"loss differs by {loss_err}")
+    return {"layers": num_layers, "worst_rel_err": worst,
+            "worst_param": worst_name, "loss_kernels": loss_k,
+            "loss_plain": loss_x, "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -424,26 +703,43 @@ def main(argv=None) -> int:
 
     results = []
     main_rec = phase_kernels(results)
+    main_bwd = phase_kernels_bwd(results)
     served = phase_serve(N_REQUESTS, OFFERED_RATE, args.seed)
     profiled = phase_profile(served.pop("model"))
+    trained = phase_train()
+    grads = phase_train_grads()
 
-    f32 = [r["max_abs_err"] for r in results if r["dtype"] == "float32"]
-    bf16 = [r["max_abs_err"] for r in results if r["dtype"] == "bfloat16"]
-    kernels = [{
-        "name": fa.KERNEL, "route": "cuda",
-        "source": "incubator_mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "incubator_mxnet_tpu/ops/pallas/flash_attention.py:273",
-        "launches": served["launches"][fa.KERNEL],
-        "max_abs_err": max(f32), "max_abs_err_bf16": max(bf16),
-        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"],
-        "shape": [main_rec[k] for k in ("B", "H", "Lq", "Lk", "D")],
-        "dtype": main_rec["dtype"]}]
+    def worst(name, dtype):
+        return max(r["max_abs_err"] for r in results
+                   if r["kernel"] == name and r["dtype"] == dtype)
+
+    sources = {fa.KERNEL: ("flash_attention_fwd.cu", 273),
+               fa.KERNEL_BWD_DKV: ("flash_attention_bwd_dkv.cu", 450),
+               fa.KERNEL_BWD_DQ: ("flash_attention_bwd_dq.cu", 487)}
+    timed = dict(main_bwd, **{fa.KERNEL: main_rec})
+    kernels = []
+    for name, (src, line) in sources.items():
+        rec = timed[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"incubator_mxnet_tpu_torch/csrc/{src}",
+            "replaces": "incubator_mxnet_tpu/ops/pallas/flash_attention.py:"
+                        f"{line}",
+            "launches": trained["launches"][name],
+            "launches_by_path": {"serve": served["launches"][name],
+                                 "train": trained["launches"][name]},
+            "max_abs_err": worst(name, "float32"),
+            "max_abs_err_bf16": worst(name, "bfloat16"),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            "shape": [rec[k] for k in ("B", "H", "Lq", "Lk", "D")],
+            "dtype": rec["dtype"]})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernel_cases": results,
                        "serve": served, "profile": profiled,
+                       "train": trained, "train_gradients": grads,
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

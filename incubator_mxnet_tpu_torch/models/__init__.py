@@ -1,6 +1,8 @@
 """Model zoo of the port (JAX counterpart: ``models/__init__.py``)."""
 from . import bert, transformer  # noqa: F401
-from .bert import BERT_CONFIGS, BERTEncoder, BERTModel, get_bert  # noqa: F401
+from .bert import (  # noqa: F401
+    BERT_CONFIGS, BERTEncoder, BERTModel, bert_pretrain_loss, get_bert,
+)
 from .transformer import (  # noqa: F401
     MultiHeadAttention, PositionwiseFFN, TransformerEncoderCell,
 )

@@ -8,8 +8,8 @@ as GluonNLP's BERTModel::
 Module and parameter names follow the JAX prefixes (``word_embed``,
 ``encoder.layer0.attn.qkv.weight`` for ``encoder_layer0_attn_qkv_weight``,
 ``nsp`` for the NSP classifier) so that ``convert.params_from_jax`` maps
-them one to one. Remat, the sharding rules and the pretraining loss come
-with the training slice.
+them one to one. :func:`bert_pretrain_loss` is the MLM + NSP loss of the
+pretraining step. Remat and the sharding rules come with later slices.
 """
 from __future__ import annotations
 
@@ -20,12 +20,14 @@ from torch import nn
 
 from ..base import torch_dtype
 from ..context import resolve_device
+from ..gluon.loss import SoftmaxCrossEntropyLoss
 from ..initializer import initialize
 from ..nn import Dense, Dropout, Embedding, LayerNorm
 from ..ops.nn import fully_connected
 from .transformer import TransformerEncoderCell
 
-__all__ = ["BERTEncoder", "BERTModel", "get_bert", "BERT_CONFIGS"]
+__all__ = ["BERTEncoder", "BERTModel", "get_bert", "bert_pretrain_loss",
+           "BERT_CONFIGS"]
 
 #: GluonNLP model-name convention: bert_<layers>_<units>_<heads>
 #: (JAX counterpart: ``models/bert.py:28``)
@@ -167,3 +169,17 @@ def get_bert(name_or_cfg="bert_12_768_12", vocab_size: int = 30522,
                       dropout=dropout, dtype=dtype, **cfg)
     initialize(model, generator=generator)
     return model.to(dev)
+
+
+def bert_pretrain_loss(outputs, mlm_labels, mlm_weights, nsp_labels):
+    """Combined MLM + NSP loss (JAX counterpart: ``models/bert.py:245``).
+
+    ``outputs`` is the BERTModel 4-tuple; ``mlm_labels``/``mlm_weights``
+    (B, P) with weight 0 on padding positions; ``nsp_labels`` (B,). Labels
+    are class indices given as float."""
+    _, _, nsp_scores, mlm_scores = outputs
+    ce = SoftmaxCrossEntropyLoss()
+    mlm = ce(mlm_scores, mlm_labels, mlm_weights.unsqueeze(-1))
+    denom = mlm_weights.mean() + 1e-8
+    nsp = ce(nsp_scores, nsp_labels)
+    return mlm.mean() / denom + nsp.mean()

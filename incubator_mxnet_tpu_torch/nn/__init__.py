@@ -1,4 +1,4 @@
 """Layers of the port (JAX counterpart: ``gluon/nn/``)."""
 from .basic_layers import (  # noqa: F401
-    Activation, Dense, Dropout, Embedding, LayerNorm,
+    Activation, Dense, Dropout, Embedding, LayerNorm, set_dropout_generator,
 )

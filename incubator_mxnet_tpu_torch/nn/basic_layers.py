@@ -18,7 +18,8 @@ from torch import nn
 from ..base import torch_dtype
 from ..ops import nn as F
 
-__all__ = ["Activation", "Dense", "Dropout", "LayerNorm", "Embedding"]
+__all__ = ["Activation", "Dense", "Dropout", "LayerNorm", "Embedding",
+           "set_dropout_generator"]
 
 
 class Activation(nn.Module):
@@ -80,6 +81,19 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         u = torch.rand(x.shape, generator=self.generator, device=x.device)
         return x * (u < keep).to(x.dtype) / keep
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: Optional[torch.Generator]) -> int:
+    """Make every :class:`Dropout` inside ``module`` draw from
+    ``generator`` (one generator on the module's device, seeded by the
+    caller, e.g. the trainer); returns how many layers now use it."""
+    n = 0
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+            n += 1
+    return n
 
 
 class LayerNorm(nn.Module):

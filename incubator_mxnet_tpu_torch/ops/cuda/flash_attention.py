@@ -1,22 +1,29 @@
-"""Blockwise (flash) attention forward: the Hopper kernel's wrapper and its
-plain PyTorch version.
+"""Blockwise (flash) attention, forward and backward: the Hopper kernels'
+wrappers, their plain PyTorch versions and the autograd entry.
 
 Counterpart: the JAX package's ``ops/pallas/flash_attention.py`` — the
 Pallas forward kernel ``_fwd_kernel`` (``:181``) launched by ``_fwd``
-(``:245``, ``pl.pallas_call`` at ``:273``) and the public
-``flash_attention`` (``:556``). The kernel itself is
-``csrc/flash_attention_fwd.cu``; its source notes what bounds it and how
-it is laid out.
+(``:245``, ``pl.pallas_call`` at ``:273``), the backward kernels
+``_bwd_dkv_kernel`` (``:299``) and ``_bwd_dq_kernel`` (``:359``) launched
+by ``_bwd`` (``:410``, ``pl.pallas_call`` at ``:450`` and ``:487``), the
+custom VJP ``_flash`` (``:507-525``) and the public ``flash_attention``
+(``:556``). The kernels are ``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd_dkv.cu`` and ``csrc/flash_attention_bwd_dq.cu``;
+their sources note what bounds them and how they are laid out.
 
-Routing: a tensor on the card goes to the kernel, which launches or
-raises; a tensor on the CPU goes to :func:`flash_attention_reference`. The
-backward kernels (``_bwd`` at ``:410``) come with the training slice, so
-a call on tensors that require grad raises ``NotImplementedError``.
+Routing: a tensor on the card goes to the kernels, which launch or raise; a
+tensor on the CPU goes to the plain versions
+(:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`). :func:`flash_attention` records the
+backward (:class:`FlashAttentionFunction`) when grad is enabled and q, k or
+v requires it; under ``torch.no_grad()`` or ``torch.inference_mode()`` it
+runs the forward alone.
 
 A row that sees no key at all (every key masked, or hidden by the causal
 band) gives ``o = 0`` and ``lse = -1e30 + log(1e-30)``: hidden scores add
 nothing to the softmax sum, which is then floored at ``1e-30``
-(``flash_attention.py:226``).
+(``flash_attention.py:226``). Its probabilities are 0 in the backward, so
+it gets ``dq = 0`` and adds nothing to ``dk``/``dv``, as in the JAX
+backward (``:330``).
 """
 from __future__ import annotations
 
@@ -24,24 +31,47 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
 from ...util import getenv
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_reference", "flash_supported",
-           "KERNEL", "SUPPORTED_HEAD_DIMS", "MAX_TILE"]
+__all__ = ["flash_attention", "flash_attention_reference",
+           "flash_attention_bwd_reference",
+           "flash_attention_bwd_dkv_reference",
+           "flash_attention_bwd_dq_reference", "flash_supported",
+           "FlashAttentionFunction", "KERNEL", "KERNEL_BWD_DKV",
+           "KERNEL_BWD_DQ", "KERNELS", "SUPPORTED_HEAD_DIMS", "MAX_TILE",
+           "launches"]
 
 _NEG = -1e30
 KERNEL = "flash_attention_fwd"
-#: head dims the kernel is instantiated for
+KERNEL_BWD_DKV = "flash_attention_bwd_dkv"
+KERNEL_BWD_DQ = "flash_attention_bwd_dq"
+#: every kernel of this module, each built from ``csrc/<name>.cu``
+KERNELS = (KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
+#: head dims the kernels are instantiated for
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
-#: largest tile (query rows per block, keys per K/V tile) of the kernel
+#: largest tile (query rows or keys per tile) of the kernels
 MAX_TILE = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches of the CUDA kernel since import (or since a caller reset it)
-launches = 0
+#: kernel name -> launches of that CUDA kernel since import (or since a
+#: caller reset it)
+launches = {name: 0 for name in KERNELS}
+
+#: kernel name -> (C entry point, number of tensor pointers it takes: q, k,
+#: v, the key mask, then the fwd's o, lse or the bwd's dO, lse, delta and
+#: its outputs); each entry then takes dtype, B, H, Lq, Lk, D, bq, bk,
+#: scale, causal, window and the stream (see :func:`_launch`)
+_ENTRY = {
+    KERNEL: ("mxtpu_flash_attention_fwd", 6),
+    KERNEL_BWD_DKV: ("mxtpu_flash_attention_bwd_dkv", 9),
+    KERNEL_BWD_DQ: ("mxtpu_flash_attention_bwd_dq", 8),
+}
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_TAIL = [_I32] * 8 + [ctypes.c_float, _I32, _I32, _PTR]
 
 
 def _as_key_mask(mask, B, H, Lq, Lk):
@@ -58,11 +88,11 @@ def _as_key_mask(mask, B, H, Lq, Lk):
 
 
 def flash_supported(q, k, v, mask=None) -> bool:
-    """Does the kernel take these inputs? Head dim in
+    """Do the kernels take these inputs? Head dim in
     :data:`SUPPORTED_HEAD_DIMS`, one dtype of float32/bfloat16 for q, k and
     v, contiguous ``(B, H, L, D)`` layouts and a key-padding mask (JAX
     counterpart: ``flash_attention.py:73``). Any sequence length is taken:
-    the kernel masks the ragged last tile itself."""
+    the kernels mask the ragged last tile themselves."""
     if not _kernel_takes(q, k, v):
         return False
     B, H, Lq, _ = q.shape
@@ -95,11 +125,29 @@ def _band(Lq, Lk, window, device):
     return live
 
 
+def _visible(q, Lk, mask, causal, window):
+    """Broadcastable (B, 1, Lq, Lk) visibility of each (query, key) pair
+    from a key-padding mask and the causal band, or None when every pair is
+    visible."""
+    B, H, Lq, _ = q.shape
+    key_mask = _as_key_mask(mask, B, H, Lq, Lk)
+    if mask is not None and key_mask is None:
+        raise ValueError("flash_attention supports key-padding masks "
+                         "(B, Lk) / (B,1,1,Lk); use the XLA path otherwise")
+    visible = None
+    if key_mask is not None:
+        visible = key_mask.to(torch.bool)[:, None, None, :]
+    if causal:
+        band = _band(Lq, Lk, window, q.device)
+        visible = band if visible is None else visible & band
+    return visible
+
+
 def flash_attention_reference(q, k, v, mask=None, causal: bool = False,
                               scale: Optional[float] = None,
                               window: Optional[int] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: returns ``(o, lse)``.
+    """Plain PyTorch version of the forward kernel: returns ``(o, lse)``.
 
     The same function as the kernel and as the JAX forward
     (``flash_attention.py:181-228``), written over whole rows instead of
@@ -107,20 +155,10 @@ def flash_attention_reference(q, k, v, mask=None, causal: bool = False,
     with ``-1e30`` and given zero probability, ``p`` cast to ``v``'s dtype
     before the ``p @ v`` product with fp32 accumulation, ``o`` in ``q``'s
     dtype and ``lse`` in fp32. Rows that see no key give ``o = 0``."""
-    B, H, Lq, D = q.shape
-    Lk = k.shape[2]
+    D = q.shape[-1]
     scale = (D ** -0.5) if scale is None else float(scale)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    visible = None
-    key_mask = _as_key_mask(mask, B, H, Lq, Lk)
-    if mask is not None and key_mask is None:
-        raise ValueError("flash_attention supports key-padding masks "
-                         "(B, Lk) / (B,1,1,Lk); use the XLA path otherwise")
-    if key_mask is not None:
-        visible = key_mask.to(torch.bool)[:, None, None, :]
-    if causal:
-        band = _band(Lq, Lk, window, q.device)
-        visible = band if visible is None else visible & band
+    visible = _visible(q, k.shape[2], mask, causal, window)
     if visible is not None:
         s = s.masked_fill(~visible, _NEG)
     m = s.amax(dim=-1, keepdim=True)
@@ -134,6 +172,71 @@ def flash_attention_reference(q, k, v, mask=None, causal: bool = False,
     return o, lse
 
 
+def _bwd_probs(q, k, key_mask, causal, scale, window, lse):
+    """fp32 ``p = exp(q k^T * scale - lse)`` on visible pairs, 0 on hidden
+    ones (by the visibility predicate, not by the value of a filled
+    score)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    visible = _visible(q, k.shape[2], key_mask, causal, window)
+    return p if visible is None else p.masked_fill(~visible, 0.0)
+
+
+def _bwd_ds(p, v, do, delta, scale, dtype):
+    """``dS = p * (dO v^T - delta) * scale`` rounded to ``dtype``."""
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return (p * (dp - delta.float()[..., None]) * scale).to(dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, key_mask, causal, scale,
+                                      window, lse, do, delta
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dK/dV kernel (JAX counterpart:
+    ``_bwd_dkv_kernel``, ``flash_attention.py:299-350``): ``p`` rounded to
+    dO's dtype before ``p^T dO``, ``dS`` to q's dtype before ``dS^T q``,
+    fp32 accumulation, ``dk``/``dv`` in k's/v's dtype."""
+    p = _bwd_probs(q, k, key_mask, causal, scale, window, lse)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    ds = _bwd_ds(p, v, do, delta, scale, q.dtype)
+    dk = torch.matmul(ds.float().transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_reference(q, k, v, key_mask, causal, scale, window,
+                                     lse, do, delta) -> torch.Tensor:
+    """Plain version of the dQ kernel (JAX counterpart: ``_bwd_dq_kernel``,
+    ``flash_attention.py:359-401``): ``dS`` rounded to k's dtype before
+    ``dS k``, fp32 accumulation, ``dq`` in q's dtype."""
+    p = _bwd_probs(q, k, key_mask, causal, scale, window, lse)
+    ds = _bwd_ds(p, v, do, delta, scale, k.dtype)
+    return torch.matmul(ds.float(), k.float()).to(q.dtype)
+
+
+def _delta(o, do):
+    """``rowsum(dO * o)`` in fp32 (JAX counterpart:
+    ``flash_attention.py:416``)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_reference(q, k, v, key_mask, causal, scale, window,
+                                  o, lse, do, delta=None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain PyTorch version of the backward: ``(dq, dk, dv)``.
+
+    The same function as the JAX ``_bwd`` (``flash_attention.py:410-500``)
+    over whole rows: the two kernels' plain versions on ``delta``, which is
+    ``rowsum(dO * o)`` when not given (a caller folding an lse cotangent in
+    passes ``delta - dlse``, ``:417-422``)."""
+    if delta is None:
+        delta = _delta(o, do)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, key_mask, causal,
+                                               scale, window, lse, do, delta)
+    dq = flash_attention_bwd_dq_reference(q, k, v, key_mask, causal, scale,
+                                          window, lse, do, delta)
+    return dq, dk, dv
+
+
 def _tile(name: str) -> int:
     raw = getenv(name)
     t = int(raw) if raw else MAX_TILE
@@ -143,71 +246,143 @@ def _tile(name: str) -> int:
     return t
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
-    fn = lib.mxtpu_flash_attention_fwd
+def _library(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    entry, n_ptrs = _ENTRY[name]
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,       # q k v mask o lse
-                       i32, i32, i32, i32, i32, i32,       # dtype B H Lq Lk D
-                       i32, i32, ctypes.c_float,           # bq bk scale
-                       i32, i32, ptr]                      # causal win stream
+        fn.argtypes = [_PTR] * n_ptrs + _TAIL
         fn.restype = ctypes.c_int
         lib.mxtpu_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mxtpu_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _fwd_cuda(q, k, v, key_mask, causal, scale, window):
-    global launches
+def _check_inputs(name, q, k, v, do=None, lse=None, delta=None):
     if not _kernel_takes(q, k, v):
         raise MXNetError(
-            f"{KERNEL} does not take q{tuple(q.shape)}/{q.dtype}, "
+            f"{name} does not take q{tuple(q.shape)}/{q.dtype}, "
             f"k{tuple(k.shape)}/{k.dtype}, v{tuple(v.shape)}/{v.dtype} "
             f"(contiguous: {q.is_contiguous()}, {k.is_contiguous()}, "
             f"{v.is_contiguous()}): head dim in {SUPPORTED_HEAD_DIMS}, one "
             "dtype of float32/bfloat16, contiguous (B,H,L,D) tensors")
     if not (k.device == q.device and v.device == q.device):
         raise MXNetError("q, k and v must be on one device")
+    if do is not None and (do.shape != q.shape or do.dtype != q.dtype
+                           or not do.is_contiguous()
+                           or do.device != q.device):
+        raise MXNetError(f"{name}: dO must be a contiguous {q.dtype} tensor "
+                         f"of q's shape {tuple(q.shape)} on {q.device}, got "
+                         f"{tuple(do.shape)}/{do.dtype}")
+    for label, t in (("lse", lse), ("delta", delta)):
+        if t is not None and (tuple(t.shape) != tuple(q.shape[:3])
+                              or t.dtype != torch.float32
+                              or not t.is_contiguous()
+                              or t.device != q.device):
+            raise MXNetError(f"{name}: {label} must be a contiguous float32 "
+                             f"tensor of shape {tuple(q.shape[:3])} on "
+                             f"{q.device}")
+
+
+def _launch(name, q, k, v, key_mask, causal, scale, window, tensors):
+    """Launch kernel ``name`` on the current stream of q's device over q,
+    k, v, the key mask (as int32, or null) and ``tensors`` (its further
+    inputs and outputs in the C entry's order); raises on a refused launch,
+    else counts it."""
     B, H, Lq, D = q.shape
-    Lk = k.shape[2]
-    km = None
-    if key_mask is not None:
-        km = key_mask.to(device=q.device, dtype=torch.int32).contiguous()
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    bq, bk = _tile("MXTPU_FLASH_BQ"), _tile("MXTPU_FLASH_BK")
-    lib = _library()
+    mask = None if key_mask is None else key_mask.to(
+        device=q.device, dtype=torch.int32).contiguous()
+    lib = _library(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.mxtpu_flash_attention_fwd(
+        err = getattr(lib, _ENTRY[name][0])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            km.data_ptr() if km is not None else None,
-            o.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
-            B, H, Lq, Lk, D, bq, bk, float(scale), int(bool(causal)),
+            None if mask is None else mask.data_ptr(),
+            *(t.data_ptr() for t in tensors), _DTYPE_CODES[q.dtype], B, H,
+            Lq, k.shape[2], D, _tile("MXTPU_FLASH_BQ"),
+            _tile("MXTPU_FLASH_BK"), float(scale), int(bool(causal)),
             int(window or 0), stream)
     if err != 0:
         msg = lib.mxtpu_cuda_error_string(err).decode()
-        raise MXNetError(f"{KERNEL} launch failed: {msg} (cuda error {err})")
-    launches += 1
+        raise MXNetError(f"{name} launch failed: {msg} (cuda error {err})")
+    launches[name] += 1
+
+
+def _fwd_cuda(q, k, v, key_mask, causal, scale, window):
+    _check_inputs(KERNEL, q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch(KERNEL, q, k, v, key_mask, causal, scale, window, (o, lse))
     return o, lse
+
+
+def _bwd_dkv_cuda(q, k, v, key_mask, causal, scale, window, lse, do, delta):
+    """dK, dV on the card (kernel ``flash_attention_bwd_dkv``)."""
+    _check_inputs(KERNEL_BWD_DKV, q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(KERNEL_BWD_DKV, q, k, v, key_mask, causal, scale, window,
+            (do, lse, delta, dk, dv))
+    return dk, dv
+
+
+def _bwd_dq_cuda(q, k, v, key_mask, causal, scale, window, lse, do, delta):
+    """dQ on the card (kernel ``flash_attention_bwd_dq``)."""
+    _check_inputs(KERNEL_BWD_DQ, q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    _launch(KERNEL_BWD_DQ, q, k, v, key_mask, causal, scale, window,
+            (do, lse, delta, dq))
+    return dq
 
 
 def _fwd(q, k, v, key_mask, causal, scale, window=None):
     """``(o, lse)`` for a (B, Lk) key mask or None (JAX counterpart:
     ``flash_attention.py:245``): the kernel for a tensor on the card, the
     plain version for one on the CPU."""
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention has no backward yet: the dK/dV and dQ kernels "
-            "come with the training slice; call it under torch.no_grad() "
-            "or torch.inference_mode()")
     if q.is_cuda:
         return _fwd_cuda(q, k, v, key_mask, causal, scale, window)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, key_mask, causal, scale,
                                          window)
     raise MXNetError(f"flash_attention runs on cuda or cpu, not {q.device}")
+
+
+def _bwd(q, k, v, key_mask, causal, scale, window, lse, do, delta):
+    """``(dq, dk, dv)`` from the forward's ``lse`` and the caller's
+    ``delta`` (JAX counterpart: ``flash_attention.py:410``): the two
+    kernels for tensors on the card, the plain version on the CPU."""
+    if q.is_cuda:
+        dk, dv = _bwd_dkv_cuda(q, k, v, key_mask, causal, scale, window, lse,
+                               do, delta)
+        dq = _bwd_dq_cuda(q, k, v, key_mask, causal, scale, window, lse, do,
+                          delta)
+        return dq, dk, dv
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, key_mask, causal, scale,
+                                             window, None, lse, do, delta)
+    raise MXNetError(f"flash_attention runs on cuda or cpu, not {q.device}")
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its backward on the dK/dV and dQ kernels (JAX
+    counterpart: the custom VJP ``_flash``, ``flash_attention.py:507-525``).
+    ``apply(q, k, v, key_mask, causal, scale, window)``; the forward saves
+    ``q, k, v, key_mask, o, lse``; the key mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, scale, window):
+        o, lse = _fwd(q, k, v, key_mask, causal, scale, window)
+        ctx.save_for_backward(q, k, v, key_mask, o, lse)
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, key_mask, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = _bwd(q, k, v, key_mask, ctx.causal, ctx.scale,
+                          ctx.window, lse, do, _delta(o, do))
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, mask=None, causal: bool = False,
@@ -217,7 +392,7 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     with an optional key-padding ``mask`` of shape (B, Lk) or (B,1,1,Lk)
     (1 = attend), bottom-right-aligned ``causal`` masking and a causal
     sliding ``window`` (JAX counterpart: ``flash_attention.py:556``; same
-    validation errors)."""
+    validation errors). Differentiable in q, k and v."""
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
@@ -232,5 +407,9 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     if mask is not None and key_mask is None:
         raise ValueError("flash_attention supports key-padding masks "
                          "(B, Lk) / (B,1,1,Lk); use the XLA path otherwise")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, key_mask, causal, scale,
+                                            window)
     o, _ = _fwd(q, k, v, key_mask, causal, scale, window)
     return o

@@ -1,15 +1,17 @@
-"""Environment-variable catalog for the knobs the port reads.
+"""Environment-variable catalog for the knobs the port reads, and the
+card's peak rate for MFU.
 
 Counterpart: the JAX package's ``util.py`` (``ENV_VARS`` at ``util.py:105``,
-``getenv`` at ``util.py:519``). Names and defaults are the same; only the
-knobs this slice reads are listed.
+``getenv`` at ``util.py:519``, ``peak_tflops`` at ``util.py:60-81``). Names
+and defaults are the same; only the knobs the port reads are listed.
 """
 from __future__ import annotations
 
 import os
 from typing import Dict, Optional
 
-__all__ = ["getenv", "ENV_VARS"]
+__all__ = ["getenv", "ENV_VARS", "peak_tflops", "PEAK_TFLOPS_BY_KIND",
+           "DEFAULT_PEAK_TFLOPS"]
 
 #: name -> (default, description)
 ENV_VARS: Dict[str, tuple] = {
@@ -28,7 +30,23 @@ ENV_VARS: Dict[str, tuple] = {
                        "unset = 64."),
     "MXTPU_FLASH_BK": ("", "Keys per flash-attention K/V tile, 1..64; "
                        "unset = 64."),
+    "MXTPU_PEAK_TFLOPS": ("", "Per-card bf16 peak TFLOP/s for MFU; unset = "
+                          "by device name (PEAK_TFLOPS_BY_KIND)."),
+    "MXTPU_BENCH_MODEL": ("bert_12_768_12", "BERT config of the port "
+                          "bench."),
+    "MXTPU_BENCH_BATCH": ("8", "Batch size of the port bench."),
+    "MXTPU_BENCH_SEQ": ("512", "Sequence length of the port bench."),
+    "MXTPU_BENCH_STEPS": ("20", "Timed training steps of the port bench."),
+    "MXTPU_BENCH_DROPOUT": ("0.1", "Dropout rate of the port bench's "
+                            "BERT."),
 }
+
+#: dense bf16 tensor-core peak TFLOP/s per card, keyed by a substring of
+#: ``torch.cuda.get_device_name()`` (NVIDIA data sheet, SXM part)
+PEAK_TFLOPS_BY_KIND = {"H100": 989.0}
+#: the peak for a card not in the table (or the CPU): the H100's, the card
+#: the port is written for, so a device-blind run stays deterministic
+DEFAULT_PEAK_TFLOPS = 989.0
 
 
 def getenv(name: str, default: Optional[str] = None) -> Optional[str]:
@@ -37,3 +55,17 @@ def getenv(name: str, default: Optional[str] = None) -> Optional[str]:
     if default is None and name in ENV_VARS:
         default = ENV_VARS[name][0]
     return os.environ.get(name, default)
+
+
+def peak_tflops() -> float:
+    """Per-card bf16 peak TFLOP/s for MFU accounting:
+    ``MXTPU_PEAK_TFLOPS`` when set, else by the name of CUDA device 0 in
+    :data:`PEAK_TFLOPS_BY_KIND`, else :data:`DEFAULT_PEAK_TFLOPS` (JAX
+    counterpart: ``util.py:68``)."""
+    env = os.environ.get("MXTPU_PEAK_TFLOPS")
+    if env:
+        return float(env)
+    import torch
+    kind = torch.cuda.get_device_name(0) if torch.cuda.is_available() else ""
+    return next((v for k, v in PEAK_TFLOPS_BY_KIND.items() if k in kind),
+                DEFAULT_PEAK_TFLOPS)

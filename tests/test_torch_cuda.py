@@ -8,9 +8,10 @@ themselves. On the card, from the root of a checkout::
 
 (``--noconftest``: the suite's ``conftest.py`` sets JAX up.)
 ``chip_smoke.py`` covers every sequence bucket; this file is the quick check.
-Tolerances as ``chip_smoke.py``: float32 (1e-5, 1e-5) for summation order;
-bfloat16 (1e-2, 1.6e-2) for the output's rounding (one ulp is 2**-8
-relative).
+Forward tolerances as ``chip_smoke.py``: float32 (1e-5, 1e-5) for summation
+order; bfloat16 (1e-2, 1.6e-2) for the output's rounding (one ulp is 2**-8
+relative). Backward: float32 (1e-4, 1e-4), dK/dV sum every query row's
+product in another order; bfloat16 (1e-2, 1.6e-2), the output's rounding.
 """
 import pytest
 import torch
@@ -18,13 +19,19 @@ import torch
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
 
+BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1.6e-2)}
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_card():
     """The flash-attention kernel against its plain version at BERT's
     shapes: key mask with an empty row, causal, causal + window."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc")
+    _card()
     g = torch.Generator(device="cuda").manual_seed(0)
     for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-5),
                               (torch.bfloat16, 1e-2, 1.6e-2)):
@@ -34,10 +41,10 @@ def test_kernel_matches_plain_version_on_card():
             vl = torch.tensor([0, 1, L // 2, L], device="cuda")
             km = (torch.arange(L, device="cuda")[None] < vl[:, None]).int()
             for causal, window in ((False, None), (True, None), (True, 5)):
-                before = fa.launches
+                before = fa.launches[fa.KERNEL]
                 o, lse = fa._fwd(q, k, v, km, causal, 0.125, window)
                 torch.cuda.synchronize()
-                assert fa.launches == before + 1
+                assert fa.launches[fa.KERNEL] == before + 1
                 ro, _ = fa.flash_attention_reference(q, k, v, km, causal,
                                                      0.125, window)
                 torch.testing.assert_close(o.float(), ro.float(), atol=atol,
@@ -45,3 +52,49 @@ def test_kernel_matches_plain_version_on_card():
                 assert (o[0] == 0).all()
     with pytest.raises(MXNetError, match="does not take"):
         fa._fwd(q.transpose(2, 3), k, v, None, False, 0.125)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_plain_version_on_card():
+    """The dK/dV and dQ kernels against the plain backward: key mask with
+    an empty row and a ragged length, causal + window across lengths; and
+    grads flow through ``flash_attention`` on the kernels."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = BWD_TOL[dtype]
+        for Lq, Lk, causal, window in ((77, 77, False, None),
+                                       (100, 160, True, 24)):
+            q, do = (torch.randn(4, 12, Lq, 64, device="cuda",
+                                 generator=g).to(dtype) for _ in range(2))
+            k, v = (torch.randn(4, 12, Lk, 64, device="cuda",
+                                generator=g).to(dtype) for _ in range(2))
+            vl = torch.tensor([0, 1, Lk // 2, Lk], device="cuda")
+            km = (torch.arange(Lk, device="cuda")[None] < vl[:, None]).int()
+            o, lse = fa.flash_attention_reference(q, k, v, km, causal, 0.125,
+                                                  window)
+            delta = fa._delta(o, do)
+            before = dict(fa.launches)
+            dk, dv = fa._bwd_dkv_cuda(q, k, v, km, causal, 0.125, window, lse,
+                                      do, delta)
+            dq = fa._bwd_dq_cuda(q, k, v, km, causal, 0.125, window, lse, do,
+                                 delta)
+            torch.cuda.synchronize()
+            assert fa.launches[fa.KERNEL_BWD_DKV] == \
+                before[fa.KERNEL_BWD_DKV] + 1
+            assert fa.launches[fa.KERNEL_BWD_DQ] == \
+                before[fa.KERNEL_BWD_DQ] + 1
+            want = fa.flash_attention_bwd_reference(q, k, v, km, causal,
+                                                    0.125, window, o, lse, do,
+                                                    delta)
+            for got, ref in zip((dq, dk, dv), want):
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           atol=atol, rtol=rtol)
+            assert (dq[0] == 0).all()           # a row that sees no key
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    before = dict(fa.launches)
+    fa.flash_attention(*leaves, causal=True).sum().backward()
+    assert all(fa.launches[n] == before[n] + 1 for n in fa.KERNELS)
+    with pytest.raises(MXNetError, match="dO must be"):
+        fa._bwd_dq_cuda(q, k, v, km, False, 0.125, None, lse, do.float(),
+                        delta)

@@ -75,7 +75,7 @@ def _compare(q, k, v, key_mask, causal, window):
                            jm, causal, scale, window)
     tm = None if key_mask is None else torch.from_numpy(key_mask)
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
-    before = fa.launches
+    before = dict(fa.launches)
     o, lse = fa.flash_attention_reference(tq, tk, tv, tm, causal, scale,
                                           window)
     mask4 = None if tm is None else tm[:, None, None, :]
@@ -194,9 +194,18 @@ def test_routing_and_guards(monkeypatch):
     monkeypatch.delenv("MXTPU_ATTN_IMPL")
     flash = attention.dot_product_attention(q64, k64, v64, impl="flash")
     torch.testing.assert_close(flash, xla, atol=ATOL, rtol=0)
-    # no backward until the training slice: refuse tensors that need grad
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa.flash_attention(q64.requires_grad_(), k64, v64)
+    # grads flow through flash_attention (its plain backward on the CPU)
+    # and equal torch autograd through the plain path
+    before = dict(fa.launches)
+    leaves = [x.clone().requires_grad_() for x in (q64, k64, v64)]
+    fa.flash_attention(*leaves).square().sum().backward()
+    want = [x.clone().requires_grad_() for x in (q64, k64, v64)]
+    attention.dot_product_attention(*want, impl="xla").square().sum() \
+        .backward()
+    for got, ref in zip(leaves, want):
+        assert got.grad is not None
+        torch.testing.assert_close(got.grad, ref.grad, atol=ATOL, rtol=0)
+    assert fa.launches == before  # CPU tensors never reach a kernel
     monkeypatch.setenv("MXTPU_FLASH_BQ", "65")
     with pytest.raises(ValueError, match="1..64"):
         fa._tile("MXTPU_FLASH_BQ")

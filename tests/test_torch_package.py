@@ -38,6 +38,13 @@ seq, pooled = b.submit(onp.arange(1, 6, dtype="int32"),
                        onp.array(5, "float32")).result(timeout=60)
 b.stop()
 assert tuple(seq.shape) == (5, 128) and tuple(pooled.shape) == (128,)
+from incubator_mxnet_tpu_torch import bench
+net = mt.models.get_bert("bert_2_128_2", vocab_size=50, max_length=16,
+                         device="cpu")
+tr = mt.parallel.ShardedTrainer(net, mt.models.bert_pretrain_loss, "adamw",
+                                device="cpu", n_labels=3)
+assert bool(tr.step(*bench.make_batch(2, 16, vocab=50)).isfinite())
+assert tr.last_finite and net.word_embed.weight.grad is not None
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
              or n == "incubator_mxnet_tpu"
@@ -48,6 +55,7 @@ print("OK")
 
 
 def test_port_imports_no_jax_and_serves():
+    """Serving and one training step on the CPU import no JAX."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", _GUARD], cwd=str(REPO),
                        env=env, capture_output=True, text=True, timeout=300)
