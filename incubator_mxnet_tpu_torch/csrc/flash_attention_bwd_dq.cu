@@ -19,15 +19,22 @@
 //
 // What bounds it on the H100: 6*B*H*D operations per visible (query, key)
 // pair (three products) against about 4*B*H*L*D*e bytes: bound by
-// arithmetic from short sequences up, on the CUDA cores' fp32 rate for both
-// input types in this version.
+// arithmetic from short sequences up, on the bf16 tensor cores for bf16 and
+// on the TF32 tensor cores at a third of their rate (3xTF32) for fp32.
 //
-// What this design does about it: one block of 128 threads per
-// (batch*head, 64-query tile) keeps Q, dO, lse, delta and the fp32 dQ
-// accumulator on chip for its whole loop over K/V tiles, so the score and dS
-// tiles never touch device memory. K/V tiles that no row of the block can
-// see are skipped (the forward's dead-tile skip). Scalar fp32 FMA; no TF32,
-// no tensor cores yet.
+// What this design does about it: one block of 4 warps per (batch*head,
+// 64-query tile) keeps Q, dO (in their input type), each row's lse and
+// delta and the fp32 dQ accumulator (registers) on chip for its whole loop
+// over K/V tiles, so the score and dS tiles never leave the registers. The
+// three products run on the tensor cores with `mma.sync`
+// (flash_attention_bwd.cuh: bf16 m16n8k16 through ldmatrix; fp32 as 3xTF32
+// m16n8k8): S = Q K^T and dP = dO V^T from shared memory, then dQ += dS K
+// with dS taken straight from the accumulators as the A operand. K, V and
+// the key mask stream through a two-stage ring of 64-key tiles filled by
+// cp.async, so the load of tile t+1 runs under the products of tile t. K/V
+// tiles that no row of the block can see are skipped (the forward's
+// dead-tile skip). `wgmma` is not used: its TF32 operands must be K-major
+// in shared memory, which dQ += dS K is not.
 
 #include "flash_attention_bwd.cuh"
 
@@ -35,10 +42,12 @@ namespace {
 
 using namespace mxtpu_flash_bwd;
 
-template <int D> constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(4 * kTile * (D + 1) + kTile * kPS +
-                                  2 * kTile) +
-         sizeof(int) * kTile;
+constexpr int kBK = 64;                  // keys per streamed tile
+
+template <typename T, int D> constexpr size_t smem_bytes() {
+  constexpr int LD = row_stride<T, D>();
+  return sizeof(T) * (size_t)(2 * kOwn + 4 * kBK) * LD +
+         sizeof(int32_t) * 2 * kBK;
 }
 
 template <typename T, int D>
@@ -50,41 +59,42 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq, int H,
                     int Lq, int Lk, int bq, int bk, float scale, int causal,
                     int window) {
-  constexpr int DP = D + 1;
-  constexpr int kDims = D / kTX;       // accumulator dims per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;                   // [kTile][DP] this block's queries
-  float* do_s = q_s + kTile * DP;      // [kTile][DP]
-  float* k_s = do_s + kTile * DP;      // [kTile][DP] current K/V tile
-  float* v_s = k_s + kTile * DP;       // [kTile][DP]
-  float* ds_s = v_s + kTile * DP;      // [kTile q][kPS] dS in k's type
-  float* lse_s = ds_s + kTile * kPS;   // [kTile]
-  float* delta_s = lse_s + kTile;      // [kTile]
-  int* keep_s = reinterpret_cast<int*>(delta_s + kTile);  // [kTile]
+  constexpr int LD = row_stride<T, D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);     // [kOwn][LD] this block's queries
+  T* do_s = q_s + kOwn * LD;               // [kOwn][LD]
+  T* k_s = do_s + kOwn * LD;               // [2][kBK][LD] K/V tile ring
+  T* v_s = k_s + 2 * kBK * LD;             // [2][kBK][LD]
+  int32_t* keep_s = reinterpret_cast<int32_t*>(v_s + 2 * kBK * LD);  // [2][kBK]
 
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX;
-  const int ty = tid / kTX;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int q0 = blockIdx.x * bq;
-  const int off = Lk - Lq;             // bottom-right causal alignment
+  const int off = Lk - Lq;               // bottom-right causal alignment
   const size_t q_base = (size_t)bh * Lq * D;
   const T* kb = k + (size_t)bh * Lk * D;
   const T* vb = v + (size_t)bh * Lk * D;
   const int32_t* maskb = key_mask ? key_mask + (size_t)b * Lk : nullptr;
 
-  load_rows<T, D>(q_s, q + q_base, q0, bq, Lq);
-  load_rows<T, D>(do_s, dout + q_base, q0, bq, Lq);
-  load_row_stats(lse_s, delta_s, lse + (size_t)bh * Lq,
-                 delta + (size_t)bh * Lq, q0, bq, Lq);
+  zero_pad_k16<T, D, 2 * kOwn + 4 * kBK>(q_s);  // every tile, bf16 D = 8
+  load_rows_async<T, D, kOwn>(q_s, q + q_base, q0, bq, Lq);
+  load_rows_async<T, D, kOwn>(do_s, dout + q_base, q0, bq, Lq);
 
-  // accumulator rows: query rows ty*kRows + i; dims tx + j*kTX
-  float acc[kRows][kDims];
+  // The thread's two query rows (accumulator rows g and g + 8 of its warp),
+  // with their lse and delta.
+  int qr[2];
+  bool row_in[2];
+  float lse_r[2], delta_r[2];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kDims; ++j) acc[i][j] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int row = warp * 16 + g + 8 * h;
+    qr[h] = q0 + row;
+    row_in[h] = row < bq && qr[h] < Lq;
+    lse_r[h] = row_in[h] ? lse[(size_t)bh * Lq + qr[h]] : 0.f;
+    delta_r[h] = row_in[h] ? delta[(size_t)bh * Lq + qr[h]] : 0.f;
+  }
 
   // Keys [k_lo, k_hi) are the only ones any row of this block can see.
   int k_lo = 0, k_hi = Lk;
@@ -93,57 +103,65 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     k_hi = min(Lk, q_last + off + 1);
     if (window > 0) k_lo = max(0, q0 + off - window + 1);
   }
+  const int first = (k_lo / bk) * bk;
+  const int n_tiles = k_hi > first ? (k_hi - first + bk - 1) / bk : 0;
 
-  for (int t0 = (k_lo / bk) * bk; t0 < k_hi; t0 += bk) {
-    __syncthreads();  // the previous tile's K, V and dS are no longer read
-    load_rows<T, D>(k_s, kb, t0, bk, Lk);
-    load_rows<T, D>(v_s, vb, t0, bk, Lk);
-    load_keep(keep_s, maskb, t0, bk, Lk);
-    __syncthreads();
+  auto issue = [&](int i) {
+    const int t0 = first + i * bk, st = i & 1;
+    load_rows_async<T, D, kBK>(k_s + st * kBK * LD, kb, t0, bk, Lk);
+    load_rows_async<T, D, kBK>(v_s + st * kBK * LD, vb, t0, bk, Lk);
+    if (maskb) load_vec_async<kBK>(keep_s + st * kBK, maskb, t0, bk, Lk);
+  };
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();
 
-    float s[kRows][kCols], dp[kRows][kCols];
-    scores_and_dp<D>(q_s, do_s, k_s, v_s, ty, tx, s, dp);
+  float acc[D / 8][4];
+  zero(acc);
+  const T* q_w = q_s + warp * 16 * LD;
+  const T* do_w = do_s + warp * 16 * LD;
 
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t0 = first + i * bk, st = i & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile i is in; every warp is done with tile i - 1
+    if (i + 1 < n_tiles) issue(i + 1);
+    cp_async_commit();
+
+    const T* k_t = k_s + st * kBK * LD;
+    const T* v_t = v_s + st * kBK * LD;
+    const int32_t* keep_t = keep_s + st * kBK;
+
+    // S and dP (queries x keys), then dS in place of S
+    float s[kBK / 8][4], dp[kBK / 8][4];
+    zero(s);
+    zero(dp);
+    mma_rows_nk<kBK, D, LD>(s, q_w, k_t);
+    mma_rows_nk<kBK, D, LD>(dp, do_w, v_t);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = ty * kRows + i;
-      const int r = q0 + row;
-      const bool row_in = row < bq && r < Lq;
-      const float l = lse_s[row];
-      const float dl = delta_s[row];
+    for (int nb = 0; nb < kBK / 8; ++nb) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + j * kTX;
-        const bool keep =
-            row_in && keep_s[c] != 0 && in_band(r, t0 + c, off, causal, window);
-        const float p = keep ? expf(s[i][j] * scale - l) : 0.f;
-        ds_s[row * kPS + c] = round_to<T>(p * (dp[i][j] - dl) * scale);
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int col = nb * 8 + 2 * t + (e & 1);
+        const int kc = t0 + col;
+        const bool vis = row_in[h] && col < bk && kc < Lk &&
+                         (maskb == nullptr || keep_t[col] != 0) &&
+                         in_band(qr[h], kc, off, causal, window);
+        const float p = vis ? expf(s[nb][e] * scale - lse_r[h]) : 0.f;
+        s[nb][e] = p * (dp[nb][e] - delta_r[h]) * scale;
       }
     }
-    __syncthreads();
-
-    const int nc = min(bk, Lk - t0);
-    for (int c = 0; c < nc; ++c) {
-      float sv[kRows], kv[kDims];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) sv[i] = ds_s[(ty * kRows + i) * kPS + c];
-#pragma unroll
-      for (int j = 0; j < kDims; ++j) kv[j] = k_s[c * DP + tx + j * kTX];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kDims; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
-    }
+    mma_creg_kn<D, kBK, LD>(acc, s, k_t);
   }
+  cp_async_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = ty * kRows + i;
-    const int r = q0 + row;
-    if (row < bq && r < Lq) {
+  for (int h = 0; h < 2; ++h) {
+    if (row_in[h]) {
 #pragma unroll
-      for (int j = 0; j < kDims; ++j)
-        dq[q_base + (size_t)r * D + tx + j * kTX] = from_float<T>(acc[i][j]);
+      for (int nb = 0; nb < D / 8; ++nb)
+        store2(dq + q_base + (size_t)qr[h] * D + nb * 8 + 2 * t,
+               acc[nb][2 * h], acc[nb][2 * h + 1]);
     }
   }
 }
@@ -154,7 +172,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* delta, void* dq, int B, int H, int Lq, int Lk,
                    int bq, int bk, float scale, int causal, int window,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+  if (bq == 0) bq = kOwn;
+  if (bk == 0) bk = kBK;
+  if (bq < 1 || bq > kOwn || bk < 1 || bk > kBK) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -195,9 +216,10 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q, dout (B,H,Lq,D), k, v (B,H,Lk,D) contiguous, all of one dtype
-// (0 = float32, 1 = bfloat16); key_mask int32 (B,Lk) contiguous or null;
-// lse, delta float32 (B,H,Lq); dq like q. bq, bk: tile sizes in [1, 64];
+// q, dout (B,H,Lq,D), k, v (B,H,Lk,D) contiguous and 16-byte aligned, all of
+// one dtype (0 = float32, 1 = bfloat16); key_mask int32 (B,Lk) contiguous
+// or null; lse, delta float32 (B,H,Lq); dq like q. bq: query rows per
+// block, bk: keys per streamed tile, both in [1, 64]; 0 takes the largest.
 // window <= 0 means no window. Returns the CUDA error code (0 = launched).
 int mxtpu_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* key_mask, const void* dout,
@@ -205,8 +227,7 @@ int mxtpu_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                  int dtype, int B, int H, int Lq, int Lk, int D,
                                  int bq, int bk, float scale, int causal,
                                  int window, void* stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || bq < 1 || bq > kTile || bk < 1 ||
-      bk > kTile || (long long)B * H > 65535)
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

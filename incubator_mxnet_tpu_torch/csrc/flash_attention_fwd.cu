@@ -10,8 +10,13 @@
 //   online softmax over K/V tiles: m, l, acc kept in fp32;
 //   p   = exp(s - m) on visible entries, 0 on hidden ones;
 //   acc += cast(p, V's dtype) . v               fp32 accumulate
-//   o   = acc / max(l, 1e-30)  in q's dtype     (a row that sees no key -> 0)
+//   o   = acc / l  in q's dtype
 //   lse = m + log(max(l, 1e-30))                fp32
+// A row that sees no key (l = 0 at the end) outputs the mean of V over all
+// Lk keys, the uniform softmax that the reference gives over scores all
+// filled with -1e30, and lse = -1e30. Such a row costs one extra pass over
+// V, taken only by a block that holds one: rows that see a key pay nothing
+// for it, and the dead-tile skip stays.
 // Causal masking is bottom-right aligned (col <= row + Lk - Lq); a sliding
 // window additionally keeps col > row + Lk - Lq - window. K/V tiles that no
 // row of the block can see are never loaded (the TPU kernel's dead-tile skip).
@@ -218,6 +223,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  // Rows that see no key: the column sums of V over all Lk keys, from one
+  // extra pass (kThreads / D groups of keys, one dim per thread), into p_s.
+  bool empty = false;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+    empty |= ty * kRows + i < bq && q0 + ty * kRows + i < Lq && l[i] == 0.f;
+  float* vsum_s = p_s;                 // [kThreads / D][D] partial sums
+  if (__syncthreads_or(empty)) {
+    constexpr int kGroups = kThreads / D;
+    const int d = tid % D, grp = tid / D;
+    float part = 0.f;
+    for (int c = grp; c < Lk; c += kGroups)
+      part += to_float(v[k_base + (size_t)c * D + d]);
+    vsum_s[grp * D + d] = part;
+    __syncthreads();
+  }
+
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = ty * kRows + i;
@@ -225,8 +247,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row < bq && r < Lq) {
       const float lf = fmaxf(l[i], 1e-30f);
 #pragma unroll
-      for (int j = 0; j < kDims; ++j)
-        o[q_base + (size_t)r * D + tx + j * kTX] = from_float<T>(acc[i][j] / lf);
+      for (int j = 0; j < kDims; ++j) {
+        const int d = tx + j * kTX;
+        float out = acc[i][j] / lf;
+        if (l[i] == 0.f) {
+          float sum = 0.f;
+          for (int grp = 0; grp < kThreads / D; ++grp)
+            sum += vsum_s[grp * D + d];
+          out = sum / (float)Lk;
+        }
+        o[q_base + (size_t)r * D + d] = from_float<T>(out);
+      }
       if (tx == 0) lse[(size_t)bh * Lq + r] = m[i] + logf(lf);
     }
   }
@@ -278,13 +309,16 @@ extern "C" {
 
 // q (B,H,Lq,D), k/v (B,H,Lk,D) contiguous, all of one dtype
 // (0 = float32, 1 = bfloat16); key_mask int32 (B,Lk) contiguous or null;
-// o like q; lse float32 (B,H,Lq). bq, bk: tile sizes in [1, 64].
-// window <= 0 means no window. Returns the CUDA error code (0 = launched).
+// o like q; lse float32 (B,H,Lq). bq, bk: tile sizes in [1, 64]; 0 takes
+// 64. window <= 0 means no window. Returns the CUDA error code (0 =
+// launched).
 int mxtpu_flash_attention_fwd(const void* q, const void* k, const void* v,
                               const void* key_mask, void* o, void* lse,
                               int dtype, int B, int H, int Lq, int Lk, int D,
                               int bq, int bk, float scale, int causal,
                               int window, void* stream) {
+  if (bq == 0) bq = kBQ;
+  if (bk == 0) bk = kBK;
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || bq < 1 || bq > kBQ || bk < 1 ||
       bk > kBK || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;

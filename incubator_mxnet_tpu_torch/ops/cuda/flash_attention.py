@@ -19,11 +19,12 @@ v requires it; under ``torch.no_grad()`` or ``torch.inference_mode()`` it
 runs the forward alone.
 
 A row that sees no key at all (every key masked, or hidden by the causal
-band) gives ``o = 0`` and ``lse = -1e30 + log(1e-30)``: hidden scores add
-nothing to the softmax sum, which is then floored at ``1e-30``
-(``flash_attention.py:226``). Its probabilities are 0 in the backward, so
-it gets ``dq = 0`` and adds nothing to ``dk``/``dv``, as in the JAX
-backward (``:330``).
+band) gives the mean of V over all ``Lk`` keys, cast to q's dtype, and
+``lse = -1e30`` (at most ``-1e29``): the uniform softmax that the JAX
+forward (``flash_attention.py:204-213``) and the XLA paths of both packages
+give over scores that are all filled with ``-1e30``. Its probabilities are
+0 in the backward (by the visibility predicate), so it gets ``dq = 0`` and
+adds nothing to ``dk``/``dv``, as in the JAX backward (``:330``).
 """
 from __future__ import annotations
 
@@ -53,7 +54,10 @@ KERNEL_BWD_DQ = "flash_attention_bwd_dq"
 KERNELS = (KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
 #: head dims the kernels are instantiated for
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
-#: largest tile (query rows or keys per tile) of the kernels
+#: largest tile (query rows or keys per tile) that ``MXTPU_FLASH_BQ/BK``
+#: may ask for; a kernel refuses a tile above its own (the dK/dV kernel
+#: streams 32 query rows in float32, and half its rows at head dim 128)
+#: with :class:`MXNetError`
 MAX_TILE = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -154,7 +158,8 @@ def flash_attention_reference(q, k, v, mask=None, causal: bool = False,
     tiles: scores in fp32 from input-dtype operands, hidden entries filled
     with ``-1e30`` and given zero probability, ``p`` cast to ``v``'s dtype
     before the ``p @ v`` product with fp32 accumulation, ``o`` in ``q``'s
-    dtype and ``lse`` in fp32. Rows that see no key give ``o = 0``."""
+    dtype and ``lse`` in fp32. Rows that see no key give the mean of V over
+    all keys."""
     D = q.shape[-1]
     scale = (D ** -0.5) if scale is None else float(scale)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
@@ -165,10 +170,11 @@ def flash_attention_reference(q, k, v, mask=None, causal: bool = False,
     p = torch.exp(s - m)
     if visible is not None:
         p = p.masked_fill(~visible, 0.0)
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    l = p.sum(dim=-1, keepdim=True)
     acc = torch.matmul(p.to(v.dtype).float(), v.float())
-    o = (acc / l).to(q.dtype)
-    lse = (m + torch.log(l)).squeeze(-1)
+    o = torch.where(l == 0, v.float().mean(dim=-2, keepdim=True),
+                    acc / l.clamp_min(1e-30)).to(q.dtype)
+    lse = (m + torch.log(l.clamp_min(1e-30))).squeeze(-1)
     return o, lse
 
 
@@ -238,8 +244,12 @@ def flash_attention_bwd_reference(q, k, v, key_mask, causal, scale, window,
 
 
 def _tile(name: str) -> int:
+    """The tile that ``name`` asks for, or 0 (each kernel's own) when it is
+    unset."""
     raw = getenv(name)
-    t = int(raw) if raw else MAX_TILE
+    if not raw:
+        return 0
+    t = int(raw)
     if not 1 <= t <= MAX_TILE:
         raise ValueError(f"{name}={raw}: the kernel's tiles hold 1..{MAX_TILE}"
                          " rows")
@@ -268,6 +278,9 @@ def _check_inputs(name, q, k, v, do=None, lse=None, delta=None):
             "dtype of float32/bfloat16, contiguous (B,H,L,D) tensors")
     if not (k.device == q.device and v.device == q.device):
         raise MXNetError("q, k and v must be on one device")
+    if do is not None and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise MXNetError(f"{name} loads q, k, v and dO in 16-byte copies: "
+                         "their data must start on a 16-byte boundary")
     if do is not None and (do.shape != q.shape or do.dtype != q.dtype
                            or not do.is_contiguous()
                            or do.device != q.device):

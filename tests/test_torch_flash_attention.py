@@ -6,7 +6,8 @@ The JAX side runs its Pallas kernel in interpret mode with 64-row tiles
 ``tests/test_attention.py`` does; the port's side runs the kernel's plain
 version (the wrapper takes it for CPU tensors). Tolerance: float32 atol
 2e-5, the one ``tests/test_attention.py`` uses (the two sides differ only by
-summation order).
+summation order). Every row is compared, rows that see no key too: both
+packages give the mean of V there.
 """
 import jax.numpy as jnp
 import numpy as onp
@@ -50,21 +51,6 @@ def _key_mask(valid, L):
             ).astype("float32")
 
 
-def _seen_rows(B, H, Lq, Lk, key_mask, causal, window):
-    """(B, H, Lq) rows that see at least one key."""
-    vis = onp.ones((B, Lq, Lk), bool)
-    if key_mask is not None:
-        vis &= key_mask.astype(bool)[:, None, :]
-    if causal:
-        r = onp.arange(Lq)[:, None]
-        c = onp.arange(Lk)[None, :]
-        band = c <= r + (Lk - Lq)
-        if window is not None:
-            band &= c > r + (Lk - Lq) - window
-        vis &= band[None]
-    return onp.broadcast_to(vis.any(-1)[:, None, :], (B, H, Lq))
-
-
 def _compare(q, k, v, key_mask, causal, window):
     """Port plain version and dot_product_attention(auto) vs JAX flash."""
     B, H, Lq, D = q.shape
@@ -82,16 +68,10 @@ def _compare(q, k, v, key_mask, causal, window):
     auto = attention.dot_product_attention(tq, tk, tv, mask4, causal=causal,
                                            window=window)
     assert fa.launches == before  # CPU tensors never reach the kernel
-    seen = _seen_rows(B, H, Lq, Lk, key_mask, causal, window)
-    onp.testing.assert_allclose(o.numpy()[seen], onp.asarray(jo)[seen],
-                                atol=ATOL)
-    onp.testing.assert_allclose(auto.numpy()[seen], onp.asarray(jo)[seen],
-                                atol=ATOL)
-    onp.testing.assert_allclose(lse.numpy()[seen], onp.asarray(jlse)[seen],
-                                atol=ATOL, rtol=1e-6)
-    # rows that see no key: exactly 0 in the port (see test below)
-    assert (o.numpy()[~seen] == 0).all()
-    assert (auto.numpy()[~seen] == 0).all()
+    onp.testing.assert_allclose(o.numpy(), onp.asarray(jo), atol=ATOL)
+    onp.testing.assert_allclose(auto.numpy(), onp.asarray(jo), atol=ATOL)
+    onp.testing.assert_allclose(lse.numpy(), onp.asarray(jlse), atol=ATOL,
+                                rtol=1e-6)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -115,26 +95,52 @@ def test_flash_cross_length_causal_matches_jax(jax_tiles):
     _compare(q, k, v, None, True, None)
 
 
-def test_fully_masked_row_gives_zero(jax_tiles):
-    """A row that sees no key gives o = 0 in the port (the floor of l at
-    1e-30 over zero probabilities). The JAX forward kernel instead gives
-    the mean of V there: it fills hidden scores with -1e30 but does not
-    zero their probabilities, so a row whose scores are all -1e30 is a
-    uniform softmax over every key of its live tiles. The rows that see a
-    key agree."""
+# bfloat16: one output ulp (2**-8 relative) and P rounded at other places
+FULLY_MASKED_TOL = {"float32": dict(atol=1e-5, rtol=0),
+                    "bfloat16": dict(atol=2e-2, rtol=1.6e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fully_masked_row_matches_jax(jax_tiles, dtype):
+    """A row that sees no key gives the mean of V over all keys, with lse at
+    most -1e29. Against the JAX flash forward (interpret mode) for a key
+    mask with a valid length 0, and against the JAX XLA path for causal +
+    window over a key mask, where rows also lose every key to the band;
+    the port's own XLA path agrees too."""
+    tol = FULLY_MASKED_TOL[dtype]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     q, k, v = _qkv(3, 2, 2, 128, 128, 64)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x, dtype=jdt) for x in (q, k, v))
+
     key_mask = _key_mask([0, 77], 128)
-    _compare(q, k, v, key_mask, False, None)
-    jo, _ = jax_fa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                        jnp.asarray(key_mask), False, 64 ** -0.5, None)
-    onp.testing.assert_allclose(onp.asarray(jo)[0],
-                                onp.broadcast_to(v[0].mean(1, keepdims=True),
-                                                 (2, 128, 64)), atol=ATOL)
-    o, lse = fa.flash_attention_reference(
-        *(torch.from_numpy(x) for x in (q, k, v)),
-        torch.from_numpy(key_mask))
-    assert (o[0] == 0).all()
-    assert (lse[0] < -1e29).all()
+    jo, _ = jax_fa._fwd(jq, jk, jv, jnp.asarray(key_mask), False, 64 ** -0.5,
+                        None)
+    o, lse = fa.flash_attention_reference(tq, tk, tv,
+                                          torch.from_numpy(key_mask))
+    onp.testing.assert_allclose(o.float().numpy(),
+                                onp.asarray(jo.astype(jnp.float32)), **tol)
+    mean_v = tv[0].float().mean(dim=-2, keepdim=True).to(tdt)
+    onp.testing.assert_allclose(o[0].float().numpy(),
+                                mean_v.float().expand(2, 128, 64).numpy(),
+                                **tol)
+    assert (lse[0] <= -1e29).all()
+
+    # causal + window 16 over valid lengths 0 and 20: batch 1's rows from
+    # 35 on see no key either
+    mask4 = _key_mask([0, 20], 128)[:, None, None, :]
+    want = jax_attention.dot_product_attention(
+        jq, jk, jv, jnp.asarray(mask4), causal=True, window=16, impl="xla")
+    got, lse = fa.flash_attention_reference(
+        tq, tk, tv, torch.from_numpy(mask4), causal=True, window=16)
+    onp.testing.assert_allclose(got.float().numpy(),
+                                onp.asarray(want.astype(jnp.float32)), **tol)
+    assert (lse[0] <= -1e29).all() and (lse[1, :, 35:] <= -1e29).all()
+    assert (lse[1, :, :35] > -1e29).all()
+    xla = attention.dot_product_attention(tq, tk, tv, torch.from_numpy(mask4),
+                                          causal=True, window=16, impl="xla")
+    onp.testing.assert_allclose(got.float().numpy(), xla.float().numpy(),
+                                **tol)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -4,8 +4,9 @@
 go through ``CompiledModel`` + ``DynamicBatcher`` in both packages, with the
 same ``bert_2_128_2`` weights, and the per-request outputs must agree
 (float32 atol 1e-4: summation order through two layers, observed ~1e-6).
-Batch-padding rows (``valid_length`` 0) differ between the two attention
-paths but are sliced off before the results are scattered.
+Batch-padding rows (``valid_length`` 0) see no key; both attention paths
+give the mean of V there, and they are sliced off before the results are
+scattered.
 """
 import numpy as onp
 import pytest
