@@ -29,7 +29,7 @@
 // accumulators (registers) on chip for its whole loop over query tiles, so
 // K and V are read once and the score, P and dS tiles never leave the
 // registers. All four products run on the tensor cores with `mma.sync`
-// (flash_attention_bwd.cuh: bf16 m16n8k16 through ldmatrix; fp32 as 3xTF32
+// (flash_attention_mma.cuh: bf16 m16n8k16 through ldmatrix; fp32 as 3xTF32
 // m16n8k8): S^T = K Q^T and dP^T = V dO^T from shared memory, then
 // dV += P^T dO and dK += dS^T Q with P^T and dS^T taken straight from the
 // accumulators as A operands. Q, dO, lse and delta stream through a
@@ -42,11 +42,11 @@
 // `wgmma` is not used: its TF32 operands must be K-major in shared memory,
 // which dV += P^T dO and dK += dS^T Q are not.
 
-#include "flash_attention_bwd.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace {
 
-using namespace mxtpu_flash_bwd;
+using namespace mxtpu_flash;
 
 // query rows per streamed tile: 64 (bf16) or 32 (float32), halved at
 // D = 128, so that the dK/dV accumulators, S^T and dP^T fit in registers

@@ -27,7 +27,7 @@
 // delta and the fp32 dQ accumulator (registers) on chip for its whole loop
 // over K/V tiles, so the score and dS tiles never leave the registers. The
 // three products run on the tensor cores with `mma.sync`
-// (flash_attention_bwd.cuh: bf16 m16n8k16 through ldmatrix; fp32 as 3xTF32
+// (flash_attention_mma.cuh: bf16 m16n8k16 through ldmatrix; fp32 as 3xTF32
 // m16n8k8): S = Q K^T and dP = dO V^T from shared memory, then dQ += dS K
 // with dS taken straight from the accumulators as the A operand. K, V and
 // the key mask stream through a two-stage ring of 64-key tiles filled by
@@ -36,11 +36,11 @@
 // dead-tile skip). `wgmma` is not used: its TF32 operands must be K-major
 // in shared memory, which dQ += dS K is not.
 
-#include "flash_attention_bwd.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace {
 
-using namespace mxtpu_flash_bwd;
+using namespace mxtpu_flash;
 
 constexpr int kBK = 64;                  // keys per streamed tile
 

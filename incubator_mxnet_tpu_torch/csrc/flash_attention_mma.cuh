@@ -1,11 +1,11 @@
-// Shared pieces of the two flash-attention backward kernels
-// (flash_attention_bwd_dkv.cu, flash_attention_bwd_dq.cu): tile geometry,
+// Shared pieces of the three flash-attention kernels (flash_attention_fwd.cu,
+// flash_attention_bwd_dkv.cu, flash_attention_bwd_dq.cu): tile geometry,
 // the visibility predicate, asynchronous tile loads and the warp-level
 // tensor-core products.
 //
-// A block is 4 warps (128 threads). It owns a 64-row tile (keys for dK/dV,
-// queries for dQ); warp w owns rows 16w .. 16w+15 of it and computes every
-// product of those rows with `mma.sync`:
+// A block is 4 warps (128 threads). It owns a 64-row tile (queries for the
+// forward and dQ, keys for dK/dV); warp w owns rows 16w .. 16w+15 of it and
+// computes every product of those rows with `mma.sync`:
 //   bfloat16: m16n8k16, bf16 operands, fp32 accumulation; operands come from
 //             shared memory through `ldmatrix` (`.trans` where the product
 //             reduces over the rows of a tile);
@@ -31,7 +31,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-namespace mxtpu_flash_bwd {
+namespace mxtpu_flash {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;  // 128
@@ -324,4 +324,4 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 }
 
-}  // namespace mxtpu_flash_bwd
+}  // namespace mxtpu_flash

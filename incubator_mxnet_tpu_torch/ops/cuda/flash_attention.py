@@ -278,7 +278,7 @@ def _check_inputs(name, q, k, v, do=None, lse=None, delta=None):
             "dtype of float32/bfloat16, contiguous (B,H,L,D) tensors")
     if not (k.device == q.device and v.device == q.device):
         raise MXNetError("q, k and v must be on one device")
-    if do is not None and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+    if any(t.data_ptr() % 16 for t in (q, k, v, do) if t is not None):
         raise MXNetError(f"{name} loads q, k, v and dO in 16-byte copies: "
                          "their data must start on a 16-byte boundary")
     if do is not None and (do.shape != q.shape or do.dtype != q.dtype

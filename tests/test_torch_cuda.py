@@ -8,11 +8,11 @@ themselves. On the card, from the root of a checkout::
 
 (``--noconftest``: the suite's ``conftest.py`` sets JAX up.)
 ``chip_smoke.py`` covers every sequence bucket; this file is the quick check.
-Forward tolerances as ``chip_smoke.py``: float32 (1e-5, 1e-5) for summation
-order; bfloat16 (1e-2, 1.6e-2) for the output's rounding (one ulp is 2**-8
-relative). Backward: float32 (1e-4, 1e-4), the kernels' products run in
-3xTF32 (about fp32 accuracy) and sum in another order; bfloat16 (1e-2,
-1.6e-2), the output's rounding.
+Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
+float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
+tensor cores (about fp32 accuracy) and sum in another order than the plain
+version's GEMMs; bfloat16 (1e-2, 1.6e-2) for the output's rounding (one ulp
+is 2**-8 relative). The forward's lse within 1e-4 on rows that see a key.
 """
 import pytest
 import torch
@@ -20,7 +20,7 @@ import torch
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
 
-BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1.6e-2)}
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1.6e-2)}
 
 
 def _card():
@@ -35,8 +35,7 @@ def test_kernel_matches_plain_version_on_card():
     window."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(0)
-    for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-5),
-                              (torch.bfloat16, 1e-2, 1.6e-2)):
+    for dtype, (atol, rtol) in TOL.items():
         for L in (8, 77, 512):
             q, k, v = (torch.randn(4, 12, L, 64, device="cuda",
                                    generator=g).to(dtype) for _ in range(3))
@@ -59,6 +58,93 @@ def test_kernel_matches_plain_version_on_card():
         fa._fwd(q.transpose(2, 3), k, v, None, False, 0.125)
 
 
+def _mask(valid, L):
+    """(B, L) int32 key mask keeping the first ``valid[b]`` keys."""
+    vl = torch.tensor(valid, device="cuda")
+    return (torch.arange(L, device="cuda")[None] < vl[:, None]).int()
+
+
+def _fwd_case(g, dtype, B, Lq, Lk, D, causal, window, km):
+    """The forward kernel against its plain version on one case (``km``: a
+    (B, Lk) key mask or None): o within the dtype's tolerance, lse within
+    1e-4 on rows that see a key, at most -1e29 on the others, whose o is
+    the mean of V."""
+    q = torch.randn(B, 12, Lq, D, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(B, 12, Lk, D, device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    scale = D ** -0.5
+    before = fa.launches[fa.KERNEL]
+    o, lse = fa._fwd(q, k, v, km, causal, scale, window)
+    torch.cuda.synchronize()
+    assert fa.launches[fa.KERNEL] == before + 1
+    ro, rlse = fa.flash_attention_reference(q, k, v, km, causal, scale, window)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=rtol)
+    seen = rlse > -1e29
+    torch.testing.assert_close(lse[seen], rlse[seen], atol=1e-4, rtol=0)
+    assert (lse[~seen] <= -1e29).all()
+    return o, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 16, 32, 128])
+def test_forward_kernel_head_dims_on_card(D):
+    """Each head dim has its own fragment layout (bf16 D = 8 runs its k16
+    products over zeroed padding): a key mask with an empty row and a
+    ragged length, and causal + window across lengths over a key mask, in
+    both dtypes."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(10 + D)
+    for dtype in TOL:
+        _fwd_case(g, dtype, 4, 77, 77, D, False, None,
+                  _mask([0, 1, 38, 77], 77))
+        _fwd_case(g, dtype, 2, 100, 160, D, True, 24, _mask([160, 130], 160))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernel_training_shape_on_card(dtype):
+    """The training path's shape (8, 12, 512, 64), every key valid."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    _fwd_case(g, dtype, 8, 512, 512, 64, False, None, _mask([512] * 8, 512))
+
+
+@pytest.mark.cuda
+def test_forward_kernel_skips_hidden_key_tiles_on_card():
+    """A key mask that is not a prefix: batch 0 keeps only the keys of the
+    middle tile (64..127 of 192), batch 1 none (its rows give the mean of
+    V), batch 2 two keys at the far ends; alone and under causal + window,
+    so that the mask's and the band's key ranges narrow each other."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    km = torch.zeros(3, 192, dtype=torch.int32, device="cuda")
+    km[0, 64:128] = 1
+    km[2, 0] = km[2, 191] = 1
+    for dtype in TOL:
+        o, v = _fwd_case(g, dtype, 3, 192, 192, 64, False, None, km)
+        mean_v = v[1].float().mean(dim=-2, keepdim=True).to(dtype).float()
+        atol, rtol = TOL[dtype]
+        torch.testing.assert_close(o[1].float(), mean_v.expand(o[1].shape),
+                                   atol=atol, rtol=rtol)
+        _fwd_case(g, dtype, 3, 192, 192, 64, True, 40, km)
+
+
+@pytest.mark.cuda
+def test_forward_tile_override_on_card(monkeypatch):
+    """``MXTPU_FLASH_BQ/BK`` = 16/48 set the forward's logical tiles inside
+    its 64-row ones: the same result, many K/V tiles and a ragged last one."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    monkeypatch.setenv("MXTPU_FLASH_BQ", "16")
+    monkeypatch.setenv("MXTPU_FLASH_BK", "48")
+    km = _mask([0, 150], 200)
+    km[1, 60:100] = 0                        # a hole of its own
+    for dtype in TOL:
+        _fwd_case(g, dtype, 2, 200, 200, 64, False, None, km)
+        _fwd_case(g, dtype, 2, 200, 200, 64, True, 50, km)
+
+
 @pytest.mark.cuda
 def test_backward_kernels_match_plain_version_on_card():
     """The dK/dV and dQ kernels against the plain backward: key mask with
@@ -67,7 +153,7 @@ def test_backward_kernels_match_plain_version_on_card():
     _card()
     g = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
-        atol, rtol = BWD_TOL[dtype]
+        atol, rtol = TOL[dtype]
         for Lq, Lk, causal, window in ((77, 77, False, None),
                                        (100, 160, True, 24)):
             q, do = (torch.randn(4, 12, Lq, 64, device="cuda",
@@ -112,10 +198,7 @@ def _bwd_case(g, dtype, B, Lq, Lk, D, causal, window, valid):
              for _ in range(2))
     k, v = (torch.randn(B, 12, Lk, D, device="cuda", generator=g).to(dtype)
             for _ in range(2))
-    km = None
-    if valid is not None:
-        vl = torch.tensor(valid, device="cuda")
-        km = (torch.arange(Lk, device="cuda")[None] < vl[:, None]).int()
+    km = None if valid is None else _mask(valid, Lk)
     scale = D ** -0.5
     o, lse = fa.flash_attention_reference(q, k, v, km, causal, scale, window)
     delta = fa._delta(o, do)
@@ -125,7 +208,7 @@ def _bwd_case(g, dtype, B, Lq, Lk, D, causal, window, valid):
     torch.cuda.synchronize()
     want = fa.flash_attention_bwd_reference(q, k, v, km, causal, scale,
                                             window, o, lse, do, delta)
-    atol, rtol = BWD_TOL[dtype]
+    atol, rtol = TOL[dtype]
     for got, ref in zip((dq, dk, dv), want):
         torch.testing.assert_close(got.float(), ref.float(), atol=atol,
                                    rtol=rtol)
