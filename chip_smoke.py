@@ -40,7 +40,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    then one step split by kernel with ``torch.profiler``;
 7. train gradients: one step's parameter gradients of a 2-layer BERT at
    full width (float32, dropout 0) on the kernels, against the same step
-   on the plain attention path (``MXTPU_ATTN_IMPL=xla``).
+   on the plain attention path (``MXTPU_ATTN_IMPL=xla``);
+8. gluon: the MXNet Gluon loop on the port's ``mx.nd``, ``autograd`` and
+   ``gluon.Trainer``: BERT-base (float32, dropout 0.1) initialised with
+   ``net.initialize(mx.init.Xavier(), ctx=mx.gpu(0), force_reinit=True)``,
+   ``gluon.Trainer(net.collect_params(), "adam")``, the bench's batch as
+   ``mx.nd`` arrays on the card; 1 warm and 5 timed steps of
+   ``autograd.record()`` -> ``loss.backward()`` -> ``trainer.step(1)``:
+   every loss finite and the last below the first, each kernel launched 12
+   times per step; step ms and tokens/s beside ``ShardedTrainer``'s on the
+   same model and optimizer; one Gluon backward's gradients against those
+   ``ShardedTrainer.step`` leaves (2 layers at full width, dropout 0); a
+   ``.params`` round trip (``save_parameters`` -> ``load_parameters`` into a
+   fresh model) whose forward is bitwise equal, and ``save_states`` /
+   ``load_states`` restoring the update count.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -48,17 +61,21 @@ The last three lines are the ``kernels`` JSON line, the card's
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 import numpy as onp
 import torch
 
-from incubator_mxnet_tpu_torch import bench, models, serve
+import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch import autograd, bench, gluon, models, nd
+from incubator_mxnet_tpu_torch import parallel, serve
 from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
 from incubator_mxnet_tpu_torch.ops.cuda import _build
 from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
@@ -728,6 +745,225 @@ def phase_train_grads(num_layers: int = 2) -> dict:
             "loss_plain": loss_x, "launches": launches}
 
 
+def gluon_step(net, trainer, batch) -> "nd.NDArray":
+    """One step of the Gluon loop on ``batch`` (NDArrays on the card)."""
+    with autograd.record():
+        loss = models.bert_pretrain_loss(net(*batch[:4]), *batch[4:])
+    loss.backward()
+    trainer.step(1)
+    return loss
+
+
+def synced_ms(fn, steps: int) -> tuple:
+    """``fn()`` ``steps`` times between two synchronizes: ``(ms per call on
+    the host clock, every result)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [fn() for _ in range(steps)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps, out
+
+
+def gluon_split(net, trainer, batch) -> dict:
+    """One Gluon step in three synchronised parts: the recorded forward
+    and loss, ``loss.backward()`` and ``trainer.step(1)`` (host clock,
+    each part's device work included)."""
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    mark()
+    with autograd.record():
+        loss = models.bert_pretrain_loss(net(*batch[:4]), *batch[4:])
+    mark()
+    loss.backward()
+    mark()
+    trainer.step(1)
+    mark()
+    ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return dict(zip(("forward_ms", "backward_ms", "update_ms"), ms))
+
+
+def phase_gluon(trained: dict, steps: int = 5) -> dict:
+    """BERT-base trained through the Gluon loop: losses, launches per step,
+    step ms against ``ShardedTrainer`` on the same model and optimizer, the
+    gradients of one backward against ``ShardedTrainer``'s, and the
+    ``.params`` and trainer-state round trips."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx, (B, L) = mx.gpu(0), TRAIN_SHAPE
+    t0 = time.perf_counter()
+    mx.random.seed(0)
+    net = models.get_bert("bert_12_768_12", vocab_size=bench.VOCAB,
+                          max_length=L, dropout=0.1, dtype="float32")
+    net.initialize(mx.init.Xavier(), ctx=ctx, force_reinit=True)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 1e-4})
+    host = bench.make_batch(B, L)
+    batch = [nd.array(a, ctx=ctx) for a in host]
+    n_params = len(trainer._params)
+    print(f"gluon: bert_12_768_12 float32, {n_params} parameters, built "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [gluon_step(net, trainer, batch)]            # warm step
+    per_step = []
+
+    def counted():
+        cuda_ops.reset_launches()
+        loss = gluon_step(net, trainer, batch)
+        per_step.append(cuda_ops.launch_counts())
+        return loss
+
+    cuda_ops.reset_launches()
+    step_ms, timed = synced_ms(lambda: gluon_step(net, trainer, batch),
+                               steps)
+    launches = cuda_ops.launch_counts()
+    losses += timed
+    _, counted_losses = synced_ms(counted, 2)
+    losses = [float(x.asscalar()) for x in losses + counted_losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_layers = models.BERT_CONFIGS["bert_12_768_12"]["num_layers"]
+    check(all(onp.isfinite(losses)), f"non-finite Gluon loss: {losses}")
+    check(losses[-1] < losses[0], f"Gluon loss did not fall: {losses}")
+    for name, n in launches.items():
+        check(n == n_layers * steps, f"{name} launched {n} times in {steps} "
+              f"Gluon steps of {n_layers} layers")
+    for counts in per_step:
+        check(all(n == n_layers for n in counts.values()),
+              f"launches in one Gluon step: {counts}")
+    split = gluon_split(net, trainer, batch)
+    wall, per_kernel = device_split(lambda: gluon_step(net, trainer, batch))
+    busy = sum(per_kernel.values())
+
+    # the same model and optimizer through ShardedTrainer, timed in turns
+    # with the Gluon loop (Gluon, ShardedTrainer, Gluon, ShardedTrainer)
+    st = parallel.ShardedTrainer(net, models.bert_pretrain_loss, "adam",
+                                 {"learning_rate": 1e-4}, device="cuda",
+                                 n_labels=3)
+    placed = st.place(*host)
+    st.step(*placed)
+    st_runs = [synced_ms(lambda: st.step(*placed), steps)[0]]
+    gluon_runs = [step_ms, synced_ms(
+        lambda: gluon_step(net, trainer, batch), steps)[0]]
+    st_runs.append(synced_ms(lambda: st.step(*placed), steps)[0])
+    st_ms = min(st_runs)
+    step_ms = min(gluon_runs)
+    tps, st_tps = B * L / (step_ms / 1e3), B * L / (st_ms / 1e3)
+    card = card_line()
+    train_rec = trained["record"]["extra"]
+    print(f"gluon: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{len(losses)} steps; {step_ms:.3f} ms per step = {tps:.1f} "
+          f"tokens/s (runs {[round(t, 3) for t in gluon_runs]}); "
+          f"ShardedTrainer, same model and Adam, in turns: {st_ms:.3f} ms = "
+          f"{st_tps:.1f} tokens/s (runs {[round(t, 3) for t in st_runs]}); "
+          f"the bench's bf16 AdamW step: {train_rec['step_ms']} ms; one "
+          f"synchronised step split: forward {split['forward_ms']:.3f}, "
+          f"backward {split['backward_ms']:.3f}, trainer.step "
+          f"{split['update_ms']:.3f} ms for {n_params} parameters; one step "
+          f"under the profiler {wall:.3f} ms wall, {busy:.3f} ms device, "
+          f"idle share {max(0.0, 1 - busy / wall):.1%}; launches "
+          f"{launches}; peak memory {peak_gb:.2f} GiB on {card}",
+          flush=True)
+    del st, trainer, net, batch
+    res = {"losses": losses, "launches": launches, "steps": steps,
+           "step_ms": step_ms, "tokens_per_s": tps, "step_ms_runs": gluon_runs,
+           "sharded_trainer_step_ms": st_ms,
+           "sharded_trainer_tokens_per_s": st_tps,
+           "sharded_trainer_step_ms_runs": st_runs,
+           "bench_step_ms": train_rec["step_ms"], "split": split,
+           "parameters": n_params,
+           "profiled_step_wall_ms": wall, "profiled_device_ms": busy,
+           "device_idle_share": max(0.0, 1 - busy / wall),
+           "peak_memory_gib": peak_gb}
+    res.update(gluon_grads_vs_sharded())
+    res.update(gluon_round_trip())
+    return res
+
+
+def gluon_grads_vs_sharded(num_layers: int = 2) -> dict:
+    """One Gluon backward's ``param.grad()`` against the gradients that
+    ``ShardedTrainer.step`` leaves on the same weights and batch (full
+    width, ``num_layers`` layers, float32, dropout 0)."""
+    gc.collect()
+    net = models.get_bert("bert_12_768_12", vocab_size=bench.VOCAB,
+                          max_length=TRAIN_SHAPE[1], dropout=0.0,
+                          dtype="float32", device="cuda",
+                          num_layers=num_layers)
+    host = bench.make_batch(*TRAIN_SHAPE)
+    batch = [nd.array(a, ctx=mx.gpu(0)) for a in host]
+    params = net.collect_params()
+    cuda_ops.reset_launches()
+    with autograd.record():
+        loss = models.bert_pretrain_loss(net(*batch[:4]), *batch[4:])
+    loss.backward()
+    launches = cuda_ops.launch_counts()
+    check(all(n == num_layers for n in launches.values()),
+          f"one Gluon backward of {num_layers} layers launched {launches}")
+    got = {k: p.grad()._data.clone() for k, p in params.items()}
+    st = parallel.ShardedTrainer(net, models.bert_pretrain_loss, "adam",
+                                 {"learning_rate": 1e-4}, device="cuda",
+                                 n_labels=3)
+    st_loss = float(st.step(*host))
+    worst, worst_name = 0.0, ""
+    for k, p in params.items():
+        want = p._var.grad
+        ratio = ((got[k] - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30)).item()
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    print(f"gluon gradients: {len(got)} parameters, {num_layers} layers at "
+          f"full width, Gluon backward vs ShardedTrainer.step: worst max abs "
+          f"err / max |grad| {worst:.2e} ({worst_name}, tol {GRAD_RTOL}), "
+          f"loss {float(loss.asscalar()):.6f} vs {st_loss:.6f}", flush=True)
+    check(worst <= GRAD_RTOL, f"Gluon gradients differ: {worst} at "
+          f"{worst_name}")
+    return {"grads_worst_rel_err": worst, "grads_worst_param": worst_name,
+            "grads_layers": num_layers}
+
+
+def gluon_round_trip() -> dict:
+    """``save_parameters`` -> ``load_parameters`` into a fresh BERT-base:
+    the forward under ``predict_mode`` is bitwise equal; ``save_states`` /
+    ``load_states`` restore the update count."""
+    gc.collect()
+    ctx, (B, L) = mx.gpu(0), TRAIN_SHAPE
+    net = models.get_bert("bert_12_768_12", vocab_size=bench.VOCAB,
+                          max_length=L, dropout=0.1, dtype="float32")
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 1e-4})
+    batch = [nd.array(a, ctx=ctx) for a in bench.make_batch(B, L)]
+    for _ in range(2):
+        gluon_step(net, trainer, batch)
+    fresh = models.get_bert("bert_12_768_12", vocab_size=bench.VOCAB,
+                            max_length=L, dropout=0.1, dtype="float32",
+                            generator=torch.Generator().manual_seed(7))
+    with tempfile.TemporaryDirectory() as tmp:
+        pfile, sfile = (os.path.join(tmp, f) for f in ("bert.params",
+                                                       "bert.states"))
+        net.save_parameters(pfile)
+        fresh.load_parameters(pfile, ctx=ctx)
+        trainer.save_states(sfile)
+        trainer2 = gluon.Trainer(fresh.collect_params(), "adam",
+                                 {"learning_rate": 1e-4})
+        trainer2.load_states(sfile)
+        nbytes = os.path.getsize(pfile)
+    with autograd.predict_mode():
+        want, got = net(*batch[:4]), fresh(*batch[:4])
+    same = all(torch.equal(a._data, b._data) for a, b in zip(want, got))
+    check(same, "the forward after a .params round trip is not bitwise "
+          "equal")
+    check(trainer2.optimizer.num_update == trainer.optimizer.num_update == 2,
+          f"load_states restored num_update "
+          f"{trainer2.optimizer.num_update}, saved "
+          f"{trainer.optimizer.num_update}")
+    print(f"gluon round trip: {nbytes} bytes of .params, forward bitwise "
+          f"equal, num_update {trainer2.optimizer.num_update} restored",
+          flush=True)
+    return {"params_file_bytes": nbytes, "round_trip_bitwise": same}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -764,6 +1000,7 @@ def main(argv=None) -> int:
     profiled = phase_profile(served.pop("model"))
     trained = phase_train()
     grads = phase_train_grads()
+    glu = phase_gluon(trained)
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -783,7 +1020,8 @@ def main(argv=None) -> int:
                         f"{line}",
             "launches": trained["launches"][name],
             "launches_by_path": {"serve": served["launches"][name],
-                                 "train": trained["launches"][name]},
+                                 "train": trained["launches"][name],
+                                 "gluon": glu["launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -797,7 +1035,7 @@ def main(argv=None) -> int:
             json.dump({"card": card, "kernel_cases": results,
                        "serve": served, "profile": profiled,
                        "train": trained, "train_gradients": grads,
-                       "kernels": kernels}, f, indent=1)
+                       "gluon": glu, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

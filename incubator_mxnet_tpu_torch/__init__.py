@@ -2,23 +2,34 @@
 
 The JAX package stays the reference; this package is held against it by the
 ``tests/test_torch_*.py`` parity tests. It imports ``torch`` and never
-``jax``. Entry points run on the card (``device="cuda"``) unless the caller
-passes ``device="cpu"``.
+``jax``. Entry points run on the card (``device="cuda"``, context
+``gpu(0)``) unless the caller asks for the CPU.
 
-The first slice serves BERT: ``models.get_bert`` → ``serve.CompiledModel``
-over a ``serve.BucketTable`` → ``serve.DynamicBatcher``, with every
-attention call on the hand-written flash-attention forward kernel
-(``ops/cuda/flash_attention.py``, ``csrc/flash_attention_fwd.cu``). The
-second trains it: ``parallel.ShardedTrainer`` with
-``models.bert_pretrain_loss`` and ``optimizer.AdamW``, each attention
-backward on the dK/dV and dQ kernels (``csrc/flash_attention_bwd_*.cu``);
-``bench`` runs ``bench.py``'s BERT pretraining workload.
+``import incubator_mxnet_tpu_torch as mx`` reads like the JAX package
+imported as ``mx``: ``mx.nd``, ``mx.autograd``,
+``mx.gluon``, ``mx.random``, ``mx.init``, ``mx.cpu()``/``mx.gpu()``. The
+slices so far: serving BERT (``models.get_bert`` → ``serve.CompiledModel``
+→ ``serve.DynamicBatcher``) on the hand-written flash-attention forward
+kernel (``ops/cuda/flash_attention.py``, ``csrc/flash_attention_fwd.cu``);
+training it with ``parallel.ShardedTrainer`` (``bench`` runs ``bench.py``'s
+workload), each attention backward on the dK/dV and dQ kernels
+(``csrc/flash_attention_bwd_*.cu``); and the Gluon loop — ``net.initialize``,
+``gluon.Trainer``, ``autograd.record()``, ``loss.backward()``,
+``trainer.step`` and ``.params`` files shared with the JAX package.
 """
 from .base import MXNetError  # noqa: F401
-from .context import resolve_device  # noqa: F401
+from .context import (  # noqa: F401
+    Context, cpu, current_context, gpu, num_gpus, resolve_device,
+)
 from . import (  # noqa: F401
-    ops, nn, initializer, models, serve, convert, gluon, optimizer, parallel,
+    autograd, random, ndarray, initializer, gluon, ops, nn, models, serve,
+    convert, optimizer, parallel,
 )
 
-__all__ = ["MXNetError", "resolve_device", "ops", "nn", "initializer",
-           "models", "serve", "convert", "gluon", "optimizer", "parallel"]
+nd = ndarray
+init = initializer
+
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "num_gpus", "resolve_device", "autograd", "random", "ndarray",
+           "nd", "initializer", "init", "gluon", "ops", "nn", "models",
+           "serve", "convert", "optimizer", "parallel"]

@@ -1,19 +1,24 @@
-"""Device resolution.
+"""Device contexts and device resolution.
 
-Counterpart: the JAX package's ``context.py`` (``current_context`` at
-``context.py:198``). The port names devices the PyTorch way. Its default is
-the card: asking for it on a machine without one raises instead of falling
-back to the CPU, so a run never measures the CPU while claiming the card.
+Counterpart: the JAX package's ``context.py`` (``Context`` at ``:79``,
+``cpu``/``gpu`` at ``:176-191``, ``current_context`` at ``:198``,
+``num_gpus`` at ``:216``). ``gpu(i)`` is ``torch.device("cuda", i)``. The
+default context is ``gpu(0)``, and the default device of the entry points
+that take ``device=`` is the card: asking for it on a machine without one
+raises instead of falling back to the CPU, so a run never measures the CPU
+while claiming the card.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "Context", "cpu", "gpu",
+           "current_context", "num_gpus", "as_context"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -37,3 +42,92 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise MXNetError(f"unsupported device {str(dev)!r}; use 'cuda' or "
                          "'cpu'")
     return dev
+
+
+class Context:
+    """A device context ``(device_type, device_id)``, ``cpu`` or ``gpu``
+    (JAX counterpart: ``context.py:79``). ``with ctx:`` makes it the default
+    of the array factories and ``Block.initialize`` in this thread."""
+
+    devtype2id = {"cpu": 1, "gpu": 2}
+    _default = threading.local()
+
+    def __init__(self, device_type, device_id: int = 0):
+        if isinstance(device_type, Context):
+            device_type, device_id = device_type.device_type, \
+                device_type.device_id
+        if device_type not in self.devtype2id:
+            raise MXNetError(f"Unknown device type {device_type!r}; the port "
+                             "has 'cpu' and 'gpu'")
+        self.device_type = device_type
+        self.device_id = int(device_id)
+
+    @classmethod
+    def from_device(cls, device: torch.device) -> "Context":
+        """The context of a ``torch.device`` (``cuda:i`` is ``gpu(i)``)."""
+        if device.type == "cuda":
+            return cls("gpu", device.index or 0)
+        return cls("cpu", 0)
+
+    @property
+    def device_typeid(self) -> int:
+        return self.devtype2id[self.device_type]
+
+    @property
+    def torch_device(self) -> torch.device:
+        """The ``torch.device``; raises for ``gpu`` without a card."""
+        if self.device_type == "cpu":
+            return torch.device("cpu")
+        return resolve_device(torch.device("cuda", self.device_id))
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, Context)
+                and self.device_type == other.device_type
+                and self.device_id == other.device_id)
+
+    def __hash__(self):
+        return hash((self.device_type, self.device_id))
+
+    def __repr__(self):
+        return f"{self.device_type}({self.device_id})"
+
+    __str__ = __repr__
+
+    def __enter__(self):
+        if not hasattr(Context._default, "stack"):
+            Context._default.stack = []
+        Context._default.stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        Context._default.stack.pop()
+
+
+def cpu(device_id: int = 0) -> Context:
+    return Context("cpu", device_id)
+
+
+def gpu(device_id: int = 0) -> Context:
+    """CUDA device ``device_id`` (``torch.device("cuda", device_id)``)."""
+    return Context("gpu", device_id)
+
+
+def current_context() -> Context:
+    """The innermost ``with ctx:`` of this thread, else ``gpu(0)``."""
+    stack = getattr(Context._default, "stack", None)
+    return stack[-1] if stack else gpu(0)
+
+
+def num_gpus() -> int:
+    """Number of CUDA devices visible."""
+    return torch.cuda.device_count()
+
+
+def as_context(ctx) -> Context:
+    """A :class:`Context` from a context, a ``torch.device``, a device
+    string (``"cuda:0"``, ``"cpu"``) or ``None`` (the current context)."""
+    if ctx is None:
+        return current_context()
+    if isinstance(ctx, Context):
+        return ctx
+    return Context.from_device(torch.device(ctx))

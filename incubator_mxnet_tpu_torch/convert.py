@@ -1,11 +1,13 @@
-"""Weight bridge: load the JAX package's parameters into a port module.
+"""Weight bridge: load the JAX package's parameters into a port block.
 
 The JAX package names a parameter by its Gluon prefix chain, e.g.
 ``bertmodel0_encoder_layer0_attn_qkv_weight``, where the leading instance
 prefix (``bertmodel0_``, ``bertmodel1_`` ...) comes from a process-wide
-counter. The port's modules are laid out so that a parameter's dotted name
-with ``_`` for ``.`` is that structural suffix
-(``encoder.layer0.attn.qkv.weight``). Matching is on the suffix.
+counter. The port's blocks carry the same prefix chains, so a port
+parameter's name without its model's instance prefix
+(``encoder_layer0_attn_qkv_weight``) is the JAX structural suffix; matching
+is on that suffix. (A ``.params`` file moves weights too:
+``Block.save_parameters``/``load_parameters`` in either package.)
 """
 from __future__ import annotations
 
@@ -13,17 +15,20 @@ from typing import Dict, List
 
 import numpy as onp
 import torch
-from torch import nn
 
 from .base import MXNetError
+from .gluon.block import Block
 
-__all__ = ["params_from_jax", "jax_suffix"]
+__all__ = ["params_from_jax", "jax_suffixes"]
 
 
-def jax_suffix(port_name: str) -> str:
-    """The JAX structural name of a port parameter:
-    ``encoder.layer0.attn.qkv.weight`` -> ``encoder_layer0_attn_qkv_weight``."""
-    return port_name.replace(".", "_")
+def jax_suffixes(model: Block) -> Dict[str, str]:
+    """Each parameter's torch name (``model.named_parameters()``, the
+    structural name) -> its JAX suffix: ``encoder.layer0.attention.qkv.
+    weight`` -> ``encoder_layer0_attn_qkv_weight``."""
+    n = len(model.prefix)
+    return {name: p.name[n:]
+            for name, p in model._collect_params_with_prefix().items()}
 
 
 def _instance_prefix(keys: List[str], suffixes: List[str]) -> str:
@@ -47,8 +52,7 @@ def _instance_prefix(keys: List[str], suffixes: List[str]) -> str:
     return winners[0]
 
 
-def params_from_jax(model: nn.Module, arrays: Dict[str, onp.ndarray]
-                    ) -> nn.Module:
+def params_from_jax(model: Block, arrays: Dict[str, onp.ndarray]) -> Block:
     """Copy ``arrays`` (JAX ``net.collect_params()`` names -> numpy values)
     into ``model``'s parameters, converting to each parameter's dtype and
     device. Refuses a name missing on either side and any shape mismatch.
@@ -56,10 +60,10 @@ def params_from_jax(model: nn.Module, arrays: Dict[str, onp.ndarray]
     parameter on both sides and maps once.
 
     Counterpart: the JAX package's ``Block.load_parameters``
-    (``gluon/block.py:313``), keyed by structural names instead of a
+    (``gluon/block.py:313``), keyed by prefix names instead of a
     ``.params`` file."""
-    params = dict(model.named_parameters())
-    by_suffix = {jax_suffix(n): n for n in params}
+    n = len(model.prefix)
+    by_suffix = {p.name[n:]: p for p in model.collect_params().values()}
     if not arrays:
         raise MXNetError("no JAX parameters given")
     keys = list(arrays)
@@ -75,12 +79,12 @@ def params_from_jax(model: nn.Module, arrays: Dict[str, onp.ndarray]
         raise MXNetError(f"JAX parameters missing for {missing}")
     with torch.no_grad():
         for suffix, key in got.items():
-            p = params[by_suffix[suffix]]
+            p = by_suffix[suffix]._tensor()
             a = onp.asarray(arrays[key])
             if tuple(a.shape) != tuple(p.shape):
                 raise MXNetError(
                     f"{key}: JAX shape {tuple(a.shape)} != port shape "
-                    f"{tuple(p.shape)} ({by_suffix[suffix]})")
+                    f"{tuple(p.shape)} ({by_suffix[suffix].name})")
             # via float32: numpy has no native bfloat16, and bf16 -> f32 ->
             # bf16 is exact
             src = torch.from_numpy(onp.ascontiguousarray(

@@ -1,3 +1,13 @@
-"""Gluon pieces of the port (JAX counterpart: ``gluon/``). The training
-slice carries the loss the BERT pretraining step uses."""
+"""Gluon of the port (JAX counterpart: ``gluon/``): ``Parameter``,
+``ParameterDict``, ``Block``, ``HybridBlock``, ``Trainer``, ``nn`` and
+``loss``."""
+from .parameter import (  # noqa: F401
+    Constant, DeferredInitializationError, Parameter, ParameterDict,
+)
+from .block import Block, HybridBlock  # noqa: F401
+from .trainer import Trainer  # noqa: F401
 from . import loss  # noqa: F401
+from . import nn  # noqa: F401
+
+__all__ = ["Constant", "DeferredInitializationError", "Parameter",
+           "ParameterDict", "Block", "HybridBlock", "Trainer", "loss", "nn"]

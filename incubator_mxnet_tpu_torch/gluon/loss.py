@@ -1,16 +1,20 @@
-"""Losses as ``torch.nn.Module``s.
+"""Losses as Gluon ``HybridBlock``\\ s.
 
-Counterpart: the JAX package's ``gluon/loss.py`` (``:17-123``): ``Loss``,
-``_apply_weighting``, ``_mean_all_but_batch`` and
-``SoftmaxCrossEntropyLoss``, the loss the BERT pretraining step uses. The
-rest of that file comes with the Gluon slice.
+Counterpart: the JAX package's ``gluon/loss.py`` (``:17-128``): ``Loss``
+with ``weight`` and ``batch_axis``, ``_apply_weighting``,
+``_mean_all_but_batch``, ``L2Loss``, ``L1Loss`` and
+``SoftmaxCrossEntropyLoss``, the loss of the BERT pretraining step. A loss
+given NDArrays returns an NDArray (recorded under ``autograd.record()``),
+given tensors a tensor. The rest of that file comes with a later slice.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-__all__ = ["Loss", "SoftmaxCrossEntropyLoss"]
+from .block import HybridBlock
+
+__all__ = ["Loss", "L2Loss", "L1Loss", "SoftmaxCrossEntropyLoss",
+           "SoftmaxCELoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -32,14 +36,40 @@ def _mean_all_but_batch(loss, batch_axis):
     return loss.mean(dim=axes)
 
 
-class Loss(nn.Module):
+class Loss(HybridBlock):
     """Base: a weighted, per-sample-mean loss (JAX counterpart:
     ``gluon/loss.py:29``)."""
 
-    def __init__(self, weight, batch_axis):
-        super().__init__()
+    def __init__(self, weight, batch_axis, **kwargs):
+        super().__init__(**kwargs)
         self._weight = weight
         self._batch_axis = batch_axis
+
+
+class L2Loss(Loss):
+    """``weight / 2 * (label - pred)²`` (JAX counterpart:
+    ``gluon/loss.py:48``)."""
+
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        loss = (label.reshape(pred.shape) - pred).square()
+        loss = _apply_weighting(loss, self._weight / 2, sample_weight)
+        return _mean_all_but_batch(loss, self._batch_axis)
+
+
+class L1Loss(Loss):
+    """``weight * |label - pred|`` (JAX counterpart: ``gluon/loss.py:59``).
+    """
+
+    def __init__(self, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        loss = (label.reshape(pred.shape) - pred).abs()
+        loss = _apply_weighting(loss, self._weight, sample_weight)
+        return _mean_all_but_batch(loss, self._batch_axis)
 
 
 class SoftmaxCrossEntropyLoss(Loss):
@@ -50,25 +80,24 @@ class SoftmaxCrossEntropyLoss(Loss):
     before the log-softmax."""
 
     def __init__(self, axis=-1, sparse_label=True, from_logits=False,
-                 weight=None, batch_axis=0):
-        super().__init__(weight, batch_axis)
+                 weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
         self._axis = axis
         self._sparse_label = sparse_label
         self._from_logits = from_logits
 
-    def forward(self, pred, label, sample_weight=None):
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
         if pred.dtype in (torch.bfloat16, torch.float16):
             pred = pred.float()
         if not self._from_logits:
             pred = torch.log_softmax(pred, dim=self._axis)
         if self._sparse_label:
-            # pick(mode="clip") on an int32 cast of the label
-            # (JAX counterpart: ops/tensor.py:441)
-            idx = label.to(torch.int32).clamp(0, pred.shape[self._axis] - 1)
-            loss = -torch.gather(pred, self._axis,
-                                 idx.to(torch.int64).unsqueeze(self._axis))
+            loss = -F.pick(pred, label, axis=self._axis, keepdims=True)
         else:
             label = label.reshape(pred.shape)
             loss = -(pred * label).sum(dim=self._axis, keepdim=True)
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return _mean_all_but_batch(loss, self._batch_axis)
+
+
+SoftmaxCELoss = SoftmaxCrossEntropyLoss

@@ -1,27 +1,31 @@
-"""BERT encoder, pooler and heads.
+"""BERT encoder, pooler and heads, as Gluon blocks.
 
 Counterpart: the JAX package's ``models/bert.py``. Same forward contract
 as GluonNLP's BERTModel::
 
     seq, pooled, nsp, mlm = model(ids, token_types, valid_length, positions)
 
-Module and parameter names follow the JAX prefixes (``word_embed``,
-``encoder.layer0.attn.qkv.weight`` for ``encoder_layer0_attn_qkv_weight``,
-``nsp`` for the NSP classifier) so that ``convert.params_from_jax`` maps
-them one to one. :func:`bert_pretrain_loss` is the MLM + NSP loss of the
-pretraining step. Remat and the sharding rules come with later slices.
+Children, prefixes and parameter names are the JAX ones: structural names
+such as ``encoder.layer0.attention.qkv.weight``, ``classifier.weight`` and
+the shared ``decoder_tied_weight``, prefix names such as
+``bertmodel0_encoder_layer0_attn_qkv_weight`` and ``bertmodel0_nsp_weight``;
+so ``.params`` files move between the two packages and
+``convert.params_from_jax`` maps weights one to one. The model runs on
+tensors (serving, ``ShardedTrainer``) or on NDArrays (the Gluon loop).
+:func:`bert_pretrain_loss` is the MLM + NSP loss of the pretraining step.
+Remat and the sharding rules come with later slices.
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
-from torch import nn
 
-from ..base import torch_dtype
-from ..context import resolve_device
+from ..context import Context, resolve_device
+from ..gluon.block import HybridBlock
 from ..gluon.loss import SoftmaxCrossEntropyLoss
-from ..initializer import initialize
+from ..initializer import Xavier
+from ..ndarray.op import _nd_op
 from ..nn import Dense, Dropout, Embedding, LayerNorm
 from ..ops.nn import fully_connected
 from .transformer import TransformerEncoderCell
@@ -41,25 +45,31 @@ BERT_CONFIGS = {
 }
 
 
-class BERTEncoder(nn.Module):
+class BERTEncoder(HybridBlock):
     """Stack of post-LN transformer encoder cells, children ``layer0`` ...
     (JAX counterpart: ``models/bert.py:38``, without remat)."""
 
     def __init__(self, num_layers: int, units: int, hidden_size: int,
-                 num_heads: int, dropout: float = 0.1, dtype="float32"):
-        super().__init__()
-        self._num_layers = num_layers
-        for i in range(num_layers):
-            self.add_module(f"layer{i}", TransformerEncoderCell(
-                units, hidden_size, num_heads, dropout=dropout, dtype=dtype))
+                 num_heads: int, dropout: float = 0.1, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.layers = []
+            for i in range(num_layers):
+                cell = TransformerEncoderCell(
+                    units, hidden_size, num_heads, dropout=dropout,
+                    dtype=dtype, prefix=f"layer{i}_",
+                    weight_initializer=weight_initializer)
+                self.register_child(cell, f"layer{i}")
+                self.layers.append(cell)
 
-    def forward(self, x, mask=None):
-        for i in range(self._num_layers):
-            x = getattr(self, f"layer{i}")(x, mask)
+    def hybrid_forward(self, F, x, mask=None):
+        for cell in self.layers:
+            x = cell(x, mask)
         return x
 
 
-class BERTModel(nn.Module):
+class BERTModel(HybridBlock):
     """BERT with optional pooler, MLM decoder and NSP classifier (JAX
     counterpart: ``models/bert.py:109``). ``forward(inputs, token_types,
     valid_length=None, masked_positions=None)`` returns ``seq`` |
@@ -72,8 +82,9 @@ class BERTModel(nn.Module):
                  num_heads: int = 12, max_length: int = 512,
                  token_type_vocab_size: int = 2, dropout: float = 0.1,
                  use_pooler: bool = True, use_decoder: bool = True,
-                 use_classifier: bool = True, dtype="float32"):
-        super().__init__()
+                 use_classifier: bool = True, dtype="float32",
+                 embed_initializer=None, **kwargs):
+        super().__init__(**kwargs)
         if use_classifier and not use_pooler:
             raise ValueError("use_classifier=True requires use_pooler=True "
                              "(the NSP head reads the pooled [CLS] vector)")
@@ -83,28 +94,42 @@ class BERTModel(nn.Module):
         self.use_pooler = use_pooler
         self.use_decoder = use_decoder
         self.use_classifier = use_classifier
-        dt = torch_dtype(dtype)
-        self.word_embed = Embedding(vocab_size, units, dtype=dt)
-        self.token_type_embed = Embedding(token_type_vocab_size, units,
-                                          dtype=dt)
-        self.position_weight = nn.Parameter(
-            torch.zeros(max_length, units, dtype=dt))
-        self.embed_ln = LayerNorm(epsilon=1e-12, in_channels=units)
-        self.embed_dropout = Dropout(dropout) if dropout else None
-        self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
-                                   dropout=dropout, dtype=dt)
-        if use_pooler:
-            self.pooler = Dense(units, flatten=False, in_units=units,
-                                activation="tanh", dtype=dt)
-        if use_classifier:
-            self.nsp = Dense(2, flatten=False, in_units=units, dtype=dt)
-        if use_decoder:
-            self.decoder_transform = Dense(units, flatten=False,
-                                           in_units=units, activation="gelu",
-                                           dtype=dt)
-            self.decoder_ln = LayerNorm(epsilon=1e-12, in_channels=units)
-            self.decoder_bias = nn.Parameter(torch.zeros(vocab_size,
-                                                         dtype=dt))
+        with self.name_scope():
+            self.word_embed = Embedding(vocab_size, units, dtype=dtype,
+                                        prefix="word_embed_",
+                                        weight_initializer=embed_initializer)
+            self.token_type_embed = Embedding(
+                token_type_vocab_size, units, dtype=dtype,
+                prefix="token_type_embed_",
+                weight_initializer=embed_initializer)
+            self.position_weight = self.params.get(
+                "position_weight", shape=(max_length, units), dtype=dtype,
+                init=embed_initializer)
+            self.embed_ln = LayerNorm(epsilon=1e-12, in_channels=units,
+                                      prefix="embed_ln_")
+            self.embed_dropout = Dropout(dropout) if dropout else None
+            self.encoder = BERTEncoder(num_layers, units, hidden_size,
+                                       num_heads, dropout=dropout,
+                                       dtype=dtype, prefix="encoder_")
+            if use_pooler:
+                self.pooler = Dense(units, flatten=False, in_units=units,
+                                    activation="tanh", prefix="pooler_",
+                                    dtype=dtype)
+            if use_classifier:
+                self.classifier = Dense(2, flatten=False, in_units=units,
+                                        prefix="nsp_", dtype=dtype)
+            if use_decoder:
+                self.decoder_transform = Dense(
+                    units, flatten=False, in_units=units, activation="gelu",
+                    prefix="decoder_transform_", dtype=dtype)
+                self.decoder_ln = LayerNorm(epsilon=1e-12, in_channels=units,
+                                            prefix="decoder_ln_")
+                # the output projection is TIED to the word embedding: one
+                # Parameter, one torch tensor, two structural names
+                self.decoder_tied_weight = self.word_embed.weight
+                self.decoder_bias = self.params.get(
+                    "decoder_bias", shape=(vocab_size,), init="zeros",
+                    dtype=dtype)
 
     @staticmethod
     def _attn_mask(valid_length, B, L):
@@ -117,14 +142,15 @@ class BERTModel(nn.Module):
         mask = steps < valid_length.to(torch.float32).reshape(B, 1)
         return mask.reshape(B, 1, 1, L)
 
-    def forward(self, inputs, token_types=None, valid_length=None,
-                masked_positions=None):
+    def hybrid_forward(self, F, inputs, token_types=None, valid_length=None,
+                       masked_positions=None, position_weight=None,
+                       decoder_tied_weight=None, decoder_bias=None):
         """JAX counterpart: ``models/bert.py:179``."""
         B, L = inputs.shape[0], inputs.shape[1]
         x = self.word_embed(inputs)
         if token_types is not None:
             x = x + self.token_type_embed(token_types)
-        x = x + self.position_weight[:L].reshape(1, L, self._units)
+        x = x + position_weight[:L].reshape(1, L, self._units)
         x = self.embed_ln(x)
         if self.embed_dropout is not None:
             x = self.embed_dropout(x)
@@ -135,7 +161,7 @@ class BERTModel(nn.Module):
             pooled = self.pooler(seq[:, 0].reshape(B, self._units))
             outputs.append(pooled)
         if self.use_classifier:
-            outputs.append(self.nsp(pooled))
+            outputs.append(self.classifier(pooled))
         if self.use_decoder and masked_positions is not None:
             P = masked_positions.shape[1]
             flat = seq.reshape(B * L, self._units)
@@ -144,8 +170,8 @@ class BERTModel(nn.Module):
             # take(mode="clip"), as the JAX op
             h = flat[idx.clamp(0, B * L - 1)].reshape(B, P, self._units)
             h = self.decoder_ln(self.decoder_transform(h))
-            outputs.append(fully_connected(h, self.word_embed.weight,
-                                           self.decoder_bias, flatten=False))
+            outputs.append(fully_connected(h, decoder_tied_weight,
+                                           decoder_bias, flatten=False))
         return tuple(outputs) if len(outputs) > 1 else outputs[0]
 
 
@@ -156,27 +182,32 @@ def get_bert(name_or_cfg="bert_12_768_12", vocab_size: int = 30522,
              **overrides) -> BERTModel:
     """Model-zoo constructor (JAX counterpart: ``models/bert.py:215``).
 
-    Unlike the JAX zoo, the model comes initialised (``Xavier`` weights,
-    zero biases, unit LayerNorm gains drawn from ``generator``, a CPU
-    generator seeded with 0 by default) and placed on ``device``, which
-    defaults to the card; on a machine without one, pass
-    ``device="cpu"``."""
+    Unlike the JAX zoo, the model comes initialised on ``device`` (default:
+    the card; on a machine without one, pass ``device="cpu"``): ``Xavier``
+    weights drawn from ``generator`` (a CPU generator, seeded with 0 by
+    default) in parameter order, zero biases, unit LayerNorm gains. A
+    later ``net.initialize()`` leaves them unless ``force_reinit``."""
     dev = resolve_device(device)
     cfg = dict(BERT_CONFIGS[name_or_cfg]) if isinstance(name_or_cfg, str) \
         else dict(name_or_cfg)
     cfg.update(overrides)
     model = BERTModel(vocab_size=vocab_size, max_length=max_length,
                       dropout=dropout, dtype=dtype, **cfg)
-    initialize(model, generator=generator)
-    return model.to(dev)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model.initialize(Xavier(generator=generator),
+                     ctx=Context.from_device(dev))
+    return model
 
 
+@_nd_op
 def bert_pretrain_loss(outputs, mlm_labels, mlm_weights, nsp_labels):
     """Combined MLM + NSP loss (JAX counterpart: ``models/bert.py:245``).
 
     ``outputs`` is the BERTModel 4-tuple; ``mlm_labels``/``mlm_weights``
     (B, P) with weight 0 on padding positions; ``nsp_labels`` (B,). Labels
-    are class indices given as float."""
+    are class indices given as float. Given NDArrays it returns an NDArray
+    (recorded under ``autograd.record()``), given tensors a tensor."""
     _, _, nsp_scores, mlm_scores = outputs
     ce = SoftmaxCrossEntropyLoss()
     mlm = ce(mlm_scores, mlm_labels, mlm_weights.unsqueeze(-1))

@@ -50,12 +50,14 @@ def tanh(x):
     return torch.tanh(x)
 
 
-ACTIVATIONS = {"gelu": gelu, "tanh": tanh}
+ACTIVATIONS = {"gelu": gelu, "tanh": tanh, "relu": torch.relu,
+               "sigmoid": torch.sigmoid, "softrelu": F.softplus}
 
 
 def activation(data, act_type):
-    """Apply a named activation (JAX counterpart: ``ops/nn.py:417``; this
-    slice carries ``gelu`` and ``tanh``)."""
+    """Apply a named activation (JAX counterpart: ``ops/nn.py:417``; the
+    port carries ``gelu``, ``tanh``, ``relu``, ``sigmoid`` and
+    ``softrelu``)."""
     try:
         fn = ACTIVATIONS[act_type]
     except KeyError:

@@ -1,4 +1,7 @@
 """Optimizers of the port (JAX counterpart: ``optimizer/``)."""
-from .optimizer import Adam, AdamW, Optimizer, create, register  # noqa: F401
+from .optimizer import (  # noqa: F401
+    SGD, Adam, AdamW, Optimizer, Updater, create, get_updater, register,
+)
 
-__all__ = ["Optimizer", "Adam", "AdamW", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "Updater", "create",
+           "get_updater", "register"]

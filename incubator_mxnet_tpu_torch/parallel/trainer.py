@@ -23,6 +23,7 @@ import numpy as onp
 import torch
 from torch import nn
 
+from .. import autograd
 from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..context import resolve_device
@@ -39,7 +40,8 @@ class ShardedTrainer:
 
     ``optimizer`` is a registered name (``"adamw"``) or an
     :class:`~..optimizer.Optimizer`. ``device`` defaults to the card and
-    raises without one; the module is moved there. Every ``Dropout`` of the
+    raises without one; the module is moved there. The forward runs under
+    ``autograd.train_mode()`` (Dropout active); every ``Dropout`` of the
     module draws from one generator on that device, seeded with ``seed``.
     """
 
@@ -80,8 +82,9 @@ class ShardedTrainer:
         return None if self._last is None else bool(self._last[1])
 
     def _init_state(self) -> None:
-        """Parameters in sorted-name order (the JAX trainer's order) and
-        their optimizer states."""
+        """Parameters in sorted-name order (the JAX trainer's order),
+        their optimizer states, and which of them update through an fp32
+        master (``_mp``)."""
         opt = self._optimizer
         self._params = [p for _, p in sorted(self._block.named_parameters())]
         self._states = [opt.create_state_multi_precision(i, p.detach())
@@ -112,11 +115,11 @@ class ShardedTrainer:
         vals = self.place(*batch)
         self._t += 1
         t, opt, params = self._t, self._optimizer, self._params
-        self._block.train()
         for p in params:
             p.grad = None
-        out = self._block(*vals[:n_data])
-        loss = torch.mean(self._loss_fn(out, *vals[n_data:]))
+        with autograd.train_mode():
+            out = self._block(*vals[:n_data])
+            loss = torch.mean(self._loss_fn(out, *vals[n_data:]))
         loss.backward()
         with torch.no_grad():
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
@@ -124,17 +127,7 @@ class ShardedTrainer:
             gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
             finite = torch.isfinite(loss) & torch.isfinite(gnorm)
             for i, (p, g) in enumerate(zip(params, grads)):
-                state = self._states[i]
-                if self._mp[i]:
-                    master, rest = opt.step(state[0], g.float(), state[1:],
-                                            opt.lr, opt.wd, t)
-                    self._states[i] = (master,) + tuple(rest)
-                    p.copy_(master)
-                else:
-                    w, rest = opt.step(p, g.to(p.dtype), state, opt.lr,
-                                       opt.wd, t)
-                    self._states[i] = tuple(rest)
-                    p.copy_(w)
+                self._states[i] = opt.update(i, p, g, self._states[i])
         opt.num_update = t
         self._last = (gnorm, finite)
         return loss.detach()

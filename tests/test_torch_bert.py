@@ -103,7 +103,7 @@ def test_params_from_jax_refuses_mismatches():
     assert not any(k.endswith("decoder_tied_weight") for k in arrays)
     word = next(v for k, v in arrays.items() if k.endswith("_word_embed_"
                                                           "weight"))
-    onp.testing.assert_array_equal(port.word_embed.weight.detach().numpy(),
+    onp.testing.assert_array_equal(port.word_embed.weight.data().asnumpy(),
                                    word)
     # another instance prefix (the JAX global counter) pairs the same way
     prefix = next(iter(arrays)).split("_")[0] + "_"
@@ -125,17 +125,24 @@ def test_params_from_jax_refuses_mismatches():
 
 
 def test_dropout_and_layers():
-    """Dropout draws from an explicit generator and is the identity in
-    eval(); Dense promotes float32 x bfloat16 to float32 like JAX."""
+    """Dropout draws from an explicit generator in train mode and is the
+    identity outside it (``autograd.is_training()`` is the one flag, as in
+    JAX; ``eval()`` does not turn it on); Dense promotes float32 x bfloat16
+    to float32 like JAX."""
+    from incubator_mxnet_tpu_torch import autograd, cpu
     from incubator_mxnet_tpu_torch.nn import Dense, Dropout
     x = torch.ones(1000)
     d = Dropout(0.5, generator=torch.Generator().manual_seed(3))
-    y1 = d(x)
-    d.generator.manual_seed(3)
-    assert torch.equal(d(x), y1)
+    with autograd.train_mode():
+        y1 = d(x)
+        d.generator.manual_seed(3)
+        assert torch.equal(d(x), y1)
     assert set(y1.unique().tolist()) <= {0.0, 2.0}
     assert 400 < int((y1 == 0).sum()) < 600
-    assert torch.equal(d.eval()(x), x)
+    assert torch.equal(d(x), x) and torch.equal(d.train()(x), x)
+    with autograd.predict_mode():
+        assert torch.equal(d(x), x)
     dense = Dense(4, in_units=3, dtype="bfloat16", activation="tanh")
+    dense.initialize(ctx=cpu())
     out = dense(torch.ones(2, 3))
     assert out.dtype == torch.float32 and out.shape == (2, 4)

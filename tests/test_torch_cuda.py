@@ -7,7 +7,8 @@ themselves. On the card, from the root of a checkout::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (``--noconftest``: the suite's ``conftest.py`` sets JAX up.)
-``chip_smoke.py`` covers every sequence bucket; this file is the quick check.
+``chip_smoke.py`` covers every sequence bucket; this file is the quick check,
+with one Gluon step of a small BERT on the card at its end.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -252,3 +253,55 @@ def test_backward_tile_override_on_card(monkeypatch):
     monkeypatch.setenv("MXTPU_FLASH_BQ", "64")
     with pytest.raises(MXNetError, match="launch failed"):
         _bwd_case(g, torch.float32, 1, 64, 64, 128, False, None, None)
+
+
+@pytest.mark.cuda
+def test_ndarray_autograd_on_card():
+    """``mx.nd`` on ``gpu(0)``: a recorded op's gradient lands on the card
+    by ``grad_req`` ('write' once, 'add' twice over two backwards)."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, nd
+    for req, times in (("write", 1), ("add", 2)):
+        x = nd.array([[1.0, -2.0], [3.0, 0.5]], ctx=mx.gpu(0))
+        x.attach_grad(req)
+        for _ in range(2):
+            with autograd.record():
+                y = (x * x).sum()
+            y.backward()
+        assert x.grad.context == mx.gpu(0)
+        torch.testing.assert_close(x.grad._data, times * 2 * x._data)
+
+
+@pytest.mark.cuda
+def test_gluon_step_on_card(tmp_path):
+    """One Gluon step of a 2-layer BERT on the card: the forward and both
+    backward kernels launch once per layer, the loss is finite, and a
+    ``.params`` round trip into a fresh model gives a bitwise-equal
+    forward."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, bench, gluon, models, nd
+    from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
+    kw = dict(vocab_size=100, max_length=64, dropout=0.1)
+    net = models.get_bert("bert_2_128_2", **kw)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 1e-3})
+    batch = [nd.array(a, ctx=mx.gpu(0))
+             for a in bench.make_batch(2, 64, vocab=100)]
+    cuda_ops.reset_launches()
+    with autograd.record():
+        loss = models.bert_pretrain_loss(net(*batch[:4]), *batch[4:])
+    loss.backward()
+    trainer.step(1)
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts() == {n: 2 for n in cuda_ops.KERNELS}
+    assert loss.context == mx.gpu(0) and bool(torch.isfinite(loss._data))
+    path = str(tmp_path / "bert.params")
+    net.save_parameters(path)
+    fresh = models.get_bert("bert_2_128_2", generator=torch.Generator()
+                            .manual_seed(3), **kw)
+    fresh.load_parameters(path)
+    with autograd.predict_mode():
+        for a, b in zip(net(*batch[:4]), fresh(*batch[:4])):
+            assert torch.equal(a._data, b._data)

@@ -44,7 +44,23 @@ net = mt.models.get_bert("bert_2_128_2", vocab_size=50, max_length=16,
 tr = mt.parallel.ShardedTrainer(net, mt.models.bert_pretrain_loss, "adamw",
                                 device="cpu", n_labels=3)
 assert bool(tr.step(*bench.make_batch(2, 16, vocab=50)).isfinite())
-assert tr.last_finite and net.word_embed.weight.grad is not None
+assert tr.last_finite
+assert dict(net.named_parameters())["word_embed.weight"].grad is not None
+import os, tempfile
+from incubator_mxnet_tpu_torch import autograd, gluon, nd
+with mt.cpu():
+    g = mt.models.get_bert("bert_2_128_2", vocab_size=50, max_length=16,
+                           device="cpu")
+    t = gluon.Trainer(g.collect_params(), "adam")
+    b = [nd.array(a) for a in bench.make_batch(2, 16, vocab=50)]
+    with autograd.record():
+        loss = mt.models.bert_pretrain_loss(g(*b[:4]), *b[4:])
+    loss.backward()
+    t.step(1)
+    with tempfile.TemporaryDirectory() as d:
+        g.save_parameters(os.path.join(d, "g.params"))
+        g.load_parameters(os.path.join(d, "g.params"))
+    assert t.optimizer.num_update == 1 and bool(loss.asscalar() > 0)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
              or n == "incubator_mxnet_tpu"
@@ -55,7 +71,8 @@ print("OK")
 
 
 def test_port_imports_no_jax_and_serves():
-    """Serving and one training step on the CPU import no JAX."""
+    """Serving, one training step and one Gluon step with a ``.params``
+    round trip, on the CPU, import no JAX."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", _GUARD], cwd=str(REPO),
                        env=env, capture_output=True, text=True, timeout=300)
@@ -101,5 +118,6 @@ def test_default_device_is_the_card(monkeypatch):
     # the same default generator seed gives the same weights
     m2 = models.get_bert("bert_2_128_2", vocab_size=20, max_length=8,
                          device="cpu")
-    assert torch.equal(m.encoder.layer1.attn.qkv.weight,
-                       m2.encoder.layer1.attn.qkv.weight)
+    name = "encoder.layer1.attention.qkv.weight"
+    assert torch.equal(dict(m.named_parameters())[name],
+                       dict(m2.named_parameters())[name])

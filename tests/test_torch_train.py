@@ -32,7 +32,7 @@ from incubator_mxnet_tpu import optimizer as jax_optimizer
 from incubator_mxnet_tpu import parallel as jax_parallel
 from incubator_mxnet_tpu_torch import bench, models, optimizer, parallel
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.convert import jax_suffix, params_from_jax
+from incubator_mxnet_tpu_torch.convert import jax_suffixes, params_from_jax
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.nn import Dropout, set_dropout_generator
 
@@ -106,7 +106,8 @@ def port_run(jax_run):
         {"learning_rate": LR, "multi_precision": dtype == "bfloat16"},
         device="cpu", n_labels=3)
     losses = [float(tr.step(*jax_run["batch"]))]
-    grads = {jax_suffix(n): p.grad.float().numpy().copy()
+    suffix = jax_suffixes(net)
+    grads = {suffix[n]: p.grad.float().numpy().copy()
              for n, p in net.named_parameters()}
     out = {"grads": grads, "grad_norm": tr.last_grad_norm,
            "finite": tr.last_finite, "net": net, "trainer": tr}
