@@ -35,25 +35,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. train: the port bench (``incubator_mxnet_tpu_torch/bench.py``, the
    configuration of ``bench.py``'s default workload: BERT-base pretraining
    in bfloat16, dropout 0.1, batch 8, sequence 512, AdamW with fp32 master
-   weights); prints its JSON line; every step's loss finite and the last
-   below the first; each of the three kernels launched 12 times per step;
-   then one step split by kernel with ``torch.profiler``;
-7. train gradients: one step's parameter gradients of a 2-layer BERT at
+   weights) through the fused ``ShardedTrainer`` step (one CUDA-graph
+   replay per step, the default) and the eager step, timed in turns:
+   each path's step ms, tokens/s, captures, graphs per step and losses;
+   the fused path's JSON line; every step's loss finite and the last below
+   the first; each of the three kernels launched 12 times per step,
+   replays counted; then one step of each split by kernel with
+   ``torch.profiler`` (wall ms, device ms, idle share);
+7. train gate: the fused step against the eager one on the bench's
+   configuration at full width and 2 layers, under
+   ``torch.use_deterministic_algorithms``: at dropout 0, 3 steps' losses
+   and the weights after them equal to 1e-5 of each parameter's largest
+   value; at dropout 0.1, whether the captured masks are the eager ones;
+8. train gradients: one step's parameter gradients of a 2-layer BERT at
    full width (float32, dropout 0) on the kernels, against the same step
    on the plain attention path (``MXTPU_ATTN_IMPL=xla``);
-8. gluon: the MXNet Gluon loop on the port's ``mx.nd``, ``autograd`` and
-   ``gluon.Trainer``: BERT-base (float32, dropout 0.1) initialised with
-   ``net.initialize(mx.init.Xavier(), ctx=mx.gpu(0), force_reinit=True)``,
-   ``gluon.Trainer(net.collect_params(), "adam")``, the bench's batch as
-   ``mx.nd`` arrays on the card; 1 warm and 5 timed steps of
+9. gluon: the MXNet Gluon loop on the port's ``mx.nd``, ``autograd`` and
+   ``gluon.Trainer`` (multi-tensor Adam): BERT-base (float32, dropout 0.1)
+   initialised with ``net.initialize(mx.init.Xavier(), ctx=mx.gpu(0),
+   force_reinit=True)``, the bench's batch as ``mx.nd`` arrays on the
+   card, plain and ``net.hybridize()``-d (CUDA graphs for the forward and
+   the backward); 2 warm and 5 timed steps of each of
    ``autograd.record()`` -> ``loss.backward()`` -> ``trainer.step(1)``:
    every loss finite and the last below the first, each kernel launched 12
-   times per step; step ms and tokens/s beside ``ShardedTrainer``'s on the
-   same model and optimizer; one Gluon backward's gradients against those
-   ``ShardedTrainer.step`` leaves (2 layers at full width, dropout 0); a
-   ``.params`` round trip (``save_parameters`` -> ``load_parameters`` into a
-   fresh model) whose forward is bitwise equal, and ``save_states`` /
-   ``load_states`` restoring the update count.
+   times per step; step ms and tokens/s of both in turns with the
+   forward/backward/update split, beside ``ShardedTrainer``'s on the same
+   model and optimizer; a hybridized (replayed) backward's gradients
+   against those ``ShardedTrainer.step`` leaves (2 layers at full width,
+   dropout 0); a ``.params`` round trip (``save_parameters`` ->
+   ``load_parameters`` into a fresh model) whose forward is bitwise equal,
+   and ``save_states`` / ``load_states`` restoring the update count.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -653,46 +664,183 @@ def phase_profile(model, B: int = 32, L: int = 512) -> dict:
     return res
 
 
-def phase_train() -> dict:
-    """The port bench at full width and depth: its JSON line, the loss
-    trajectory, the kernels' launches per step, and one step split by
-    kernel."""
-    t0 = time.perf_counter()
-    trainer, batch, info = bench.build("cuda")
-    print(f"train: {info['model']} bfloat16, {info['params']} parameters, "
-          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    steps = int(getenv("MXTPU_BENCH_STEPS"))
+def train_run(trainer, batch, steps: int, n_layers: int, tag: str) -> dict:
+    """The port bench's protocol on one trainer: its losses, the kernels'
+    launches over the run (counted from 0 just before it, replays
+    included: 12 per kernel per step) and its peak memory."""
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launches()
     dt, losses = bench.measure(trainer, batch, steps)
     launches = cuda_ops.launch_counts()
     losses = [float(x) for x in losses]
-    record = bench.result(info, dt, losses)
-    print(json.dumps(record), flush=True)
-    n_steps, n_layers = len(losses), info["cfg"]["num_layers"]
-    check(all(onp.isfinite(losses)), f"non-finite training loss: {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    check(bool(trainer.last_finite), "the last step's loss or gradient "
-          "norm is not finite")
+    n_steps = len(losses)
+    check(all(onp.isfinite(losses)), f"{tag}: non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
+    check(bool(trainer.last_finite), f"{tag}: the last step's loss or "
+          "gradient norm is not finite")
     for name, n in launches.items():
-        check(n == n_layers * n_steps, f"{name} launched {n} times in "
-              f"{n_steps} steps of {n_layers} layers")
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {n_steps} "
-          f"steps, grad norm {trainer.last_grad_norm:.4f}, launches "
-          f"{launches}, peak memory {peak_gb:.2f} GiB", flush=True)
-    placed = trainer.place(*batch)
+        check(n == n_layers * n_steps, f"{tag}: {name} launched {n} times "
+              f"in {n_steps} steps of {n_layers} layers")
+    return {"dt": dt, "losses": losses, "launches": launches,
+            "steps": n_steps, "captures": trainer.captures,
+            "last_step_graphs": trainer.last_step_graphs,
+            "last_path": trainer.last_path,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def profiled_step(trainer, placed, tag: str) -> dict:
+    """One step under ``torch.profiler``: wall ms, device ms, idle share
+    and the split by kernel."""
     wall, per_kernel = device_split(lambda: trainer.step(*placed))
-    res = {"record": record, "losses": losses, "launches": launches,
-           "steps": n_steps, "peak_memory_gib": peak_gb,
-           "profiled_step_wall_ms": wall}
-    res.update(summarize("train profile", per_kernel))
+    res = {"profiled_step_wall_ms": wall}
+    res.update(summarize(f"{tag} profile", per_kernel))
     busy = res["profiled_device_ms"]
     res["device_idle_share"] = max(0.0, 1.0 - busy / wall)
-    print(f"train profile: one step {wall:.3f} ms wall under the profiler, "
+    print(f"{tag} profile: one step {wall:.3f} ms wall under the profiler, "
           f"device busy {busy:.3f} ms, idle share "
           f"{res['device_idle_share']:.1%}", flush=True)
     return res
+
+
+def phase_train() -> dict:
+    """The port bench at full width and depth, through the fused step
+    (one CUDA-graph replay per step, the default) and the eager step,
+    timed in turns in this call: each path's losses, launches per step and
+    captures; the fused path's JSON line; one profiled step of each."""
+    t0 = time.perf_counter()
+    trainer, batch, info = bench.build("cuda")
+    eager, _, _ = bench.build("cuda", fused=False)
+    check(trainer.fused and not eager.fused, "the bench's trainer is not "
+          "fused by default")
+    print(f"train: {info['model']} bfloat16, {info['params']} parameters, "
+          f"fused and eager trainers built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    steps = int(getenv("MXTPU_BENCH_STEPS"))
+    n_layers = info["cfg"]["num_layers"]
+    runs = {"fused": train_run(trainer, batch, steps, n_layers, "train"),
+            "eager": train_run(eager, batch, steps, n_layers,
+                               "train eager")}
+    check(runs["fused"]["captures"] == 1
+          and runs["fused"]["last_step_graphs"] == 1
+          and runs["fused"]["last_path"] == "fused",
+          f"fused trainer: {runs['fused']['captures']} captures, "
+          f"{runs['fused']['last_step_graphs']} graphs in its last step")
+    record = bench.result(info, runs["fused"]["dt"], runs["fused"]["losses"])
+    print(json.dumps(record), flush=True)
+    placed = trainer.place(*batch)
+    # in turns, after each path's own run: eager, fused
+    for name, tr in (("eager", eager), ("fused", trainer)):
+        runs[name]["step_ms_runs"] = [runs[name]["dt"] * 1e3,
+                                      synced_ms(lambda: tr.step(*placed),
+                                                steps)[0]]
+    card = card_line()
+    for name, r in runs.items():
+        ms = min(r["step_ms_runs"])
+        r["step_ms"], r["tokens_per_s"] = ms, info["batch"] * info[
+            "seq"] / (ms / 1e3)
+        print(f"train {name}: {ms:.3f} ms per step = {r['tokens_per_s']:.1f}"
+              f" tokens/s (runs {[round(t, 3) for t in r['step_ms_runs']]})"
+              f", captures {r['captures']}, graphs in the last step "
+              f"{r['last_step_graphs']}, losses {r['losses'][0]:.4f} -> "
+              f"{r['losses'][-1]:.4f} over {r['steps']} steps, launches "
+              f"{r['launches']}, peak memory {r['peak_memory_gib']:.2f} GiB "
+              f"on {card}", flush=True)
+    fused_l, eager_l = ([round(x, 4) for x in runs[k]["losses"]]
+                        for k in ("fused", "eager"))
+    print(f"train: losses fused {fused_l}, eager {eager_l}; grad norm "
+          f"{trainer.last_grad_norm:.4f}", flush=True)
+    res = {"record": record, "runs": runs,
+           "launches": runs["fused"]["launches"],
+           "launches_eager": runs["eager"]["launches"]}
+    res["profile"] = profiled_step(trainer, placed, "train fused")
+    res["profile_eager"] = profiled_step(eager, placed, "train eager")
+    del trainer, eager
+    return res
+
+
+def phase_train_fused_gate(num_layers: int = 2, steps: int = 3) -> dict:
+    """The fused step against the eager one on the bench's configuration
+    (bf16 + fp32 masters, AdamW, the bench's batch) at full width and
+    ``num_layers`` layers, under ``torch.use_deterministic_algorithms``:
+    at dropout 0 every loss and, after ``steps`` steps, every weight must
+    equal the eager one to 1e-5 of its largest value; at dropout 0.1 the
+    losses say whether the captured masks are the eager ones."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = bench.make_batch(*TRAIN_SHAPE)
+    res = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for dropout in (0.0, 0.1):
+            nets, trainers = [], []
+            for fused in (None, False):
+                net = models.get_bert(
+                    "bert_12_768_12", vocab_size=bench.VOCAB,
+                    max_length=TRAIN_SHAPE[1], dropout=dropout,
+                    dtype="bfloat16", device="cuda", num_layers=num_layers,
+                    generator=torch.Generator().manual_seed(0))
+                nets.append(net)
+                trainers.append(parallel.ShardedTrainer(
+                    net, models.bert_pretrain_loss, "adamw",
+                    {"learning_rate": 1e-4, "multi_precision": True},
+                    device="cuda", n_labels=3, fused=fused))
+            losses = [[float(tr.step(*batch)) for _ in range(steps)]
+                      for tr in trainers]
+            check(trainers[0].last_step_graphs == 1
+                  and trainers[0].captures == 1, "the gate's fused trainer "
+                  "did not replay a graph")
+            worst, worst_name = 0.0, ""
+            eager_params = dict(nets[1].named_parameters())
+            for name, p in nets[0].named_parameters():
+                want = eager_params[name].detach().float()
+                ratio = ((p.detach().float() - want).abs().max()
+                         / want.abs().max().clamp_min(1e-30)).item()
+                if ratio > worst:
+                    worst, worst_name = ratio, name
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+            res[f"dropout_{dropout}"] = {
+                "losses_fused": losses[0], "losses_eager": losses[1],
+                "loss_rel_err": loss_err, "weights_worst_rel_err": worst,
+                "weights_worst_param": worst_name,
+                "bitwise": loss_err == 0.0 and worst == 0.0}
+            print(f"train gate, dropout {dropout}, {num_layers} layers at "
+                  f"full width, {steps} steps, fused vs eager: losses "
+                  f"{losses[0]} vs {losses[1]} (worst rel err {loss_err:.2e})"
+                  f", weights worst rel err {worst:.2e} ({worst_name})",
+                  flush=True)
+            if dropout == 0.0:
+                check(loss_err <= 1e-5 and worst <= 1e-5,
+                      f"fused and eager steps differ: losses {loss_err}, "
+                      f"weights {worst} at {worst_name}")
+            else:
+                print("train gate: the captured dropout masks "
+                      + ("equal" if loss_err == 0.0 else "differ from")
+                      + " the eager ones from the same seed", flush=True)
+            del nets, trainers
+            gc.collect()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    res["bias_correction"] = bias_correction_diff()
+    return res
+
+
+def bias_correction_diff(max_t: int = 100_000) -> dict:
+    """Adam's ``1 - beta ** t`` as the fused step computes it (torch's
+    float32 ``pow`` on the card) against numpy's float32 ``pow`` on the
+    host, for t in 1..``max_t``: the largest difference in float32 ulps."""
+    t = torch.arange(1, max_t + 1, device="cuda", dtype=torch.int32)
+    out = {}
+    for beta in (0.9, 0.999):
+        dev = (1.0 - torch.pow(beta, t.to(torch.float32))).cpu().numpy()
+        host = onp.float32(1.0) - onp.float32(beta) ** onp.arange(
+            1, max_t + 1, dtype=onp.float32)
+        ulps = onp.abs(dev.view(onp.int32).astype(onp.int64)
+                       - host.view(onp.int32).astype(onp.int64))
+        out[str(beta)] = {"max_ulps": int(ulps.max()),
+                          "differing": int((ulps > 0).sum())}
+    print(f"bias correction 1 - beta**t, t = 1..{max_t}, card float32 pow "
+          f"vs numpy float32 pow: {out}", flush=True)
+    return out
 
 
 def phase_train_grads(num_layers: int = 2) -> dict:
@@ -786,28 +934,27 @@ def gluon_split(net, trainer, batch) -> dict:
     return dict(zip(("forward_ms", "backward_ms", "update_ms"), ms))
 
 
-def phase_gluon(trained: dict, steps: int = 5) -> dict:
-    """BERT-base trained through the Gluon loop: losses, launches per step,
-    step ms against ``ShardedTrainer`` on the same model and optimizer, the
-    gradients of one backward against ``ShardedTrainer``'s, and the
-    ``.params`` and trainer-state round trips."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    ctx, (B, L) = mx.gpu(0), TRAIN_SHAPE
-    t0 = time.perf_counter()
+def gluon_net(ctx, L: int, hybridize: bool):
+    """BERT-base (float32, dropout 0.1) initialised with Xavier after
+    ``mx.random.seed(0)`` (so twins have the same weights), and its Adam
+    ``gluon.Trainer``."""
     mx.random.seed(0)
     net = models.get_bert("bert_12_768_12", vocab_size=bench.VOCAB,
                           max_length=L, dropout=0.1, dtype="float32")
     net.initialize(mx.init.Xavier(), ctx=ctx, force_reinit=True)
-    trainer = gluon.Trainer(net.collect_params(), "adam",
-                            {"learning_rate": 1e-4})
-    host = bench.make_batch(B, L)
-    batch = [nd.array(a, ctx=ctx) for a in host]
-    n_params = len(trainer._params)
-    print(f"gluon: bert_12_768_12 float32, {n_params} parameters, built "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    losses = [gluon_step(net, trainer, batch)]            # warm step
+    if hybridize:
+        net.hybridize()
+    return net, gluon.Trainer(net.collect_params(), "adam",
+                              {"learning_rate": 1e-4})
+
+
+def gluon_loop(net, trainer, batch, steps: int, n_layers: int,
+               tag: str) -> dict:
+    """Two warm steps (a hybridized net's eager call and its capture), then
+    ``steps`` timed steps with the kernels' launches counted from 0 just
+    before them, and two more counted one by one: 12 per kernel per
+    step."""
+    losses = [gluon_step(net, trainer, batch) for _ in range(2)]
     per_step = []
 
     def counted():
@@ -820,87 +967,134 @@ def phase_gluon(trained: dict, steps: int = 5) -> dict:
     step_ms, timed = synced_ms(lambda: gluon_step(net, trainer, batch),
                                steps)
     launches = cuda_ops.launch_counts()
-    losses += timed
     _, counted_losses = synced_ms(counted, 2)
-    losses = [float(x.asscalar()) for x in losses + counted_losses]
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    n_layers = models.BERT_CONFIGS["bert_12_768_12"]["num_layers"]
-    check(all(onp.isfinite(losses)), f"non-finite Gluon loss: {losses}")
-    check(losses[-1] < losses[0], f"Gluon loss did not fall: {losses}")
+    losses = [float(x.asscalar()) for x in losses + timed + counted_losses]
+    check(all(onp.isfinite(losses)), f"{tag}: non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
     for name, n in launches.items():
-        check(n == n_layers * steps, f"{name} launched {n} times in {steps} "
-              f"Gluon steps of {n_layers} layers")
+        check(n == n_layers * steps, f"{tag}: {name} launched {n} times in "
+              f"{steps} steps of {n_layers} layers")
     for counts in per_step:
         check(all(n == n_layers for n in counts.values()),
-              f"launches in one Gluon step: {counts}")
-    split = gluon_split(net, trainer, batch)
-    wall, per_kernel = device_split(lambda: gluon_step(net, trainer, batch))
-    busy = sum(per_kernel.values())
+              f"{tag}: launches in one step: {counts}")
+    return {"losses": losses, "launches": launches,
+            "step_ms_runs": [step_ms]}
 
-    # the same model and optimizer through ShardedTrainer, timed in turns
-    # with the Gluon loop (Gluon, ShardedTrainer, Gluon, ShardedTrainer)
+
+def phase_gluon(trained: dict, steps: int = 5) -> dict:
+    """BERT-base trained through the Gluon loop, plain and hybridized (CUDA
+    graphs for the forward and backward, the multi-tensor Adam of
+    ``gluon.Trainer`` in both): losses, launches per step, step ms timed in
+    turns with the forward/backward/update split, against
+    ``ShardedTrainer`` on the same model and optimizer; the gradients of a
+    hybridized backward against ``ShardedTrainer``'s, and the ``.params``
+    and trainer-state round trips."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx, (B, L) = mx.gpu(0), TRAIN_SHAPE
+    t0 = time.perf_counter()
+    host = bench.make_batch(B, L)
+    batch = [nd.array(a, ctx=ctx) for a in host]
+    n_layers = models.BERT_CONFIGS["bert_12_768_12"]["num_layers"]
+    nets = {"plain": gluon_net(ctx, L, False),
+            "hybrid": gluon_net(ctx, L, True)}
+    n_params = len(nets["plain"][1]._params)
+    print(f"gluon: bert_12_768_12 float32, {n_params} parameters, plain and "
+          f"hybridized nets built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {name: gluon_loop(net, tr, batch, steps, n_layers,
+                             f"gluon {name}")
+            for name, (net, tr) in nets.items()}
+    check(len(nets["hybrid"][0]._cached_ops) == 1
+          and all(op.bwd is not None
+                  for op in nets["hybrid"][0]._cached_ops.values()),
+          "the hybridized net did not capture one forward and backward "
+          "graph")
+    # in turns, after each path's own run: hybrid, plain
+    for name in ("hybrid", "plain"):
+        net, tr = nets[name]
+        runs[name]["step_ms_runs"].append(synced_ms(
+            lambda: gluon_step(net, tr, batch), steps)[0])
+    for name, (net, tr) in nets.items():
+        r = runs[name]
+        r["step_ms"] = min(r["step_ms_runs"])
+        r["tokens_per_s"] = B * L / (r["step_ms"] / 1e3)
+        r["split"] = gluon_split(net, tr, batch)
+        wall, per_kernel = device_split(lambda: gluon_step(net, tr, batch))
+        busy = sum(per_kernel.values())
+        r.update(profiled_step_wall_ms=wall, profiled_device_ms=busy,
+                 device_idle_share=max(0.0, 1 - busy / wall))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the same model and optimizer through ShardedTrainer (its fused step),
+    # timed in turns with the plain Gluon loop
+    net, tr = nets["plain"]
     st = parallel.ShardedTrainer(net, models.bert_pretrain_loss, "adam",
                                  {"learning_rate": 1e-4}, device="cuda",
                                  n_labels=3)
     placed = st.place(*host)
     st.step(*placed)
+    st.step(*placed)
     st_runs = [synced_ms(lambda: st.step(*placed), steps)[0]]
-    gluon_runs = [step_ms, synced_ms(
-        lambda: gluon_step(net, trainer, batch), steps)[0]]
+    runs["plain"]["step_ms_runs"].append(synced_ms(
+        lambda: gluon_step(net, tr, batch), steps)[0])
     st_runs.append(synced_ms(lambda: st.step(*placed), steps)[0])
     st_ms = min(st_runs)
-    step_ms = min(gluon_runs)
-    tps, st_tps = B * L / (step_ms / 1e3), B * L / (st_ms / 1e3)
+    st_tps = B * L / (st_ms / 1e3)
     card = card_line()
-    train_rec = trained["record"]["extra"]
-    print(f"gluon: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
-          f"{len(losses)} steps; {step_ms:.3f} ms per step = {tps:.1f} "
-          f"tokens/s (runs {[round(t, 3) for t in gluon_runs]}); "
-          f"ShardedTrainer, same model and Adam, in turns: {st_ms:.3f} ms = "
-          f"{st_tps:.1f} tokens/s (runs {[round(t, 3) for t in st_runs]}); "
-          f"the bench's bf16 AdamW step: {train_rec['step_ms']} ms; one "
-          f"synchronised step split: forward {split['forward_ms']:.3f}, "
-          f"backward {split['backward_ms']:.3f}, trainer.step "
-          f"{split['update_ms']:.3f} ms for {n_params} parameters; one step "
-          f"under the profiler {wall:.3f} ms wall, {busy:.3f} ms device, "
-          f"idle share {max(0.0, 1 - busy / wall):.1%}; launches "
-          f"{launches}; peak memory {peak_gb:.2f} GiB on {card}",
-          flush=True)
-    del st, trainer, net, batch
-    res = {"losses": losses, "launches": launches, "steps": steps,
-           "step_ms": step_ms, "tokens_per_s": tps, "step_ms_runs": gluon_runs,
+    for name, r in runs.items():
+        sp = r["split"]
+        print(f"gluon {name}: loss {r['losses'][0]:.4f} -> "
+              f"{r['losses'][-1]:.4f} over {len(r['losses'])} steps; "
+              f"{r['step_ms']:.3f} ms per step = {r['tokens_per_s']:.1f} "
+              f"tokens/s (runs {[round(t, 3) for t in r['step_ms_runs']]}); "
+              f"one synchronised step split: forward {sp['forward_ms']:.3f}, "
+              f"backward {sp['backward_ms']:.3f}, trainer.step "
+              f"{sp['update_ms']:.3f} ms for {n_params} parameters; one step "
+              f"under the profiler {r['profiled_step_wall_ms']:.3f} ms wall, "
+              f"{r['profiled_device_ms']:.3f} ms device, idle share "
+              f"{r['device_idle_share']:.1%}; launches {r['launches']} on "
+              f"{card}", flush=True)
+    print(f"gluon: ShardedTrainer (fused), same model and Adam, in turns with"
+          f" the plain loop: {st_ms:.3f} ms = {st_tps:.1f} tokens/s (runs "
+          f"{[round(t, 3) for t in st_runs]}); the bench's bf16 AdamW fused "
+          f"step: {trained['runs']['fused']['step_ms']:.3f} ms; peak memory "
+          f"{peak_gb:.2f} GiB", flush=True)
+    del st, tr, net, nets, batch
+    res = {"runs": runs, "launches": runs["plain"]["launches"],
+           "launches_hybrid": runs["hybrid"]["launches"], "steps": steps,
            "sharded_trainer_step_ms": st_ms,
            "sharded_trainer_tokens_per_s": st_tps,
            "sharded_trainer_step_ms_runs": st_runs,
-           "bench_step_ms": train_rec["step_ms"], "split": split,
-           "parameters": n_params,
-           "profiled_step_wall_ms": wall, "profiled_device_ms": busy,
-           "device_idle_share": max(0.0, 1 - busy / wall),
-           "peak_memory_gib": peak_gb}
+           "parameters": n_params, "peak_memory_gib": peak_gb}
     res.update(gluon_grads_vs_sharded())
     res.update(gluon_round_trip())
     return res
 
 
 def gluon_grads_vs_sharded(num_layers: int = 2) -> dict:
-    """One Gluon backward's ``param.grad()`` against the gradients that
-    ``ShardedTrainer.step`` leaves on the same weights and batch (full
-    width, ``num_layers`` layers, float32, dropout 0)."""
+    """The ``param.grad()`` of a hybridized net's replayed backward against
+    the gradients that ``ShardedTrainer.step`` leaves on the same weights
+    and batch (full width, ``num_layers`` layers, float32, dropout 0)."""
     gc.collect()
     net = models.get_bert("bert_12_768_12", vocab_size=bench.VOCAB,
                           max_length=TRAIN_SHAPE[1], dropout=0.0,
                           dtype="float32", device="cuda",
                           num_layers=num_layers)
+    net.hybridize()
     host = bench.make_batch(*TRAIN_SHAPE)
     batch = [nd.array(a, ctx=mx.gpu(0)) for a in host]
     params = net.collect_params()
-    cuda_ops.reset_launches()
-    with autograd.record():
-        loss = models.bert_pretrain_loss(net(*batch[:4]), *batch[4:])
-    loss.backward()
+    for _ in range(3):                 # eager call, capture, replay
+        cuda_ops.reset_launches()
+        with autograd.record():
+            loss = models.bert_pretrain_loss(net(*batch[:4]), *batch[4:])
+        loss.backward()
     launches = cuda_ops.launch_counts()
     check(all(n == num_layers for n in launches.values()),
-          f"one Gluon backward of {num_layers} layers launched {launches}")
+          f"one replayed backward of {num_layers} layers launched "
+          f"{launches}")
     got = {k: p.grad()._data.clone() for k, p in params.items()}
     st = parallel.ShardedTrainer(net, models.bert_pretrain_loss, "adam",
                                  {"learning_rate": 1e-4}, device="cuda",
@@ -914,9 +1108,10 @@ def gluon_grads_vs_sharded(num_layers: int = 2) -> dict:
         if ratio > worst:
             worst, worst_name = ratio, k
     print(f"gluon gradients: {len(got)} parameters, {num_layers} layers at "
-          f"full width, Gluon backward vs ShardedTrainer.step: worst max abs "
-          f"err / max |grad| {worst:.2e} ({worst_name}, tol {GRAD_RTOL}), "
-          f"loss {float(loss.asscalar()):.6f} vs {st_loss:.6f}", flush=True)
+          f"full width, hybridized (replayed) backward vs ShardedTrainer.step"
+          f": worst max abs err / max |grad| {worst:.2e} ({worst_name}, tol "
+          f"{GRAD_RTOL}), loss {float(loss.asscalar()):.6f} vs "
+          f"{st_loss:.6f}", flush=True)
     check(worst <= GRAD_RTOL, f"Gluon gradients differ: {worst} at "
           f"{worst_name}")
     return {"grads_worst_rel_err": worst, "grads_worst_param": worst_name,
@@ -973,6 +1168,10 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card")
+    # cuBLAS's deterministic configuration (32 MiB of workspace, Hopper's
+    # default size), read when its first handle is made: the fused-step
+    # gate runs under torch.use_deterministic_algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} cuda "
@@ -999,6 +1198,7 @@ def main(argv=None) -> int:
     served = phase_serve(N_REQUESTS, OFFERED_RATE, args.seed)
     profiled = phase_profile(served.pop("model"))
     trained = phase_train()
+    gate = phase_train_fused_gate()
     grads = phase_train_grads()
     glu = phase_gluon(trained)
 
@@ -1020,8 +1220,11 @@ def main(argv=None) -> int:
                         f"{line}",
             "launches": trained["launches"][name],
             "launches_by_path": {"serve": served["launches"][name],
-                                 "train": trained["launches"][name],
-                                 "gluon": glu["launches"][name]},
+                                 "train": trained["launches_eager"][name],
+                                 "train_fused": trained["launches"][name],
+                                 "gluon": glu["launches"][name],
+                                 "gluon_hybrid":
+                                     glu["launches_hybrid"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -1034,7 +1237,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernel_cases": results,
                        "serve": served, "profile": profiled,
-                       "train": trained, "train_gradients": grads,
+                       "train": trained, "train_fused_gate": gate,
+                       "train_gradients": grads,
                        "gluon": glu, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

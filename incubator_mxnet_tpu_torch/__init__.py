@@ -13,9 +13,14 @@ slices so far: serving BERT (``models.get_bert`` → ``serve.CompiledModel``
 kernel (``ops/cuda/flash_attention.py``, ``csrc/flash_attention_fwd.cu``);
 training it with ``parallel.ShardedTrainer`` (``bench`` runs ``bench.py``'s
 workload), each attention backward on the dK/dV and dQ kernels
-(``csrc/flash_attention_bwd_*.cu``); and the Gluon loop — ``net.initialize``,
+(``csrc/flash_attention_bwd_*.cu``); the Gluon loop — ``net.initialize``,
 ``gluon.Trainer``, ``autograd.record()``, ``loss.backward()``,
-``trainer.step`` and ``.params`` files shared with the JAX package.
+``trainer.step`` and ``.params`` files shared with the JAX package; and the
+fused step: ``ShardedTrainer`` replays one CUDA graph per step
+(``fused=``, ``MXTPU_FUSED_STEP``), ``HybridBlock.hybridize()`` replays
+captured forward and backward graphs (:mod:`.ops.cuda.graphs`), and both
+trainers update every parameter at once (``Optimizer.update_multi``), with
+``lr_scheduler`` and the ``mx.nd`` update ops (:mod:`.ops.optimizer_ops`).
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
@@ -23,7 +28,7 @@ from .context import (  # noqa: F401
 )
 from . import (  # noqa: F401
     autograd, random, ndarray, initializer, gluon, ops, nn, models, serve,
-    convert, optimizer, parallel,
+    convert, optimizer, parallel, lr_scheduler,
 )
 
 nd = ndarray
@@ -32,4 +37,4 @@ init = initializer
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "resolve_device", "autograd", "random", "ndarray",
            "nd", "initializer", "init", "gluon", "ops", "nn", "models",
-           "serve", "convert", "optimizer", "parallel"]
+           "serve", "convert", "optimizer", "parallel", "lr_scheduler"]

@@ -18,7 +18,22 @@ into the variable's leaf ``.grad``, in place once that buffer exists (so an
 array read from it stays current); a variable the heads do not reach keeps
 its gradient. Only a backward marks a gradient fresh (the ``Trainer``'s
 stale-gradient check reads the mark), as in the JAX ``_deposit``
-(``:235-251``). ``grad(create_graph=True)`` waits for a later slice.
+(``:235-251``). The first deposit copies the gradient into a buffer of
+the variable's own, so that a gradient a captured CUDA graph returns (a
+hybridized block, :mod:`..gluon.block`) is never aliased by ``.grad``.
+``grad(create_graph=True)`` waits for a later slice.
+
+The tape. The JAX package keeps one tape per thread: every op recorded
+under :func:`record` puts its outputs on it (``_record_node``, ``:138``),
+and a backward without ``retain_graph`` clears it (``clear_tape``,
+``:147``). Here the tape is a generation number: an ``NDArray`` made by a
+recorded op carries the generation it was made in, and a backward that
+does not retain the graph starts a new one. So, as in the JAX package, an
+array on the current tape refuses in-place mutation while recording
+(``ndarray.py:184-189``, :meth:`~.ndarray.NDArray._check_inplace_ok`),
+and a second ``backward()`` from heads whose tape was cleared deposits
+nothing: each variable keeps the gradient it has, under ``grad_req``
+``'write'`` and ``'add'`` alike (``autograd.py:224-225``).
 """
 from __future__ import annotations
 
@@ -39,6 +54,7 @@ class _State(threading.local):
     def __init__(self):
         self.recording = False
         self.training = False
+        self.tape = 0               # generation of this thread's tape
 
 
 _STATE = _State()
@@ -110,6 +126,29 @@ def set_training(flag: bool) -> bool:
     return prev
 
 
+def _tape_mark() -> Optional[int]:
+    """The tape generation an op's output is made in: the current one
+    while recording, else None (not on the tape)."""
+    return _STATE.tape if _STATE.recording else None
+
+
+def _on_tape(arr) -> bool:
+    """Is ``arr`` an output of a recorded op whose tape no backward has
+    cleared yet?"""
+    mark = getattr(arr, "_tape", None)
+    return mark is not None and mark == _STATE.tape
+
+
+def _consumed(head) -> bool:
+    """Was ``head`` recorded on a tape that a backward has cleared since?"""
+    mark = getattr(head, "_tape", None)
+    return mark is not None and mark != _STATE.tape
+
+
+def _clear_tape() -> None:
+    _STATE.tape += 1
+
+
 def _tensor(x) -> torch.Tensor:
     return x._data if hasattr(x, "_data") else x
 
@@ -125,10 +164,15 @@ def mark_variables(variables, gradients, grad_reqs="write") -> None:
         var._data.grad = _tensor(g).detach()
 
 
-def _heads(heads, head_grads):
+def _live_heads(heads, head_grads):
+    """``(head, head_grad)`` pairs of the heads still on the tape."""
     heads = as_list(heads)
     head_grads = as_list(head_grads) if head_grads is not None \
         else [None] * len(heads)
+    return [(h, hg) for h, hg in zip(heads, head_grads) if not _consumed(h)]
+
+
+def _heads(heads, head_grads):
     outs, seeds = [], []
     for h, hg in zip(heads, head_grads):
         t = _tensor(h)
@@ -147,7 +191,17 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
              train_mode: bool = True) -> None:
     """Gradients of ``heads`` into every variable they reach, by its
     ``grad_req`` (JAX counterpart: ``autograd.py:169``). ``head_grads``
-    default to ones."""
+    default to ones. Heads whose tape an earlier backward cleared reach
+    nothing, as in the JAX package; without ``retain_graph`` this backward
+    clears the tape."""
+    live = _live_heads(heads, head_grads)
+    if live:
+        _deposit_grads(*zip(*live), retain_graph=retain_graph)
+    if not retain_graph:
+        _clear_tape()
+
+
+def _deposit_grads(heads, head_grads, retain_graph: bool) -> None:
     outs, seeds = _heads(heads, head_grads)
     with _VARIABLES_LOCK:
         live = list(_VARIABLES)
@@ -167,7 +221,7 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
             if g is None:
                 continue
             if leaf.grad is None:
-                leaf.grad = g
+                leaf.grad = torch.empty_like(leaf).copy_(g)
             elif var._autograd_req == "add":
                 leaf.grad.add_(g)
             else:
@@ -183,10 +237,15 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     from .ndarray import NDArray
     if create_graph:
         raise MXNetError("grad(create_graph=True) is not ported yet")
-    outs, seeds = _heads(heads, head_grads)
     leaves = [_tensor(v) for v in as_list(variables)]
-    grads = torch.autograd.grad(outs, leaves, seeds,
-                                retain_graph=bool(retain_graph),
-                                allow_unused=True)
+    live = _live_heads(heads, head_grads)
+    grads = [None] * len(leaves)
+    if live:
+        outs, seeds = _heads(*zip(*live))
+        grads = torch.autograd.grad(outs, leaves, seeds,
+                                    retain_graph=bool(retain_graph),
+                                    allow_unused=True)
+    if not retain_graph:
+        _clear_tape()
     return [NDArray(g if g is not None else torch.zeros_like(leaf))
             for g, leaf in zip(grads, leaves)]

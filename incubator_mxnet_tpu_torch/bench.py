@@ -5,9 +5,11 @@ Counterpart: the BERT training branch of the JAX package's ``bench.py``
 (``bert_12_768_12``, bfloat16, dropout 0.1, batch 8, sequence 512, 15% of
 positions masked, MLM + NSP heads, ``bert_pretrain_loss``, AdamW at lr
 1e-4 with fp32 master weights), the same seeded numpy batch, the same
-FLOP formula and the same JSON keys. Knobs: ``MXTPU_BENCH_MODEL``,
-``MXTPU_BENCH_BATCH``, ``MXTPU_BENCH_SEQ``, ``MXTPU_BENCH_STEPS``,
-``MXTPU_BENCH_DROPOUT`` and ``MXTPU_PEAK_TFLOPS``. Run on the card from
+FLOP formula and the same JSON keys. The trainer takes its fused step on
+the card (one CUDA-graph replay per step) unless ``MXTPU_FUSED_STEP=0``.
+Knobs: ``MXTPU_BENCH_MODEL``, ``MXTPU_BENCH_BATCH``, ``MXTPU_BENCH_SEQ``,
+``MXTPU_BENCH_STEPS``, ``MXTPU_BENCH_DROPOUT``, ``MXTPU_FUSED_STEP`` and
+``MXTPU_PEAK_TFLOPS``. Run on the card from
 the root of a checkout::
 
     python3 -m incubator_mxnet_tpu_torch.bench
@@ -60,7 +62,9 @@ def measure(trainer: ShardedTrainer, batch: tuple, steps: int) -> tuple:
     """``bench.py``'s protocol (``_measure``): a first step (set-up), the
     batch placed on the device, a warm step, then ``steps`` timed steps
     with one synchronize at the end. Returns ``(seconds per step, every
-    step's loss)``; the losses are device scalars, read after the timing."""
+    step's loss)``; the losses are device scalars, read after the timing.
+    A fused trainer runs its first step eagerly and captures its graph on
+    the warm step, so the timed steps are replays."""
     losses = [trainer.step(*batch)]
     _sync(trainer.device)
     batch = trainer.place(*batch)
@@ -73,11 +77,11 @@ def measure(trainer: ShardedTrainer, batch: tuple, steps: int) -> tuple:
     return (time.perf_counter() - t0) / steps, losses
 
 
-def build(device=None) -> tuple:
+def build(device=None, fused: Optional[bool] = None) -> tuple:
     """The bench's model, trainer and batch on ``device`` (default: the
     card): ``(trainer, batch, info)``, ``info`` holding what
     :func:`result` needs (model name and config, batch, sequence, device,
-    parameter count)."""
+    parameter count). ``fused`` is ``ShardedTrainer``'s."""
     dev = resolve_device(device)
     model_name = getenv("MXTPU_BENCH_MODEL")
     B = int(getenv("MXTPU_BENCH_BATCH"))
@@ -89,7 +93,7 @@ def build(device=None) -> tuple:
     trainer = ShardedTrainer(net, models.bert_pretrain_loss, "adamw",
                              {"learning_rate": 1e-4,
                               "multi_precision": True},
-                             device=dev, n_labels=3)
+                             device=dev, n_labels=3, fused=fused)
     info = {"model": model_name, "cfg": models.BERT_CONFIGS[model_name],
             "batch": B, "seq": L, "device": dev,
             "params": sum(p.numel() for p in net.parameters())}

@@ -3,6 +3,10 @@
 Counterpart: the JAX package's ``context.py`` (``Context`` at ``:79``,
 ``cpu``/``gpu`` at ``:176-191``, ``current_context`` at ``:198``,
 ``num_gpus`` at ``:216``). ``gpu(i)`` is ``torch.device("cuda", i)``. The
+CPU is one device, ``cpu(0)``: as in the JAX package (``context.py:121-127``,
+``Context.jax_device``), any context may be constructed, and one whose
+``device_id`` is out of range raises "device_id out of range" when it is
+first used (``torch_device``: arrays, parameters, generators). The
 default context is ``gpu(0)``, and the default device of the entry points
 that take ``device=`` is the card: asking for it on a machine without one
 raises instead of falling back to the CPU, so a run never measures the CPU
@@ -21,6 +25,8 @@ __all__ = ["DEFAULT_DEVICE", "resolve_device", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "as_context"]
 
 DEFAULT_DEVICE = "cuda"
+#: CPU devices a context may name: torch has one
+CPU_DEVICES = 1
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -75,8 +81,14 @@ class Context:
 
     @property
     def torch_device(self) -> torch.device:
-        """The ``torch.device``; raises for ``gpu`` without a card."""
+        """The ``torch.device``; raises for ``gpu`` without a card and for
+        a ``device_id`` out of range (JAX counterpart: ``context.py:121``).
+        """
         if self.device_type == "cpu":
+            if not 0 <= self.device_id < CPU_DEVICES:
+                raise MXNetError(
+                    f"{self}: device_id out of range, only {CPU_DEVICES} "
+                    "device(s) of this type are visible")
             return torch.device("cpu")
         return resolve_device(torch.device("cuda", self.device_id))
 

@@ -21,9 +21,28 @@ the op namespace :mod:`..ndarray`: a forward given NDArrays unwraps them,
 runs under ``torch.set_grad_enabled(autograd.is_recording())`` (no graph
 outside ``autograd.record()``) and wraps the outputs; a forward given
 tensors (the serving and ``ShardedTrainer`` paths) stays on torch's rules.
-``hybridize()`` sets and cascades the flag; the forward stays eager (a
-CUDA-graph capture is a later slice). ``export``, ``optimize_for`` and
-``SymbolBlock`` are not ported yet.
+``export``, ``optimize_for`` and ``SymbolBlock`` are not ported yet.
+
+``hybridize(static_alloc, static_shape)`` turns the block's forward on
+NDArrays on the card into a cached op of CUDA graphs (JAX counterpart:
+``gluon/block.py:420-436``, ``_call_cached_op`` ``:531-591``), one per
+signature: training flag, recording flag, the arguments' structure and
+their shapes, dtypes and ``requires_grad``, and which parameters take
+gradients. The first call of a signature runs eagerly, as JAX's first
+call does; the second captures the forward into a graph (and, under
+``autograd.record()``, the backward into a second one), and every call
+replays them. Under ``record()`` the cached op is one
+``torch.autograd.Function`` (:class:`_CachedOpFunction`) whose forward
+replays the forward graph and whose backward replays the backward graph,
+so the gradients reach the parameters through ``autograd.backward`` by
+their ``grad_req``; ``autograd.backward`` copies each one into the
+parameter's own buffer, so no ``.grad`` aliases graph memory. The graphs
+compute on aliases of the parameters (the same storage, other autograd
+leaves), so they see every in-place update and share nothing of the
+autograd state of the eager path. Outputs are copies, safe to keep
+across calls. ``hybridize(False)`` and ``_clear_cached_op()`` drop the
+graphs. On CPU NDArrays, on tensors, or with nested arguments, the
+hybridized block runs its eager forward: the same function.
 """
 from __future__ import annotations
 
@@ -31,14 +50,19 @@ import re
 import threading
 import warnings
 from collections import OrderedDict
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
 from .. import autograd
+from ..base import MXNetError
+from ..context import Context
 from .. import ndarray as F
+from .. import random as _random
+from ..ndarray import NDArray
 from ..ndarray.op import _has_nd, _unwrap, _wrap
+from ..ops.cuda import graphs
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock"]
@@ -285,12 +309,27 @@ class HybridBlock(Block):
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
+        self._flags: Dict[str, bool] = {}
+        self._cached_ops: Dict[tuple, "_CachedOp"] = {}
+        self._cached_params: Optional[List[Parameter]] = None
 
-    def hybridize(self, active: bool = True, **kwargs) -> None:
-        """Set the hybridize flag here and below; the forward stays
-        eager."""
+    def hybridize(self, active: bool = True, static_alloc: bool = False,
+                  static_shape: bool = False, **kwargs) -> None:
+        """Make the forward on card NDArrays a cached op of CUDA graphs
+        (module docstring), here and below. ``static_alloc`` and
+        ``static_shape`` are accepted as in the JAX package: a graph has
+        both by construction."""
         self._active = active
-        super().hybridize(active, **kwargs)
+        self._flags = dict(static_alloc=static_alloc,
+                           static_shape=static_shape, **kwargs)
+        self._clear_cached_op()
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def _clear_cached_op(self) -> None:
+        """Drop every captured graph of this block."""
+        self._cached_ops = {}
+        self._cached_params = None
 
     def infer_shape(self, *args) -> None:
         """Resolve deferred parameter shapes from the inputs' shapes; layers
@@ -301,6 +340,9 @@ class HybridBlock(Block):
             " in_units/in_channels.")
 
     def _fetch_params(self, args) -> Dict[str, torch.Tensor]:
+        sub = getattr(_ALIASES, "map", None)
+        if sub:
+            return {name: sub[id(p)] for name, p in self._reg_params.items()}
         try:
             return {name: p._tensor() for name, p in self._reg_params.items()}
         except DeferredInitializationError:
@@ -311,6 +353,10 @@ class HybridBlock(Block):
 
     def forward(self, *args):
         if _has_nd(args):
+            if self._active:
+                op = self._cached_op(args)
+                if op is not None:
+                    return op(self, args)
             args = _unwrap(args)
             with torch.set_grad_enabled(autograd.is_recording()):
                 return _wrap(self.hybrid_forward(F, *args,
@@ -319,3 +365,188 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    # ------------------------------------------------------------------
+    # the cached op (JAX counterpart: ``_call_cached_op``, ``:531-591``)
+    # ------------------------------------------------------------------
+    def _cached_op(self, args) -> Optional["_CachedOp"]:
+        """The cached op of this call's signature, or None when this call
+        runs eagerly: the first of its signature, or one the graphs do not
+        take (CPU arrays, nested arguments)."""
+        skeleton, tensors = [], []
+        for a in args:
+            if isinstance(a, (NDArray, torch.Tensor)):
+                t = _unwrap(a)
+                if not t.is_cuda:
+                    return None
+                tensors.append(t)
+                skeleton.append((tuple(t.shape), t.dtype, t.requires_grad))
+            elif isinstance(a, (list, tuple, dict)):
+                return None
+            else:
+                skeleton.append(("static", repr(a)))
+        params = self._params_for_graphs()
+        if not tensors or params is None:
+            return None
+        recording = autograd.is_recording()
+        sig = (autograd.is_training(), recording, tuple(skeleton),
+               tuple(p._var.requires_grad for p in params))
+        op = self._cached_ops.get(sig)
+        if op is not None and op.fwd is not None and op.storage != tuple(
+                p._var.data_ptr() for p in params):
+            # a parameter got new storage (re-initialised, cast): the
+            # graphs read the old one, so every graph of the block goes
+            self._clear_cached_op()
+            return None
+        if op is None:
+            self._cached_ops[sig] = _CachedOp(recording, tensors[0].device)
+            return None
+        return op
+
+    def _params_for_graphs(self) -> Optional[List[Parameter]]:
+        """This block's parameters in sorted-name order, once each, or None
+        while one is not initialised (the eager call initialises it)."""
+        if self._cached_params is None:
+            seen, params = set(), []
+            for _, p in sorted(self.collect_params().items()):
+                if not p._initialized:
+                    return None
+                if id(p) not in seen:
+                    seen.add(id(p))
+                    params.append(p)
+            self._cached_params = params
+        return self._cached_params
+
+
+class _CachedOp:
+    """One signature's graphs: the forward, and under ``record()`` the
+    backward, over static input buffers and aliases of the parameters."""
+
+    def __init__(self, recording: bool, device: torch.device):
+        self.recording = recording
+        self.device = device
+        self.fwd: Optional[graphs.Graph] = None
+        self.bwd: Optional[graphs.Graph] = None
+        self.params: List[Parameter] = []
+        self.static_in: List[torch.Tensor] = []
+        self.static_out: List[torch.Tensor] = []
+        self.multi = False
+        self.replays = 0             # forward replays, for backward's check
+        self.storage: tuple = ()     # the parameters' data_ptr at capture
+
+    def __call__(self, block: HybridBlock, args):
+        tensors = [_unwrap(a) for a in args
+                   if isinstance(a, (NDArray, torch.Tensor))]
+        if self.fwd is None:
+            self._capture(block, args, tensors)
+        if self.recording:
+            outs = _CachedOpFunction.apply(
+                self, *tensors, *(p._var for p in self.params))
+        else:
+            self._replay_forward(tensors)
+            outs = [o.clone() for o in self.static_out]
+        outs = [_wrap(o) for o in outs]
+        return tuple(outs) if self.multi else outs[0]
+
+    def _replay_forward(self, tensors) -> None:
+        with torch.no_grad():
+            for dst, src in zip(self.static_in, tensors):
+                dst.copy_(src)
+        self.fwd.replay()
+        self.replays += 1
+
+    def _capture(self, block: HybridBlock, args, tensors) -> None:
+        """Capture the forward (and backward) graph of this signature,
+        after one run of the same work on the capture stream."""
+        from ..nn import Dropout
+        rec = self.recording
+        self.params = block._cached_params
+        self.storage = tuple(p._var.data_ptr() for p in self.params)
+        aliases = [p._var.detach().requires_grad_(rec and p._var.requires_grad)
+                   for p in self.params]
+        self.static_in = [t.detach().clone().requires_grad_(
+            rec and t.requires_grad) for t in tensors]
+        training = autograd.is_training()
+        gens = [m.generator or _random.generator(
+            Context.from_device(self.device)) for m in block.modules()
+            if isinstance(m, Dropout)]
+
+        def forward():
+            it = iter(self.static_in)
+            call_args = [next(it) if isinstance(a, (NDArray, torch.Tensor))
+                         else a for a in args]
+            _ALIASES.map = {id(p): a for p, a in zip(self.params, aliases)}
+            try:
+                with autograd.pause(train_mode=training), \
+                        torch.set_grad_enabled(rec):
+                    out = block.hybrid_forward(
+                        F, *call_args, **block._fetch_params(call_args))
+            finally:
+                _ALIASES.map = None
+            self.multi = isinstance(out, (tuple, list))
+            return list(out) if self.multi else [out]
+
+        diff_in = [x for x in self.static_in + aliases if x.requires_grad]
+
+        def backward(outs, seeds):
+            diff = [o for o in outs if o.requires_grad]
+            return torch.autograd.grad(diff, diff_in, seeds,
+                                       allow_unused=True)
+
+        def warm():
+            outs = forward()
+            if rec and any(o.requires_grad for o in outs):
+                backward(outs, [torch.ones_like(o) for o in outs
+                                if o.requires_grad])
+
+        graphs.run_on_capture_stream(self.device, warm)
+        self.fwd = graphs.Graph(self.device, gens)
+        outs = self.fwd.capture(forward)
+        self.static_out = [o.detach() for o in outs]
+        # nothing to differentiate: the forward graph alone serves
+        self.recording = rec = rec and any(o.requires_grad for o in outs)
+        if rec:
+            self._graph_outs = outs   # keeps the saved activations alive
+            self.diff_out = [o.requires_grad for o in outs]
+            self.seeds = [torch.ones_like(o) for o in outs if o.requires_grad]
+            self.bwd = graphs.Graph(self.device, gens, share=self.fwd)
+            grads = self.bwd.capture(lambda: backward(outs, self.seeds))
+            it = iter(grads)
+            self.grad_of = [next(it) if x.requires_grad else None
+                            for x in self.static_in + aliases]
+
+
+class _CachedOpFunction(torch.autograd.Function):
+    """A cached op under ``record()``: ``apply(op, *inputs, *params)``.
+    The forward replays the forward graph and returns copies of its
+    outputs; the backward writes the output gradients into the graph's
+    seeds, replays the backward graph and returns its gradients."""
+
+    @staticmethod
+    def forward(ctx, op, *tensors):
+        op._replay_forward(tensors[:len(op.static_in)])
+        ctx.op, ctx.replay = op, op.replays
+        outs = tuple(o.clone() for o in op.static_out)
+        ctx.mark_non_differentiable(*[o for o, d in zip(outs, op.diff_out)
+                                      if not d])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        op = ctx.op
+        if op.replays != ctx.replay:
+            raise MXNetError(
+                "a hybridized block ran its forward again before the "
+                "backward of an earlier call: its captured activations are "
+                "gone; call backward() before the next forward")
+        with torch.no_grad():
+            for seed, g in zip(op.seeds, [g for g, d in zip(grad_outs,
+                                                            op.diff_out)
+                                          if d]):
+                seed.copy_(g)
+        op.bwd.replay()
+        return (None,) + tuple(op.grad_of)
+
+
+#: parameter id -> alias tensor, while a cached op captures
+_ALIASES = threading.local()

@@ -9,18 +9,32 @@ since the last update raises ``UserWarning``, or is skipped under
 ``save_states``/``load_states``. Each parameter is updated once, even when
 several blocks hold it (a tied weight). ``allreduce_grads`` has nothing to
 reduce on one device; the kvstore seam comes with the multi-GPU slice.
-Each parameter is updated on its own, eagerly, as
-``parallel.ShardedTrainer`` does.
+
+The update is multi-tensor: the parameters with a fresh gradient are
+grouped by (device, dtype, fp32 master or not) and each group is one
+``Optimizer.update_multi`` call on ``torch._foreach_*``, which writes
+weights and states in place. Its numbers are those of the JAX package's
+per-parameter ``Optimizer.update`` loop (``:184-217``), hyperparameters
+and update counts resolved in index order as that loop resolves them.
+``.states`` files are the JAX package's format (``:219-249``): a pickle of
+``{"num_update": n, "states": {index: (numpy arrays)}}``, bfloat16 states
+as :data:`~..ndarray.serialization.BFLOAT16`, as ``.params`` files carry
+them; loading restores ``num_update`` and the states, and the update
+counts of each index start again from ``begin_num_update``, as they do in
+the JAX package.
 """
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Dict, List, Optional
 
+import numpy as onp
 import torch
 
 from .. import optimizer as opt_mod
 from ..base import MXNetError
+from ..ndarray.serialization import BFLOAT16
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -93,6 +107,7 @@ class Trainer:
 
     def _update(self, ignore_stale_grad: bool = False) -> None:
         opt = self._optimizer
+        fresh = []
         for i, param in enumerate(self._params):
             if param.grad_req == "null" or not param._initialized:
                 continue
@@ -108,25 +123,39 @@ class Trainer:
                         "with ignore_stale_grad=True to suppress this "
                         "warning")
                 continue
-            weight = param._var
             if i not in self._states:
                 self._states[i] = opt.create_state_multi_precision(
-                    i, weight.detach())
-            self._states[i] = opt.update(i, weight, param.grad(),
-                                         self._states[i])
-            param._fresh_grad = False
+                    i, param._var.detach())
+            fresh.append(i)
+        if not fresh:
+            return
+        lrs, wds, ts = opt._hparams(fresh)
+        weights = [self._params[i]._var for i in fresh]
+        states = [self._states[i] for i in fresh]
+        for group in opt_mod.update_groups(opt, weights, states):
+            opt.update_multi([fresh[k] for k in group],
+                             [weights[k] for k in group],
+                             [weights[k].grad for k in group],
+                             [states[k] for k in group],
+                             lr=[lrs[k] for k in group],
+                             wd=[wds[k] for k in group],
+                             t=[ts[k] for k in group])
+        for i in fresh:
+            self._params[i]._fresh_grad = False
 
     def save_states(self, fname: str) -> None:
-        """Write the update count and the optimizer states (atomic: a crash
-        mid-write never clobbers an existing file)."""
+        """Write the update count and the optimizer states in the JAX
+        package's format (atomic: a crash mid-write never clobbers an
+        existing file)."""
         blob = {"num_update": self._optimizer.num_update,
-                "index_update_count":
-                    dict(self._optimizer._index_update_count),
-                "states": {i: tuple(s.detach().cpu() for s in st)
+                "states": {i: tuple(_host(s) for s in st)
                            for i, st in self._states.items()}}
         tmp = f"{fname}.tmp-{os.getpid()}"
         try:
-            torch.save(blob, tmp)
+            with open(tmp, "wb") as f:
+                pickle.dump(blob, f)
+                f.flush()
+                os.fsync(f.fileno())
             os.replace(tmp, fname)
         except BaseException:
             try:
@@ -136,12 +165,32 @@ class Trainer:
             raise
 
     def load_states(self, fname: str) -> None:
-        """Read what :meth:`save_states` wrote; each state lands on its
-        parameter's device."""
-        blob = torch.load(fname, map_location="cpu")
+        """Read a ``.states`` file of either package; each state lands on
+        its parameter's device. Restores ``num_update``, not the update
+        counts of each index (JAX counterpart: ``gluon/trainer.py:243``).
+        """
+        with open(fname, "rb") as f:
+            blob = pickle.load(f)
         self._optimizer.num_update = blob["num_update"]
-        self._optimizer._index_update_count = dict(
-            blob["index_update_count"])
         self._states = {
-            i: tuple(s.to(self._params[i]._var.device) for s in st)
+            i: tuple(_device(s, self._params[i]._var.device) for s in st)
             for i, st in blob["states"].items()}
+
+
+def _host(t: torch.Tensor) -> onp.ndarray:
+    """A state as a numpy array; bfloat16 as :data:`BFLOAT16`."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BFLOAT16).copy()
+    return t.numpy().copy()
+
+
+def _device(a: onp.ndarray, device: torch.device) -> torch.Tensor:
+    """A state read from a ``.states`` file on ``device``: bfloat16 as
+    either package writes it (:data:`BFLOAT16`, or the JAX package's
+    numpy ``bfloat16``, 2 bytes wide)."""
+    a = onp.asarray(a)
+    if a.dtype == BFLOAT16 or a.dtype.name == "bfloat16":
+        bits = onp.ascontiguousarray(a).view("<i2")
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(onp.array(a)).to(device)

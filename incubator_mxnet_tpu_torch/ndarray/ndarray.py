@@ -13,6 +13,13 @@ JAX package:
   it is the string ``"bfloat16"`` (``str(x.dtype)`` is the name either
   way), and ``asnumpy()`` gives float32 values.
 - Comparisons return 0/1 in the operands' dtype, as in MXNet.
+
+As in the JAX package, an array that a recorded op made refuses in-place
+mutation (``x[...] = v``, ``x += v`` ..., ``copyto`` into it, an update
+op's ``out=``) while recording, until a backward clears the tape
+(:meth:`NDArray._check_inplace_ok`). Any other array may be mutated under
+``record()``, and the mutation is not recorded: its new value is a
+constant to later ops, as the JAX package's buffer swap is.
 """
 from __future__ import annotations
 
@@ -32,6 +39,13 @@ __all__ = ["NDArray", "array"]
 
 def _unwrap(x):
     return x._data if isinstance(x, NDArray) else x
+
+
+def _recorded(t: torch.Tensor) -> "NDArray":
+    """An op's output: on the tape when the op ran under ``record()``."""
+    out = NDArray(t)
+    out._tape = autograd._tape_mark()
+    return out
 
 
 def _operand(x, like: torch.Tensor):
@@ -59,7 +73,8 @@ def _index(key):
 class NDArray:
     """An n-dimensional array on a device :class:`~..context.Context`."""
 
-    __slots__ = ("_data", "_grad_req", "_fresh_grad", "__weakref__")
+    __slots__ = ("_data", "_grad_req", "_fresh_grad", "_tape",
+                 "__weakref__")
 
     # numpy interop priority (so ndarray.__add__ defers to us)
     __array_priority__ = 1000.0
@@ -73,6 +88,8 @@ class NDArray:
         # set by a backward that deposits into this array's gradient,
         # cleared by an optimizer update
         self._fresh_grad = False
+        # tape generation of the recorded op that made it, else None
+        self._tape = None
 
     # ------------------------------------------------------------------
     # basic properties
@@ -188,12 +205,22 @@ class NDArray:
     # ------------------------------------------------------------------
     def __getitem__(self, key) -> "NDArray":
         with torch.set_grad_enabled(autograd.is_recording()):
-            return NDArray(self._data[_index(key)])
+            return _recorded(self._data[_index(key)])
 
     def __setitem__(self, key, value) -> None:
+        self._check_inplace_ok()
         v = _operand(value, self._data)
-        with torch.set_grad_enabled(autograd.is_recording()):
+        with torch.no_grad():
             self._data[_index(key)] = v
+
+    def _check_inplace_ok(self) -> None:
+        """Refuse in-place mutation of an array on the tape while recording
+        (JAX counterpart: ``ndarray.py:184``)."""
+        if autograd.is_recording() and autograd._on_tape(self):
+            raise MXNetError(
+                "In-place mutation of an array recorded on the autograd tape "
+                "is not allowed (reference parity: inplace on recorded "
+                "arrays)")
 
     # ------------------------------------------------------------------
     # context / dtype moves
@@ -208,6 +235,7 @@ class NDArray:
         if isinstance(other, NDArray):
             if other is self:
                 raise MXNetError("cannot copy an array onto itself")
+            other._check_inplace_ok()
             with torch.no_grad():
                 other._data.copy_(self._data)
             return other
@@ -224,7 +252,7 @@ class NDArray:
         if not copy and dt == self._data.dtype:
             return self
         with torch.set_grad_enabled(autograd.is_recording()):
-            return NDArray(self._data.to(dt, copy=True))
+            return _recorded(self._data.to(dt, copy=True))
 
     def detach(self) -> "NDArray":
         return NDArray(self._data.detach())
@@ -296,15 +324,16 @@ class NDArray:
         if reverse:
             a, b = b, a
         with torch.set_grad_enabled(autograd.is_recording()):
-            return NDArray(fn(a, b))
+            return _recorded(fn(a, b))
 
     def _compare(self, other, fn):
         b = _operand(other, self._data)
         out = fn(self._data, b)
-        return NDArray(out.to(torch.result_type(self._data, b)))
+        return _recorded(out.to(torch.result_type(self._data, b)))
 
     def _inplace(self, other, fn):
-        with torch.set_grad_enabled(autograd.is_recording()):
+        self._check_inplace_ok()
+        with torch.no_grad():
             fn(self._data, _operand(other, self._data))
         return self
 
@@ -352,7 +381,7 @@ class NDArray:
 
     def __neg__(self):
         with torch.set_grad_enabled(autograd.is_recording()):
-            return NDArray(-self._data)
+            return _recorded(-self._data)
 
     def __abs__(self):
         return self.abs()

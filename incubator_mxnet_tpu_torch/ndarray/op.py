@@ -3,7 +3,9 @@
 Counterpart: the ops of the JAX package's registry that the port's layers
 and losses use (``ops/nn.py``: ``FullyConnected``, ``LayerNorm``,
 ``Activation``, ``Dropout``, softmax; ``ops/tensor.py``: ``Embedding``,
-``take``, ``pick``, shape ops and reductions). Each op is a function on
+``take``, ``pick``, shape ops and reductions) and the update ops of
+``ops/optimizer_ops.py`` (:mod:`..ops.optimizer_ops`), whose ``out=``
+writes the results into the given arrays in place. Each op is a function on
 tensors. Given NDArrays it unwraps them, runs under
 ``torch.set_grad_enabled(autograd.is_recording())`` and wraps the result;
 given tensors (inside ``hybrid_forward``, which the Gluon blocks run on
@@ -21,14 +23,15 @@ from .. import random as _random
 from ..base import MXNetError
 from ..context import Context
 from ..ops import nn as _nn
-from .ndarray import NDArray
+from ..ops import optimizer_ops as _opt_ops
+from .ndarray import NDArray, _recorded
 
 __all__ = ["FullyConnected", "LayerNorm", "Activation", "Embedding",
            "Dropout", "softmax", "log_softmax", "take", "pick", "relu",
            "sigmoid", "tanh", "exp", "log", "sqrt", "square", "abs", "clip",
            "sum", "mean", "max", "min", "reshape", "transpose", "flatten",
            "expand_dims", "squeeze", "broadcast_to", "slice_axis", "concat",
-           "dot"]
+           "dot"] + list(_opt_ops.__all__)
 
 
 def _has_nd(values) -> bool:
@@ -49,7 +52,7 @@ def _unwrap(v):
 
 def _wrap(v):
     if isinstance(v, torch.Tensor):
-        return NDArray(v)
+        return _recorded(v)
     if isinstance(v, (list, tuple)):
         return type(v)(_wrap(x) for x in v)
     return v
@@ -246,3 +249,34 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False):
     b = rhs.t() if transpose_b else rhs
     return torch.tensordot(a, b, dims=1)
 
+
+
+# -- optimizer updates and AMP casts (ops/optimizer_ops.py) ------------------
+def _update_op(fn):
+    """``fn`` as an ``mx.nd`` op whose ``out=`` (an array or a list, one
+    per result) receives the results in place (JAX counterpart:
+    ``ndarray/op.py:66-103``, ``out._set_data``)."""
+    op = _nd_op(fn)
+
+    @functools.wraps(fn)
+    def nd_op(*args, out=None, **kwargs):
+        kwargs.pop("name", None)
+        result = op(*args, **kwargs)
+        if out is None:
+            return result
+        outs = [out] if isinstance(out, (NDArray, torch.Tensor)) \
+            else list(out)
+        results = [result] if isinstance(result, (NDArray, torch.Tensor)) \
+            else list(result)
+        for o, r in zip(outs, results):
+            if isinstance(o, NDArray):
+                o._check_inplace_ok()
+            with torch.no_grad():
+                _unwrap(o).copy_(_unwrap(r))
+        return out
+    return nd_op
+
+
+for _name in _opt_ops.__all__:
+    globals()[_name] = _update_op(getattr(_opt_ops, _name))
+del _name

@@ -2,8 +2,9 @@
 
 Each kernel has one source ``csrc/<name>.cu``, a wrapper module here with a
 plain PyTorch version of the same function beside it, and a launch count
-in that module's ``launches`` dict. :data:`KERNELS` lists them for callers
-that drive every kernel (``chip_smoke.py``).
+in that module's ``launches`` dict, which counts the launches of a
+captured CUDA graph on each replay (:mod:`.graphs`). :data:`KERNELS` lists
+them for callers that drive every kernel (``chip_smoke.py``).
 """
 from typing import Dict
 

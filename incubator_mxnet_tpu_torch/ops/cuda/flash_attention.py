@@ -36,7 +36,7 @@ from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
 from ...util import getenv
-from . import _build
+from . import _build, graphs
 
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_bwd_reference",
@@ -62,7 +62,7 @@ MAX_TILE = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel name -> launches of that CUDA kernel since import (or since a
-#: caller reset it)
+#: caller reset it), a captured graph's replays included
 launches = {name: 0 for name in KERNELS}
 
 #: kernel name -> (C entry point, number of tensor pointers it takes: q, k,
@@ -301,7 +301,8 @@ def _launch(name, q, k, v, key_mask, causal, scale, window, tensors):
     """Launch kernel ``name`` on the current stream of q's device over q,
     k, v, the key mask (as int32, or null) and ``tensors`` (its further
     inputs and outputs in the C entry's order); raises on a refused launch,
-    else counts it."""
+    else counts it (inside a CUDA-graph capture, in the graph's tally:
+    :mod:`.graphs`)."""
     B, H, Lq, D = q.shape
     mask = None if key_mask is None else key_mask.to(
         device=q.device, dtype=torch.int32).contiguous()
@@ -318,7 +319,7 @@ def _launch(name, q, k, v, key_mask, causal, scale, window, tensors):
     if err != 0:
         msg = lib.mxtpu_cuda_error_string(err).decode()
         raise MXNetError(f"{name} launch failed: {msg} (cuda error {err})")
-    launches[name] += 1
+    graphs.count_launch(launches, name)
 
 
 def _fwd_cuda(q, k, v, key_mask, causal, scale, window):

@@ -4,7 +4,9 @@ Counterpart: the JAX package's ``random.py`` (``seed`` at ``:74``, the
 per-context streams of ``_key_for``/``next_key`` at ``:87-107``, the
 sampling functions at ``:131-150``). ``seed(n)`` reseeds every stream:
 the CPU's starts from ``n`` itself, ``gpu(i)``'s from a number derived
-from ``n`` and ``i``; ``seed(n, ctx)`` seeds one device's stream. The
+from ``n`` and ``i``; ``seed(n, ctx)`` seeds one device's stream. A stream
+is reseeded in place, so a CUDA graph that registered its generator (a
+hybridized block, :mod:`.ops.cuda.graphs`) draws the reseeded stream. The
 Gluon ``Dropout`` draws from its device's stream unless a trainer gave it
 its own generator (``nn.set_dropout_generator``), and the initializers draw
 from the CPU's (:mod:`..initializer`). Draws differ from the JAX package's
@@ -43,10 +45,14 @@ def seed(seed_state: int, ctx="all") -> None:
     with _lock:
         if isinstance(ctx, str) and ctx == "all":
             _root_seed = int(seed_state)
-            _gens.clear()
+            for c, g in _gens.items():
+                g.manual_seed(_derive(_root_seed, c))
         else:
             c = as_context(ctx)
-            _gens[c] = _make(c, int(seed_state))
+            if c in _gens:
+                _gens[c].manual_seed(int(seed_state))
+            else:
+                _gens[c] = _make(c, int(seed_state))
 
 
 def generator(ctx=None) -> torch.Generator:

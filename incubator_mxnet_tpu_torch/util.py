@@ -39,6 +39,9 @@ ENV_VARS: Dict[str, tuple] = {
     "MXTPU_BENCH_STEPS": ("20", "Timed training steps of the port bench."),
     "MXTPU_BENCH_DROPOUT": ("0.1", "Dropout rate of the port bench's "
                             "BERT."),
+    "MXTPU_FUSED_STEP": ("1", "Whole-step capture of parallel."
+                         "ShardedTrainer on the card (one CUDA graph "
+                         "replay per step); 0 = the eager step."),
 }
 
 #: dense bf16 tensor-core peak TFLOP/s per card, keyed by a substring of

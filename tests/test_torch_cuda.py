@@ -8,7 +8,10 @@ themselves. On the card, from the root of a checkout::
 
 (``--noconftest``: the suite's ``conftest.py`` sets JAX up.)
 ``chip_smoke.py`` covers every sequence bucket; this file is the quick check,
-with one Gluon step of a small BERT on the card at its end.
+with one Gluon step of a small BERT on the card, then the CUDA graphs: the
+fused ``ShardedTrainer`` step against the eager one, dropout under replay,
+one graph per batch shape, launch counts with replays, and a hybridized
+block's forward and backward against the eager ones.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -305,3 +308,186 @@ def test_gluon_step_on_card(tmp_path):
     with autograd.predict_mode():
         for a, b in zip(net(*batch[:4]), fresh(*batch[:4])):
             assert torch.equal(a._data, b._data)
+
+
+def _bert(dropout=0.0, seed=0, **kw):
+    """A small BERT on the card, its weights drawn from ``seed``."""
+    from incubator_mxnet_tpu_torch import models
+    return models.get_bert("bert_2_128_2", vocab_size=100, max_length=64,
+                           dropout=dropout, device="cuda",
+                           generator=torch.Generator().manual_seed(seed),
+                           **kw)
+
+
+def _trainer(net, fused, optimizer="adamw", params=None):
+    from incubator_mxnet_tpu_torch import models, parallel
+    return parallel.ShardedTrainer(
+        net, models.bert_pretrain_loss, optimizer,
+        params or {"learning_rate": 1e-3}, device="cuda", n_labels=3,
+        fused=fused)
+
+
+def _close_params(a, b, rel=1e-5):
+    """Every parameter of ``a`` within ``rel`` of ``b``'s largest value."""
+    pb = dict(b.named_parameters())
+    for name, p in a.named_parameters():
+        want = pb[name].detach().float()
+        err = (p.detach().float() - want).abs().max().item()
+        assert err <= rel * max(want.abs().max().item(), 1e-30), name
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    """``torch.use_deterministic_algorithms`` for one test: the embedding
+    and gather backwards otherwise add in another order on every run, and
+    Adam turns that noise in a gradient that is 0 in exact arithmetic (a
+    key bias) into a full step either way."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.cuda
+def test_fused_step_matches_eager_on_card(deterministic):
+    """Five fused steps (eager first step, capture, replays) against five
+    eager ones at dropout 0: losses to rtol 1e-5, every weight within
+    1e-5 of its largest value; one capture, one replay per step."""
+    _card()
+    from incubator_mxnet_tpu_torch import bench
+    batch = bench.make_batch(2, 64, vocab=100)
+    fused, eager = _bert(), _bert()
+    tf, te = _trainer(fused, None), _trainer(eager, False)
+    assert tf.fused and not te.fused
+    lf, le = [], []
+    for i in range(5):
+        lf.append(float(tf.step(*batch)))
+        le.append(float(te.step(*batch)))
+        assert tf.last_path == "fused" and te.last_path == "eager"
+        assert tf.last_step_graphs == (0 if i == 0 else 1)
+    assert tf.captures == 1 and tf.num_update == 5
+    torch.testing.assert_close(lf, le, rtol=1e-5, atol=0)
+    _close_params(fused, eager)
+    assert tf.last_finite and abs(tf.last_grad_norm - te.last_grad_norm) \
+        <= 1e-5 * te.last_grad_norm
+    for (n, p), q in zip(fused.named_parameters(), eager.parameters()):
+        assert p.grad is not None and p.grad.shape == p.shape, n
+
+
+@pytest.mark.cuda
+def test_fused_step_draws_new_dropout_masks_on_card():
+    """At learning rate 0 only the dropout masks move the loss: every
+    replay draws its own."""
+    _card()
+    from incubator_mxnet_tpu_torch import bench
+    batch = bench.make_batch(2, 64, vocab=100)
+    tr = _trainer(_bert(dropout=0.3), None, "sgd", {"learning_rate": 0.0})
+    losses = [float(tr.step(*batch)) for _ in range(4)]
+    assert tr.last_step_graphs == 1
+    assert len(set(losses[1:])) == 3, losses
+
+
+@pytest.mark.cuda
+def test_fused_step_new_shape_captures_new_graph_on_card():
+    _card()
+    from incubator_mxnet_tpu_torch import bench
+    tr = _trainer(_bert(), None)
+    for L in (64, 32, 64, 32):
+        tr.step(*bench.make_batch(2, L, vocab=100))
+        tr.step(*bench.make_batch(2, L, vocab=100))
+    assert tr.captures == 2 and tr.num_update == 8
+
+
+@pytest.mark.cuda
+def test_fused_step_follows_new_parameter_storage_on_card():
+    """Re-initialising the parameters gives them new storage: the graphs
+    that read the old one are dropped and the next steps warm up and
+    capture again."""
+    _card()
+    from incubator_mxnet_tpu_torch import bench
+    net = _bert()
+    tr = _trainer(net, None)
+    batch = bench.make_batch(2, 64, vocab=100)
+    for _ in range(3):
+        tr.step(*batch)
+    assert tr.captures == 1 and tr.last_step_graphs == 1
+    net.initialize(force_reinit=True)
+    tr.step(*batch)
+    assert tr.last_step_graphs == 0
+    tr.step(*batch)
+    assert tr.captures == 2 and tr.last_step_graphs == 1
+    assert tr.last_finite
+
+
+@pytest.mark.cuda
+def test_launch_counts_with_replays_on_card():
+    """12 layers: each kernel counted 12 times per step, on the eager
+    first step, the capture step and the replays alike."""
+    _card()
+    from incubator_mxnet_tpu_torch import bench
+    from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
+    tr = _trainer(_bert(num_layers=12), None)
+    batch = bench.make_batch(2, 64, vocab=100)
+    for _ in range(4):
+        cuda_ops.reset_launches()
+        tr.step(*batch)
+        torch.cuda.synchronize()
+        assert cuda_ops.launch_counts() == {n: 12 for n in cuda_ops.KERNELS}
+
+
+@pytest.mark.cuda
+def test_hybridized_forward_backward_match_eager_on_card():
+    """A hybridized BERT (eager call, capture, replays) against an
+    un-hybridized twin: outputs, every gradient after ``loss.backward()``
+    and the weights after ``Trainer.step``; a gradient read after a
+    backward keeps its value through the next forward."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, bench, gluon, models, nd
+    nets = [_bert(), _bert()]
+    nets[0].hybridize()
+    trainers = [gluon.Trainer(n.collect_params(), "adam",
+                              {"learning_rate": 1e-3}) for n in nets]
+    for step in range(4):
+        batch = [nd.array(a, ctx=mx.gpu(0)) for a in bench.make_batch(
+            2, 64 if step < 3 else 32, vocab=100)]
+        outs, losses = [], []
+        for net in nets:
+            with autograd.record():
+                out = net(*batch[:4])
+                loss = models.bert_pretrain_loss(out, *batch[4:])
+            loss.backward()
+            outs.append(out)
+            losses.append(loss)
+        for a, b in zip(*outs):
+            torch.testing.assert_close(a._data, b._data, atol=1e-5,
+                                       rtol=1e-5)
+        pa, pb = (n._collect_params_with_prefix() for n in nets)
+        for k in pa.keys():
+            torch.testing.assert_close(pa[k].grad()._data, pb[k].grad()._data,
+                                       atol=1e-5, rtol=1e-4)
+        kept = {k: pa[k].grad()._data.clone() for k in pa.keys()}
+        with autograd.predict_mode():
+            nets[0](*batch[:4])
+        for k in pa.keys():
+            assert torch.equal(pa[k].grad()._data, kept[k]), k
+        for tr in trainers:
+            tr.step(1)
+    assert len(nets[0]._cached_ops) >= 2
+    nets[0].hybridize(False)
+    assert not nets[0]._cached_ops
+
+
+@pytest.mark.cuda
+def test_hybridized_dropout_draws_new_masks_on_card():
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, gluon, nd
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dropout(0.5))
+    net.hybridize()
+    x = nd.ones((64, 64), ctx=mx.gpu(0))
+    with autograd.train_mode():
+        ys = [net(x)._data.clone() for _ in range(4)]
+    assert not torch.equal(ys[2], ys[3]) and not torch.equal(ys[1], ys[2])
+    assert {v for y in ys for v in y.unique().tolist()} == {0.0, 2.0}
