@@ -64,7 +64,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against those ``ShardedTrainer.step`` leaves (2 layers at full width,
    dropout 0); a ``.params`` round trip (``save_parameters`` ->
    ``load_parameters`` into a fresh model) whose forward is bitwise equal,
-   and ``save_states`` / ``load_states`` restoring the update count.
+   and ``save_states`` / ``load_states`` restoring the update count;
+10. vision: (a) the port
+    bench's ``resnet`` workload at full size (``resnet50_v1``, bfloat16,
+    batch 32, 224x224, SGD momentum with fp32 masters) through the fused
+    and the eager step, timed in turns: imgs/s, step ms, MFU, the first
+    step apart, peak memory, and one profiled step of each with its idle
+    share and its device time in cuDNN convolutions, BatchNorm,
+    elementwise kernels and the rest; the attention kernels must not
+    launch; (b) at resnet18_v1, float32, batch 8, 64x64, under
+    deterministic algorithms, the fused step against the eager one: the
+    losses, weights and running statistics after 3 steps within 1e-5 of
+    each largest value; (c) one step's gradients on the card against the
+    CPU's, within 1e-3 of each parameter's largest; (d) the Gluon LeNet
+    loop (``io.NDArrayIter``, hybridized, ``gluon.Trainer``,
+    ``metric.Accuracy``) on the 8x8 digits, held-out accuracy >= 0.95.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -1159,6 +1173,338 @@ def gluon_round_trip() -> dict:
     return {"params_file_bytes": nbytes, "round_trip_bitwise": same}
 
 
+# -- vision: ResNet through the port bench, gates, the LeNet loop ----------
+#: device-time groups of a vision step, by kernel name (the first match
+#: wins): cuDNN's convolutions (forward, data and weight gradients, and its
+#: layout transposes), BatchNorm, pooling, elementwise kernels, the GEMMs
+#: of the Dense layer, the optimizer's multi-tensor kernels
+VISION_GROUPS = (
+    ("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "nchwtonhwc",
+              "nhwctonchw", "implicit", "winograd")),
+    ("batch_norm", ("batch_norm",)),
+    ("pooling", ("pool",)),
+    ("elementwise", ("elementwise",)),
+    ("gemm", ("gemm",)),
+    ("optimizer", ("multi_tensor",)),
+)
+# fused vs eager ResNet steps under deterministic algorithms (float32): the
+# same kernels on the same inputs, so losses, weights and running
+# statistics agree to within 1e-5 of each tensor's largest value
+VISION_GATE_RTOL = 1e-5
+# ResNet gradients on the card (cuDNN, IEEE float32) against the CPU's
+# (oneDNN/ATen): another summation order through 18 layers: per parameter,
+# max abs err <= VISION_GRAD_RTOL * max |grad on the CPU|
+VISION_GRAD_RTOL = 1e-3
+
+
+def vision_split(per_kernel: dict) -> dict:
+    """A vision step's device time by :data:`VISION_GROUPS` and its top
+    kernels."""
+    total = sum(per_kernel.values())
+    groups = {g: 0.0 for g, _ in VISION_GROUPS}
+    groups["other"] = 0.0
+    for name, t in per_kernel.items():
+        low = name.lower()
+        g = next((g for g, keys in VISION_GROUPS
+                  if any(k in low for k in keys)), "other")
+        groups[g] += t
+    top = [{"kernel": k[:90], "ms": t, "share": t / total}
+           for k, t in sorted(per_kernel.items(), key=lambda r: -r[1])[:10]]
+    return {"profiled_device_ms": total, "kernels": len(per_kernel),
+            "ms_by_group": groups,
+            "share_by_group": {g: t / total for g, t in groups.items()}
+            if total else {}, "top": top}
+
+
+def vision_profiled_step(trainer, placed, tag: str) -> dict:
+    """One ResNet step under ``torch.profiler``: wall ms, device ms, idle
+    share and the split by :data:`VISION_GROUPS`."""
+    wall, per_kernel = device_split(lambda: trainer.step(*placed))
+    res = {"profiled_step_wall_ms": wall}
+    res.update(vision_split(per_kernel))
+    busy = res["profiled_device_ms"]
+    res["device_idle_share"] = max(0.0, 1.0 - busy / wall) if wall else 0.0
+    shares = ", ".join(f"{g} {v:.1%}" for g, v in
+                       res["share_by_group"].items())
+    print(f"{tag} profile: one step {wall:.3f} ms wall, device busy "
+          f"{busy:.3f} ms in {res['kernels']} kernels, idle share "
+          f"{res['device_idle_share']:.1%}; device time by group: {shares}",
+          flush=True)
+    for t in res["top"][:6]:
+        print(f"  {t['ms']:9.3f} ms {t['share']:6.1%}  {t['kernel']}",
+              flush=True)
+    return res
+
+
+def vision_run(trainer, batch, steps: int, tag: str) -> dict:
+    """The port bench's protocol on a ResNet trainer: losses, the first
+    and warm steps apart, peak memory, and the flash kernels' launches
+    (none: no attention on this path)."""
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    timings = {}
+    dt, losses = bench.measure(trainer, batch, steps, timings)
+    launches = cuda_ops.launch_counts()
+    losses = [float(x) for x in losses]
+    check(all(onp.isfinite(losses)), f"{tag}: non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
+    check(not any(launches.values()), f"{tag}: the vision path launched "
+          f"attention kernels: {launches}")
+    return {"dt": dt, "losses": losses, "launches": launches,
+            "first_step_ms": timings["first_step_s"] * 1e3,
+            "warm_step_ms": timings["warm_step_s"] * 1e3,
+            "captures": trainer.captures,
+            "last_step_graphs": trainer.last_step_graphs,
+            "last_path": trainer.last_path,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def vision_bench() -> dict:
+    """(a) The port bench's ``resnet`` workload at full size (resnet50_v1,
+    bfloat16, batch 32, 224x224; the knobs may change it), through the
+    fused and the eager step, timed in turns: imgs/s, step ms, MFU, peak
+    memory, and one profiled step of each."""
+    t0 = time.perf_counter()
+    fused, batch, info = bench.build_resnet("cuda")
+    eager, _, _ = bench.build_resnet("cuda", fused=False)
+    check(fused.fused and not eager.fused, "the resnet bench's trainer is "
+          "not fused by default")
+    steps = int(getenv("MXTPU_BENCH_STEPS"))
+    runs = {"fused": vision_run(fused, batch, steps, "vision fused"),
+            "eager": vision_run(eager, batch, steps, "vision eager")}
+    check(runs["fused"]["captures"] == 1
+          and runs["fused"]["last_step_graphs"] == 1
+          and runs["fused"]["last_path"] == "fused",
+          f"vision fused trainer: {runs['fused']['captures']} captures, "
+          f"{runs['fused']['last_step_graphs']} graphs in its last step")
+    n_params = sum(p.numel() for p in info["net"].parameters())
+    record = bench.resnet_result(info, runs["fused"]["dt"],
+                                 runs["fused"]["losses"],
+                                 runs["fused"]["first_step_ms"] / 1e3)
+    print(json.dumps(record), flush=True)
+    placed = fused.place(*batch)
+    # in turns, after each path's own run: eager, fused
+    for name, tr in (("eager", eager), ("fused", fused)):
+        runs[name]["step_ms_runs"] = [runs[name]["dt"] * 1e3, synced_ms(
+            lambda: tr.step(*placed), steps)[0]]
+    card = card_line()
+    for name, r in runs.items():
+        ms = min(r["step_ms_runs"])
+        rec = bench.resnet_result(info, ms / 1e3, r["losses"])
+        r.update(step_ms=ms, imgs_per_s=info["batch"] / (ms / 1e3),
+                 mfu=rec["extra"]["mfu"])
+        print(f"vision {name}: {info['model']} bfloat16 batch "
+              f"{info['batch']} at {info['img']}: {ms:.3f} ms per step = "
+              f"{r['imgs_per_s']:.1f} imgs/s, MFU {r['mfu']:.4f} (runs "
+              f"{[round(t, 3) for t in r['step_ms_runs']]}); first step "
+              f"{r['first_step_ms']:.1f} ms, warm step "
+              f"{r['warm_step_ms']:.1f} ms; losses {r['losses'][0]:.4f} -> "
+              f"{r['losses'][-1]:.4f}; peak memory "
+              f"{r['peak_memory_gib']:.2f} GiB on {card}", flush=True)
+    res = {"record": record, "runs": runs, "model": info["model"],
+           "batch": info["batch"], "img": info["img"],
+           "parameters": n_params,
+           "launches": runs["fused"]["launches"]}
+    res["profile"] = vision_profiled_step(fused, placed, "vision fused")
+    res["profile_eager"] = vision_profiled_step(eager, placed,
+                                                "vision eager")
+    print(f"vision: trainers built and run in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del fused, eager, placed, info
+    return res
+
+
+def _resnet_trainer(device, fused, B: int = 8, img: int = 64):
+    """resnet18_v1 (1000 classes, float32, Xavier from seed 0, shapes
+    deferred to the first step), the bench's SGD, and a batch from
+    ``RandomState(1)``."""
+    net = gluon.model_zoo.vision.get_model("resnet18_v1", classes=1000)
+    net.initialize(mx.init.Xavier(generator=torch.Generator().manual_seed(
+        0)), ctx=mx.Context.from_device(torch.device(device)))
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    tr = parallel.ShardedTrainer(
+        net, lambda out, label: ce(out, label), "sgd",
+        {"learning_rate": 0.05, "momentum": 0.9}, device=device,
+        n_labels=1, fused=fused)
+    rng = onp.random.RandomState(1)
+    batch = (rng.randn(B, 3, img, img).astype("float32"),
+             rng.randint(0, 1000, (B,)).astype("float32"))
+    return net, tr, batch
+
+
+def _rel_errs(nets, pick) -> list:
+    """``(max |a - b| / max |b|, name)`` per parameter of two nets, of the
+    tensors ``pick(param)`` (skipped where either is None), largest
+    first."""
+    n0, n1 = len(nets[0].prefix), len(nets[1].prefix)
+    by_suffix = {k[n1:]: p for k, p in nets[1].collect_params().items()}
+    rows = []
+    for k, p in nets[0].collect_params().items():
+        a, b = pick(p), pick(by_suffix[k[n0:]])
+        if a is None or b is None:
+            continue
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        scale = b.abs().max().item()
+        if scale == 0.0:
+            check(a.abs().max().item() == 0.0, f"{k}: nonzero where the "
+                  "reference is zero")
+            continue
+        rows.append(((a - b).abs().max().item() / scale, k))
+    return sorted(rows, reverse=True) or [(0.0, "")]
+
+
+def _worst(nets, pick) -> tuple:
+    """The largest of :func:`_rel_errs` and its parameter's name."""
+    return _rel_errs(nets, pick)[0]
+
+
+def vision_fused_gate(steps: int = 3) -> dict:
+    """(b) The fused ResNet step against the eager one (resnet18_v1,
+    float32, batch 8, 64x64) under ``torch.use_deterministic_algorithms``:
+    losses, weights and running statistics after ``steps`` steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)
+    try:
+        pairs = [_resnet_trainer("cuda", fused) for fused in (None, False)]
+        losses = [[float(tr.step(*batch)) for _ in range(steps)]
+                  for _, tr, batch in pairs]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nets = [p[0] for p in pairs]
+    check(pairs[0][1].last_path == "fused"
+          and pairs[0][1].last_step_graphs == 1
+          and pairs[1][1].last_path == "eager",
+          "the vision gate's trainers did not take the fused and the eager "
+          "step")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    weights, wname = _worst(nets, lambda p: p._var)
+    print(f"vision gate: resnet18_v1 float32 batch 8 at 64, {steps} steps, "
+          f"fused vs eager under deterministic algorithms: losses "
+          f"{losses[0]} vs {losses[1]} (worst rel err {loss_err:.2e}); "
+          f"weights and running statistics worst rel err {weights:.2e} "
+          f"({wname}), tol {VISION_GATE_RTOL}", flush=True)
+    check(loss_err <= VISION_GATE_RTOL and weights <= VISION_GATE_RTOL,
+          f"fused and eager ResNet steps differ: losses {loss_err}, weights "
+          f"{weights} at {wname}")
+    return {"losses_fused": losses[0], "losses_eager": losses[1],
+            "loss_rel_err": loss_err, "weights_worst_rel_err": weights,
+            "weights_worst_param": wname,
+            "bitwise": loss_err == 0.0 and weights == 0.0}
+
+
+def vision_grads_vs_cpu() -> dict:
+    """(c) One ResNet step's gradients on the card, the fused and the
+    eager step, against the same step on the CPU: resnet18_v1, float32,
+    batch 8, 64x64, the same weights and batch."""
+    gc.collect()
+    runs = {}
+    for name, device, fused in (("fused", "cuda", None),
+                                ("eager", "cuda", False),
+                                ("cpu", "cpu", None)):
+        net, tr, batch = _resnet_trainer(device, fused)
+        runs[name] = (net, float(tr.step(*batch)))
+    cpu_net, cpu_loss = runs.pop("cpu")
+    res = {"loss_cpu": cpu_loss}
+    for name, (net, loss) in runs.items():
+        rows = _rel_errs([net, cpu_net], lambda p: p._var.grad)
+        stats = _worst([net, cpu_net], lambda p: p._var
+                       if p.grad_req == "null" else None)
+        worst, wname = rows[0]
+        print(f"vision gradients, {name} step: resnet18_v1 float32 batch 8 "
+              f"at 64, one step on the card vs on the CPU: loss "
+              f"{loss:.6f} vs {cpu_loss:.6f}; max abs err / max |grad|, "
+              f"worst three: "
+              + ", ".join(f"{r:.2e} ({k})" for r, k in rows[:3])
+              + f" (tol {VISION_GRAD_RTOL}); running statistics worst rel "
+              f"err {stats[0]:.2e} ({stats[1]})", flush=True)
+        check(worst <= VISION_GRAD_RTOL, f"ResNet gradients of the {name} "
+              f"step on the card differ from the CPU's: {worst} at {wname}")
+        check(abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss),
+              f"ResNet losses differ: card {loss}, CPU {cpu_loss}")
+        res[name] = {"loss_card": loss, "grads_worst_rel_err": worst,
+                     "grads_worst_param": wname,
+                     "running_stats_worst_rel_err": stats[0]}
+    return res
+
+
+def vision_lenet_gate(epochs: int = 10) -> dict:
+    """(d) The Gluon LeNet loop of the reference's gate
+    (``tests/test_train.py:28-62``) on the card: ``io.NDArrayIter`` over
+    the 8x8 digits (``chip_data/digits.npz``, sklearn's bundled copy) ->
+    hybridized conv net (CUDA graphs) -> ``autograd.record()`` ->
+    ``gluon.Trainer`` (Adam) -> ``metric.Accuracy`` on the held-out
+    rows, which must reach 0.95."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = onp.load(os.path.join(here, "chip_data", "digits.npz"))
+    X = data["images"].astype("float32")[:, None] / 16.0
+    Y = data["target"].astype("float32")
+    idx = onp.random.RandomState(42).permutation(len(X))
+    X, Y = X[idx], Y[idx]
+    Xtr, Ytr, Xte, Yte = X[:1500], Y[:1500], X[1500:], Y[1500:]
+    t0 = time.perf_counter()
+    mx.random.seed(42)
+    onp.random.seed(42)
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Conv2D(16, 3, padding=1, activation="relu"),
+            gluon.nn.MaxPool2D(2, 2),
+            gluon.nn.Conv2D(32, 3, padding=1, activation="relu"),
+            gluon.nn.MaxPool2D(2, 2),
+            gluon.nn.Flatten(),
+            gluon.nn.Dense(128, activation="relu"),
+            gluon.nn.Dense(10))
+    net.initialize(mx.init.Xavier())
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 3e-3})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    it = mx.io.NDArrayIter(Xtr, Ytr, batch_size=100, shuffle=True,
+                           last_batch_handle="discard")
+    cuda_ops.reset_launches()
+    for _ in range(epochs):
+        it.reset()
+        for batch in it:
+            with autograd.record():
+                out = net(batch.data[0])
+                loss = loss_fn(out, batch.label[0]).mean()
+            loss.backward()
+            trainer.step(100)
+    acc = mx.metric.Accuracy()
+    with autograd.predict_mode():
+        acc.update(nd.array(Yte), net(nd.array(Xte)))
+    launches = cuda_ops.launch_counts()
+    value = acc.get()[1]
+    replayed = [op for op in net._cached_ops.values()
+                if op.fwd is not None]
+    print(f"vision lenet: {epochs} epochs of 15 batches on the card, "
+          f"hybridized ({len(replayed)} captured signature(s)), last loss "
+          f"{float(loss.asscalar()):.4f}, held-out accuracy {value:.4f} "
+          f"(gate 0.95), {time.perf_counter() - t0:.1f} s", flush=True)
+    check(value >= 0.95, f"LeNet held-out accuracy {value} < 0.95")
+    check(bool(replayed) and all(op.bwd is not None for op in replayed
+                                 if op.recording),
+          "the hybridized LeNet captured no graph")
+    check(batch.data[0].context == mx.gpu(0), "the iterator's batches are "
+          "not on the card")
+    check(not any(launches.values()), f"the LeNet loop launched attention "
+          f"kernels: {launches}")
+    return {"accuracy": value, "epochs": epochs,
+            "captured_signatures": len(replayed), "launches": launches}
+
+
+def phase_vision() -> dict:
+    """The vision path: (a) the bench, (b) fused against eager, (c) card
+    against CPU, (d) the LeNet gate."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"bench": vision_bench()}
+    res["fused_gate"] = vision_fused_gate()
+    res["grads_vs_cpu"] = vision_grads_vs_cpu()
+    res["lenet"] = vision_lenet_gate()
+    res["launches"] = res["bench"]["launches"]
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -1201,6 +1547,7 @@ def main(argv=None) -> int:
     gate = phase_train_fused_gate()
     grads = phase_train_grads()
     glu = phase_gluon(trained)
+    vis = phase_vision()
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -1224,7 +1571,8 @@ def main(argv=None) -> int:
                                  "train_fused": trained["launches"][name],
                                  "gluon": glu["launches"][name],
                                  "gluon_hybrid":
-                                     glu["launches_hybrid"][name]},
+                                     glu["launches_hybrid"][name],
+                                 "vision": vis["launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -1239,7 +1587,8 @@ def main(argv=None) -> int:
                        "serve": served, "profile": profiled,
                        "train": trained, "train_fused_gate": gate,
                        "train_gradients": grads,
-                       "gluon": glu, "kernels": kernels}, f, indent=1)
+                       "gluon": glu, "vision": vis, "kernels": kernels},
+                      f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

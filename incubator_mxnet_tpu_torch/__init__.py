@@ -20,7 +20,12 @@ fused step: ``ShardedTrainer`` replays one CUDA graph per step
 (``fused=``, ``MXTPU_FUSED_STEP``), ``HybridBlock.hybridize()`` replays
 captured forward and backward graphs (:mod:`.ops.cuda.graphs`), and both
 trainers update every parameter at once (``Optimizer.update_multi``), with
-``lr_scheduler`` and the ``mx.nd`` update ops (:mod:`.ops.optimizer_ops`).
+``lr_scheduler`` and the ``mx.nd`` update ops (:mod:`.ops.optimizer_ops`);
+and vision: convolution, pooling and BatchNorm (cuDNN through torch, as the
+JAX package left them to XLA), ``gluon.nn``'s conv layers, the ResNet
+model zoo (``gluon.model_zoo.vision``), ``models.LeNet``, ``mx.io``'s
+``NDArrayIter`` and ``mx.metric`` (``bench`` runs ``bench.py``'s
+``resnet`` workload too).
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
@@ -28,7 +33,7 @@ from .context import (  # noqa: F401
 )
 from . import (  # noqa: F401
     autograd, random, ndarray, initializer, gluon, ops, nn, models, serve,
-    convert, optimizer, parallel, lr_scheduler,
+    convert, optimizer, parallel, lr_scheduler, metric, io,
 )
 
 nd = ndarray
@@ -37,4 +42,5 @@ init = initializer
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "resolve_device", "autograd", "random", "ndarray",
            "nd", "initializer", "init", "gluon", "ops", "nn", "models",
-           "serve", "convert", "optimizer", "parallel", "lr_scheduler"]
+           "serve", "convert", "optimizer", "parallel", "lr_scheduler",
+           "metric", "io"]

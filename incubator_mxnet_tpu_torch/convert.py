@@ -6,7 +6,10 @@ prefix (``bertmodel0_``, ``bertmodel1_`` ...) comes from a process-wide
 counter. The port's blocks carry the same prefix chains, so a port
 parameter's name without its model's instance prefix
 (``encoder_layer0_attn_qkv_weight``) is the JAX structural suffix; matching
-is on that suffix. (A ``.params`` file moves weights too:
+is on that suffix. Aux parameters travel like the others (a vision net's
+BatchNorm ``running_mean``/``running_var``), each converted to the port
+parameter's own dtype: a ``cast("bfloat16")`` net takes bf16 weights and
+float32 BatchNorm parameters. (A ``.params`` file moves weights too:
 ``Block.save_parameters``/``load_parameters`` in either package.)
 """
 from __future__ import annotations

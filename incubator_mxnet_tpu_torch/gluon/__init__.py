@@ -1,6 +1,6 @@
 """Gluon of the port (JAX counterpart: ``gluon/``): ``Parameter``,
-``ParameterDict``, ``Block``, ``HybridBlock``, ``Trainer``, ``nn`` and
-``loss``."""
+``ParameterDict``, ``Block``, ``HybridBlock``, ``Trainer``, ``nn``,
+``loss`` and ``model_zoo``."""
 from .parameter import (  # noqa: F401
     Constant, DeferredInitializationError, Parameter, ParameterDict,
 )
@@ -8,6 +8,8 @@ from .block import Block, HybridBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from . import loss  # noqa: F401
 from . import nn  # noqa: F401
+from . import model_zoo  # noqa: F401
 
 __all__ = ["Constant", "DeferredInitializationError", "Parameter",
-           "ParameterDict", "Block", "HybridBlock", "Trainer", "loss", "nn"]
+           "ParameterDict", "Block", "HybridBlock", "Trainer", "loss", "nn",
+           "model_zoo"]

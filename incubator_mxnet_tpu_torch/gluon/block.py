@@ -31,12 +31,16 @@ their shapes, dtypes and ``requires_grad``, and which parameters take
 gradients. The first call of a signature runs eagerly, as JAX's first
 call does; the second captures the forward into a graph (and, under
 ``autograd.record()``, the backward into a second one), and every call
-replays them. Under ``record()`` the cached op is one
-``torch.autograd.Function`` (:class:`_CachedOpFunction`) whose forward
-replays the forward graph and whose backward replays the backward graph,
-so the gradients reach the parameters through ``autograd.backward`` by
-their ``grad_req``; ``autograd.backward`` copies each one into the
-parameter's own buffer, so no ``.grad`` aliases graph memory. The graphs
+replays them. A forward that updates aux parameters in place (BatchNorm's
+running statistics under ``autograd.is_training()``) does so inside the
+graph, once per call; the training flag is part of the signature, so
+``predict_mode()`` replays the graph that reads them. Under ``record()``
+the cached op is one ``torch.autograd.Function``
+(:class:`_CachedOpFunction`) whose forward replays the forward graph and
+whose backward replays the backward graph, so the gradients reach the
+parameters through ``autograd.backward`` by their ``grad_req``;
+``autograd.backward`` copies each one into the parameter's own buffer, so
+no ``.grad`` aliases graph memory. The graphs
 compute on aliases of the parameters (the same storage, other autograd
 leaves), so they see every in-place update and share nothing of the
 autograd state of the eager path. Outputs are copies, safe to keep
@@ -499,7 +503,15 @@ class _CachedOp:
                 backward(outs, [torch.ones_like(o) for o in outs
                                 if o.requires_grad])
 
+        # the warm run is not a call: the running statistics it moved
+        # (aux parameters, ``grad_req="null"``) go back, so that this call
+        # moves them once, by its replay
+        aux = [p._var for p in self.params if p.grad_req == "null"]
+        saved = [t.detach().clone() for t in aux]
         graphs.run_on_capture_stream(self.device, warm)
+        with torch.no_grad():
+            for t, v in zip(aux, saved):
+                t.copy_(v)
         self.fwd = graphs.Graph(self.device, gens)
         outs = self.fwd.capture(forward)
         self.static_out = [o.detach() for o in outs]

@@ -13,8 +13,11 @@ it is assigned to registers with torch: so ``Module.parameters()``,
 Until initialisation it is a ``torch.nn.parameter.UninitializedParameter``,
 materialised in place on the chosen device (the same object throughout).
 ``data()`` wraps that tensor in an ``NDArray``; ``grad()`` wraps its
-``.grad``. One device per parameter: replicas on several contexts come
-with the multi-GPU slice.
+``.grad``. An aux parameter (BatchNorm's running statistics:
+``grad_req="null"``, ``differentiable=False``) has no gradient and no
+``gluon.Trainer`` update; its layer writes it in place, and ``.params``
+files and ``cast`` carry it like any other. One device per parameter:
+replicas on several contexts come with the multi-GPU slice.
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@
 Counterpart: the JAX package's ``initializer.py`` (``:29-188``): the
 registry and ``create``, the name dispatch of
 ``Initializer.__call__`` (``*weight`` -> ``_init_weight``, ``*bias`` ->
-``_init_bias``, ``*gamma`` ones, ``*beta`` zeros), and ``Zero``, ``One``,
+``_init_bias``, ``*gamma`` ones, ``*beta`` zeros, BatchNorm's
+``*running_mean`` zeros and ``*running_var`` ones), and ``Zero``, ``One``,
 ``Constant``, ``Uniform``, ``Normal`` and ``Xavier``. The random ones draw
 in float32 on the CPU from ``generator`` (default: the CPU stream of
 :mod:`..random`) and then copy into the parameter, so one seed gives the
@@ -70,6 +71,10 @@ class Initializer:
                 self._init_one(name, t)
             elif name.endswith("beta"):
                 self._init_zero(name, t)
+            elif name.endswith(("running_mean", "moving_mean")):
+                self._init_zero(name, t)
+            elif name.endswith(("running_var", "moving_var")):
+                self._init_one(name, t)
             else:
                 self._init_default(name, t)
 

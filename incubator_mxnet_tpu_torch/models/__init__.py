@@ -1,8 +1,9 @@
 """Model zoo of the port (JAX counterpart: ``models/__init__.py``)."""
-from . import bert, transformer  # noqa: F401
+from . import bert, lenet, transformer  # noqa: F401
 from .bert import (  # noqa: F401
     BERT_CONFIGS, BERTEncoder, BERTModel, bert_pretrain_loss, get_bert,
 )
+from .lenet import LeNet  # noqa: F401
 from .transformer import (  # noqa: F401
     MultiHeadAttention, PositionwiseFFN, TransformerEncoderCell,
 )

@@ -1,11 +1,12 @@
 """The op namespace: ``mx.nd.<op>`` and the ``F`` of ``hybrid_forward``.
 
 Counterpart: the ops of the JAX package's registry that the port's layers
-and losses use (``ops/nn.py``: ``FullyConnected``, ``LayerNorm``,
-``Activation``, ``Dropout``, softmax; ``ops/tensor.py``: ``Embedding``,
-``take``, ``pick``, shape ops and reductions) and the update ops of
-``ops/optimizer_ops.py`` (:mod:`..ops.optimizer_ops`), whose ``out=``
-writes the results into the given arrays in place. Each op is a function on
+and losses use (``ops/nn.py``: ``FullyConnected``, ``Convolution``,
+``Deconvolution``, ``Pooling``, ``BatchNorm``, ``LayerNorm``,
+``Activation``, ``LeakyReLU``, ``Dropout``, softmax; ``ops/tensor.py``:
+``Embedding``, ``take``, ``pick``, ``pad``, shape ops and reductions)
+and the update ops of ``ops/optimizer_ops.py`` (:mod:`..ops.optimizer_ops`),
+whose ``out=`` writes the results into the given arrays in place. Each op is a function on
 tensors. Given NDArrays it unwraps them, runs under
 ``torch.set_grad_enabled(autograd.is_recording())`` and wraps the result;
 given tensors (inside ``hybrid_forward``, which the Gluon blocks run on
@@ -27,7 +28,9 @@ from ..ops import optimizer_ops as _opt_ops
 from .ndarray import NDArray, _recorded
 
 __all__ = ["FullyConnected", "LayerNorm", "Activation", "Embedding",
-           "Dropout", "softmax", "log_softmax", "take", "pick", "relu",
+           "Convolution", "Deconvolution", "Pooling", "BatchNorm", "Flatten",
+           "LeakyReLU", "gelu_tanh", "silu", "swish", "pad", "Dropout",
+           "softmax", "log_softmax", "take", "pick", "relu",
            "sigmoid", "tanh", "exp", "log", "sqrt", "square", "abs", "clip",
            "sum", "mean", "max", "min", "reshape", "transpose", "flatten",
            "expand_dims", "squeeze", "broadcast_to", "slice_axis", "concat",
@@ -100,6 +103,57 @@ def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
 @_nd_op
 def Activation(data, act_type):
     return _nn.activation(data, act_type)
+
+
+@_nd_op
+def Convolution(data, weight, bias=None, **kwargs):
+    """N-d convolution, NC(DHW) (JAX counterpart: ``ops/nn.py:90``)."""
+    return _nn.convolution(data, weight, bias, **kwargs)
+
+
+@_nd_op
+def Deconvolution(data, weight, bias=None, **kwargs):
+    """Transposed convolution (JAX counterpart: ``ops/nn.py:179``)."""
+    return _nn.deconvolution(data, weight, bias, **kwargs)
+
+
+@_nd_op
+def Pooling(data, **kwargs):
+    """Max/avg/sum/lp pooling (JAX counterpart: ``ops/nn.py:230``)."""
+    return _nn.pooling(data, **kwargs)
+
+
+@_nd_op
+def BatchNorm(data, gamma, beta, moving_mean, moving_var, **kwargs):
+    """``(out, batch or moving mean, var)`` (JAX counterpart:
+    ``ops/nn.py:300``); the caller updates the moving statistics."""
+    return _nn.batch_norm(data, gamma, beta, moving_mean, moving_var,
+                          **kwargs)
+
+
+@_nd_op
+def LeakyReLU(data, gamma=None, **kwargs):
+    """The leaky ReLU family (JAX counterpart: ``ops/nn.py:428``)."""
+    return _nn.leaky_relu(data, gamma, **kwargs)
+
+
+@_nd_op
+def gelu_tanh(data):
+    return _nn.ACTIVATIONS["gelu_tanh"](data)
+
+
+@_nd_op
+def silu(data):
+    return _nn.ACTIVATIONS["silu"](data)
+
+
+swish = silu
+
+
+@_nd_op
+def pad(data, mode="constant", pad_width=(), constant_value=0.0):
+    """MXNet's ``pad`` (JAX counterpart: ``ops/tensor.py:507``)."""
+    return _nn.pad(data, mode, pad_width, constant_value)
 
 
 @_nd_op
@@ -209,7 +263,10 @@ def transpose(data, axes=None):
 
 @_nd_op
 def flatten(data):
-    return data.reshape(data.shape[0], -1)
+    return _nn.flatten(data)
+
+
+Flatten = flatten
 
 
 @_nd_op

@@ -1,11 +1,16 @@
 """Layers of the port (JAX counterpart: ``gluon/nn/``); ``gluon.nn`` is
 this module under its Gluon name."""
 from ..gluon.block import Block, HybridBlock  # noqa: F401
-from .basic_layers import (  # noqa: F401
-    Activation, Dense, Dropout, Embedding, HybridSequential, LayerNorm,
-    Sequential, set_dropout_generator,
+from .activations import (  # noqa: F401
+    ELU, GELU, LeakyReLU, PReLU, SELU, SiLU, Swish, Activation,
 )
+from .basic_layers import (  # noqa: F401
+    BatchNorm, Dense, Dropout, Embedding, Flatten, HybridLambda,
+    HybridSequential, Identity, Lambda, LayerNorm, Sequential,
+    SyncBatchNorm, set_dropout_generator,
+)
+from .conv_layers import *  # noqa: F401,F403
+from . import activations, basic_layers, conv_layers
 
-__all__ = ["Block", "HybridBlock", "Activation", "Dense", "Dropout",
-           "Embedding", "HybridSequential", "LayerNorm", "Sequential",
-           "set_dropout_generator"]
+__all__ = (["Block", "HybridBlock"] + activations.__all__
+           + basic_layers.__all__ + conv_layers.__all__)

@@ -2,13 +2,15 @@
 
 Counterparts: the JAX package's ``gluon/nn/basic_layers.py``
 (``Sequential`` ``:24``, ``HybridSequential`` ``:55``, ``Dense`` ``:86``,
-``Dropout`` ``:130``, ``LayerNorm`` ``:228``, ``Embedding`` ``:310``) and
-``gluon/nn/activations.py`` (``Activation``). ``gluon.nn`` re-exports this
-module. Parameter names match the JAX ones (``weight``, ``bias``,
-``gamma``, ``beta``, under the same prefixes). ``in_units``/
-``in_channels`` may be 0: the parameter then waits, as an
-``UninitializedParameter``, for the first forward to give its shape.
-``Dropout`` is active only under ``autograd.is_training()``.
+``Dropout`` ``:130``, ``BatchNorm`` ``:148``, ``SyncBatchNorm`` ``:215``,
+``LayerNorm`` ``:228``, ``Embedding`` ``:310``, ``Flatten`` ``:337``,
+``Identity`` ``:347``, ``Lambda`` ``:354``, ``HybridLambda`` ``:368``).
+``gluon.nn`` re-exports this module. Parameter names match the JAX ones
+(``weight``, ``bias``, ``gamma``, ``beta``, ``running_mean``,
+``running_var``, under the same prefixes). ``in_units``/``in_channels``
+may be 0: the parameter then waits, as an ``UninitializedParameter``, for
+the first forward to give its shape. ``Dropout`` is active only under
+``autograd.is_training()``; so is BatchNorm's use of batch statistics.
 """
 from __future__ import annotations
 
@@ -18,11 +20,14 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import autograd
+from ..base import dtype_name
 from ..gluon.block import Block, HybridBlock
-from ..ops import nn as _ops
+from .activations import Activation
 
-__all__ = ["Sequential", "HybridSequential", "Activation", "Dense",
-           "Dropout", "LayerNorm", "Embedding", "set_dropout_generator"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "BatchNorm", "SyncBatchNorm", "LayerNorm", "Embedding", "Flatten",
+           "Identity", "Lambda", "HybridLambda", "set_dropout_generator"]
 
 
 class _Stack:
@@ -66,24 +71,6 @@ class HybridSequential(_Stack, HybridBlock):
         for block in self._children.values():
             x = block(x)
         return x
-
-
-class Activation(HybridBlock):
-    """A named activation, no parameters (JAX counterpart:
-    ``gluon/nn/activations.py:9``)."""
-
-    def __init__(self, activation: str, **kwargs):
-        if activation not in _ops.ACTIVATIONS:
-            raise ValueError(f"activation {activation!r} is not ported yet; "
-                             f"known: {sorted(_ops.ACTIVATIONS)}")
-        self._act_type = activation
-        super().__init__(**kwargs)
-
-    def _alias(self):
-        return self._act_type
-
-    def hybrid_forward(self, F, x):
-        return F.Activation(x, act_type=self._act_type)
 
 
 class Dense(HybridBlock):
@@ -151,6 +138,89 @@ def set_dropout_generator(module: nn.Module,
     return n
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalisation over axis ``axis`` with running statistics
+    (JAX counterpart: ``gluon/nn/basic_layers.py:148-212``).
+
+    Under ``autograd.is_training()`` (and not ``use_global_stats``) it
+    normalises by the batch's statistics and moves ``running_mean`` and
+    ``running_var`` toward them, ``new = running * momentum + batch * (1 -
+    momentum)`` with the biased batch variance, in place and without
+    gradient: so the update also runs inside a captured CUDA graph (a
+    hybridized block's cached op, ``ShardedTrainer``'s fused step), where a
+    new tensor could not be assigned. Otherwise it normalises by the
+    running statistics. ``running_mean``/``running_var`` are aux
+    parameters: ``grad_req="null"``, saved in ``.params`` files. ``cast``
+    to a half type keeps all four parameters float32; the output takes
+    the input's dtype."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=(in_channels,),
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            p.shape = (c,)
+
+    def cast(self, dtype):
+        if dtype_name(dtype) in ("float16", "bfloat16"):
+            dtype = "float32"
+        super().cast(dtype)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        training = autograd.is_training() and not self._use_global_stats
+        out, mean, var = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var, eps=self._epsilon,
+            fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis,
+            training=training)
+        if training:
+            mom = self._momentum
+            with torch.no_grad():
+                running_mean.mul_(mom).add_(mean.to(running_mean.dtype),
+                                            alpha=1 - mom)
+                running_var.mul_(mom).add_(var.to(running_var.dtype),
+                                           alpha=1 - mom)
+        return out
+
+
+class SyncBatchNorm(BatchNorm):
+    """BatchNorm over the whole batch across devices (JAX counterpart:
+    ``gluon/nn/basic_layers.py:215``); on one card it is BatchNorm.
+    ``num_devices`` is accepted as there."""
+
+    def __init__(self, in_channels=0, num_devices=None, **kwargs):
+        super().__init__(in_channels=in_channels, **kwargs)
+        self._num_devices = num_devices
+
+
 class LayerNorm(HybridBlock):
     """Layer normalisation over the last axis (JAX counterpart:
     ``gluon/nn/basic_layers.py:228``). ``gamma``/``beta`` are float32
@@ -201,3 +271,53 @@ class Embedding(HybridBlock):
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight)
+
+
+class Flatten(HybridBlock):
+    """All axes but the batch axis collapsed (JAX counterpart:
+    ``gluon/nn/basic_layers.py:337``)."""
+
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class Identity(HybridBlock):
+    """The input, unchanged (JAX counterpart:
+    ``gluon/nn/basic_layers.py:347``)."""
+
+    def hybrid_forward(self, F, x):
+        return x
+
+
+class Lambda(Block):
+    """A function as a Block; a string names an ``mx.nd`` op (JAX
+    counterpart: ``gluon/nn/basic_layers.py:354``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from .. import ndarray as nd
+            function = getattr(nd, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, x, *args)`` as a HybridBlock; a string names an op of
+    ``F`` (JAX counterpart: ``gluon/nn/basic_layers.py:368``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_name = function if isinstance(function, str) \
+            else function.__name__
+        self._func = function
+
+    def hybrid_forward(self, F, x, *args):
+        if isinstance(self._func, str):
+            return getattr(F, self._func)(x, *args)
+        return self._func(F, x, *args)

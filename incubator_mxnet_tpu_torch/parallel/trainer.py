@@ -12,6 +12,14 @@ step count less one (``:425-448``, ``:611-633``). The mesh, sharding,
 ZeRO-1, the kvstore fallback, guard policies, numerics, autotune and
 checkpoints come with later slices.
 
+Every parameter of the module goes through the optimizer, as in the JAX
+trainer (its ``_params`` is the whole ``collect_params()``, ``:216-218``):
+an aux parameter (BatchNorm's running statistics, ``requires_grad`` off)
+takes a zero gradient, so weight decay and momentum move it when ``wd >
+0`` and leave it alone when ``wd == 0``. Its running update happens in the
+forward, in place, inside the fused step's graph too; the optimizer's
+update follows it in the same step.
+
 Two paths, as in the JAX package (``fused=``, ``:127-135``):
 
 - **fused** (the default on the card; ``MXTPU_FUSED_STEP=0`` or
@@ -100,7 +108,9 @@ class _FusedStep:
         with autograd.train_mode():
             out = tr._block(*self.inputs[:n_data])
             loss = torch.mean(tr._loss_fn(out, *self.inputs[n_data:]))
-        grads = torch.autograd.grad(loss, tr._params, allow_unused=True)
+        diff = [p for p in tr._params if p.requires_grad]
+        it = iter(torch.autograd.grad(loss, diff, allow_unused=True))
+        grads = [next(it) if p.requires_grad else None for p in tr._params]
         grads = [g if g is not None else torch.zeros_like(p)
                  for g, p in zip(grads, tr._params)]
         with torch.no_grad():
@@ -184,11 +194,22 @@ class ShardedTrainer:
         """Were the last step's loss and gradient norm finite?"""
         return None if self._last is None else bool(self._last[1])
 
-    def _init_state(self) -> None:
+    def _init_state(self, data=None) -> None:
         """Parameters in sorted-name order (the JAX trainer's order), their
         names for the optimizer's ``idx2name`` (a Gluon block's prefix
         names, else torch's), their optimizer states, and which of them
-        update through an fp32 master (``_mp``)."""
+        update through an fp32 master (``_mp``).
+
+        First, as the JAX trainer does (``:206-214``), one forward on the
+        data arguments ``data`` in train mode, without gradients: it
+        finishes deferred initialisation and moves BatchNorm's running
+        statistics once, as there. It runs when a Gluon block has a
+        parameter still uninitialised or an aux parameter
+        (``grad_req="null"``); for any other block it would change nothing
+        but the dropout stream, and is skipped."""
+        if data is not None and self._needs_warmup():
+            with torch.no_grad(), autograd.train_mode():
+                self._block(*data)
         opt = self._optimizer
         named = sorted(self._block.named_parameters())
         self._params = [p for _, p in named]
@@ -206,6 +227,12 @@ class ShardedTrainer:
                     for p, s in zip(self._params, self._states)]
         sched = opt.lr_scheduler
         self._lr_fold = bool(sched is not None and hasattr(sched, "torch_lr"))
+
+    def _needs_warmup(self) -> bool:
+        if not hasattr(self._block, "collect_params"):
+            return False
+        return any(not p._initialized or p.grad_req == "null"
+                   for p in self._block.collect_params().values())
 
     def place(self, *batch) -> tuple:
         """Batch arrays (numpy or tensors) as tensors on the device; tensors
@@ -232,9 +259,9 @@ class ShardedTrainer:
         n_data = len(batch) - self._n_labels
         if n_data < 1:
             raise MXNetError("step() needs at least one data argument")
-        if self._params is None:
-            self._init_state()
         vals = self.place(*batch)
+        if self._params is None:
+            self._init_state(vals[:n_data])
         if self._fused:
             return self._fused_step(vals, capture=True)
         return self._eager_step(vals)

@@ -61,6 +61,13 @@ class Histogram:
                 if j < self.reservoir:
                     self._samples[j] = v
 
+    def percentile(self, q: float) -> float:
+        """Nearest-rank percentile over the reservoir; NaN when empty
+        (JAX counterpart: ``telemetry/metrics.py:235``)."""
+        with self._lock:
+            samples = sorted(self._samples)
+        return _nearest_rank(samples, q)
+
     def summary(self) -> Dict[str, float]:
         """count/mean/min/max and the configured percentiles."""
         with self._lock:

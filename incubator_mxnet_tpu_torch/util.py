@@ -32,9 +32,15 @@ ENV_VARS: Dict[str, tuple] = {
                        "unset = 64."),
     "MXTPU_PEAK_TFLOPS": ("", "Per-card bf16 peak TFLOP/s for MFU; unset = "
                           "by device name (PEAK_TFLOPS_BY_KIND)."),
-    "MXTPU_BENCH_MODEL": ("bert_12_768_12", "BERT config of the port "
-                          "bench."),
-    "MXTPU_BENCH_BATCH": ("8", "Batch size of the port bench."),
+    "MXTPU_BENCH_WORKLOAD": ("bert", "Workload of the port bench: bert "
+                             "or resnet."),
+    "MXTPU_BENCH_MODEL": ("bert_12_768_12", "Model of the port bench; "
+                          "unset = bert_12_768_12 (bert) or resnet50_v1 "
+                          "(resnet)."),
+    "MXTPU_BENCH_BATCH": ("8", "Batch size of the port bench; unset = 8 "
+                          "(bert) or 32 (resnet)."),
+    "MXTPU_BENCH_IMG": ("224", "Image side of the port bench's resnet "
+                        "workload."),
     "MXTPU_BENCH_SEQ": ("512", "Sequence length of the port bench."),
     "MXTPU_BENCH_STEPS": ("20", "Timed training steps of the port bench."),
     "MXTPU_BENCH_DROPOUT": ("0.1", "Dropout rate of the port bench's "

@@ -11,7 +11,10 @@ themselves. On the card, from the root of a checkout::
 with one Gluon step of a small BERT on the card, then the CUDA graphs: the
 fused ``ShardedTrainer`` step against the eager one, dropout under replay,
 one graph per batch shape, launch counts with replays, and a hybridized
-block's forward and backward against the eager ones.
+block's forward and backward against the eager ones; and the vision path:
+float32 convolutions without TF32, a hybridized BatchNorm net against the
+eager one (running statistics moved once per call), and the fused step
+over a BatchNorm net against the eager step.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -491,3 +494,120 @@ def test_hybridized_dropout_draws_new_masks_on_card():
         ys = [net(x)._data.clone() for _ in range(4)]
     assert not torch.equal(ys[2], ys[3]) and not torch.equal(ys[1], ys[2])
     assert {v for y in ys for v in y.unique().tolist()} == {0.0, 2.0}
+
+
+def _bn_net(seed=0):
+    """A small conv net with BatchNorm (float32, 10 classes), its shapes
+    deferred, Xavier from ``seed``."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    n = gluon.nn
+    net = n.HybridSequential()
+    with net.name_scope():
+        net.add(n.Conv2D(16, 3, padding=1, use_bias=False), n.BatchNorm(),
+                n.Activation("relu"), n.MaxPool2D(3, 2, 1),
+                n.Conv2D(16, 3, padding=1), n.BatchNorm(),
+                n.Activation("relu"), n.GlobalAvgPool2D(), n.Dense(10))
+    net.initialize(mx.init.Xavier(
+        generator=torch.Generator().manual_seed(seed)), ctx=mx.gpu(0))
+    return net
+
+
+def _images(B=8, side=16, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, 3, side, side, generator=g),
+            torch.randint(0, 10, (B,), generator=g).float())
+
+
+@pytest.mark.cuda
+def test_float32_convolution_is_ieee_on_card():
+    """The port's float32 convolutions, forward and backward, run without
+    TF32 whatever ``torch.backends.cudnn.allow_tf32`` says: against a
+    float64 convolution they are within float32 rounding, where TF32
+    would be ~1e-3 off."""
+    _card()
+    from incubator_mxnet_tpu_torch.ops import nn as tnn
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(4, 64, 28, 28, device="cuda", generator=g,
+                    requires_grad=True)
+    w = torch.randn(32, 64, 3, 3, device="cuda", generator=g,
+                    requires_grad=True)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        y = tnn.convolution(x, w, None, pad=(1, 1))
+        gx, gw = torch.autograd.grad(y.square().sum(), (x, w))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    xd, wd = (t.detach().double().requires_grad_() for t in (x, w))
+    yd = torch.nn.functional.conv2d(xd, wd, padding=1)
+    gxd, gwd = torch.autograd.grad(yd.square().sum(), (xd, wd))
+    for got, want in ((y, yd), (gx, gxd), (gw, gwd)):
+        err = (got.double() - want).abs().max() / want.abs().max()
+        assert err < 1e-5, err
+
+
+@pytest.mark.cuda
+def test_hybridized_batchnorm_net_matches_eager_on_card():
+    """A hybridized conv net with BatchNorm (eager call, capture, replays)
+    against its un-hybridized twin under ``autograd.record()``: outputs,
+    gradients and the running statistics, moved once per call (the
+    capture's warm run is undone); then ``predict_mode`` replays a graph
+    that reads the statistics."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, gluon, nd
+    nets = [_bn_net(), _bn_net()]
+    x, y = (nd.array(t, ctx=mx.gpu(0)) for t in _images())
+    for net in nets:
+        with autograd.predict_mode():
+            net(x)                      # finishes deferred init
+    nets[0].hybridize()
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    for _ in range(4):
+        for net in nets:
+            with autograd.record():
+                loss = ce(net(x), y).mean()
+            loss.backward()
+        pa, pb = (n.collect_params() for n in nets)
+        for (k, a), b in zip(pa.items(), pb.values()):
+            torch.testing.assert_close(a.data()._data, b.data()._data,
+                                       atol=1e-6, rtol=1e-5)
+            if a.grad_req != "null":
+                torch.testing.assert_close(a.grad()._data, b.grad()._data,
+                                           atol=1e-5, rtol=1e-4)
+    assert any(op.bwd is not None for op in nets[0]._cached_ops.values())
+    outs = []
+    for net in nets:
+        with autograd.predict_mode():
+            outs.append([net(x)._data for _ in range(3)][-1])
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=1e-5)
+    assert len(nets[0]._cached_ops) == 2
+
+
+@pytest.mark.cuda
+def test_fused_step_with_batchnorm_matches_eager_on_card(deterministic):
+    """``ShardedTrainer``'s fused step over a net with BatchNorm (shapes
+    deferred to the trainer's warm-up) against the eager step, under
+    deterministic algorithms: losses, weights and running statistics
+    after 4 steps at ``wd`` 1e-3 (so the optimizer moves the statistics
+    too), one graph replayed per step."""
+    _card()
+    from incubator_mxnet_tpu_torch import gluon, parallel
+    x, y = _images()
+    nets, trainers = [_bn_net(), _bn_net()], []
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    for net, fused in zip(nets, (True, False)):
+        trainers.append(parallel.ShardedTrainer(
+            net, lambda o, l: ce(o, l), "sgd",
+            {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3},
+            device="cuda", n_labels=1, fused=fused))
+    losses = [[float(tr.step(x, y)) for _ in range(4)] for tr in trainers]
+    assert trainers[0].captures == 1 and trainers[0].last_step_graphs == 1
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    pa, pb = (n.collect_params() for n in nets)
+    for (k, a), b in zip(pa.items(), pb.values()):
+        torch.testing.assert_close(a.data()._data, b.data()._data,
+                                   atol=1e-6, rtol=1e-5)
+    rm = [p for k, p in pa.items() if k.endswith("running_mean")][0]
+    assert rm.data()._data.abs().max() > 0
