@@ -15,9 +15,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    serving path gives it (ragged key mask with an empty row, no mask,
    causal, causal + window), at the training shape with every key valid,
    across lengths, under a key mask that is not a prefix (keys only in the
-   middle tile, a row with none) and with small tiles; the two backward
+   middle tile, a row with none), with small tiles, and at the NMT
+   training's masked cross-attention shapes (target 112 over source 128,
+   128 over 96, 16 heads, a row that sees no key); the two backward
    kernels (dK/dV, dQ) at the training shape and at masked, causal,
-   windowed, cross-length, ragged and small-tile cases; with per-shape
+   windowed, cross-length (causal, and the NMT masked shapes), ragged and
+   small-tile cases; all three, untimed, at the MT gate's shapes (batch
+   32, 4 heads of head dim 16: 5 over 5, causal 6 over 6, 6 over 5 with
+   and without a key mask) and at the decode serving prefill's (batch 1,
+   16 heads, one ragged row of source 128); with per-shape
    times of the kernel (CUDA events, and device time from
    ``torch.profiler``), the plain version, one PyTorch library call as a
    yardstick (SDPA, never used by the port; the forward's by events and
@@ -78,7 +84,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
     each largest value; (c) one step's gradients on the card against the
     CPU's, within 1e-3 of each parameter's largest; (d) the Gluon LeNet
     loop (``io.NDArrayIter``, hybridized, ``gluon.Trainer``,
-    ``metric.Accuracy``) on the 8x8 digits, held-out accuracy >= 0.95.
+    ``metric.Accuracy``) on the 8x8 digits, held-out accuracy >= 0.95;
+11. nmt train: Transformer-big (Vaswani et al. 2017, Table 3 "big": units
+    1024, hidden 4096, 6 + 6 layers, 16 heads; a shared vocabulary of
+    37,000; dropout 0.1; seeded Xavier weights) through
+    ``ShardedTrainer`` (Adam lr 1e-4, float32, label-smoothed
+    cross-entropy, eps 0.1) on 32 pairs of source 128 (valid 32-128) and
+    target 112, fused and eager in turns: step ms, target tokens/s, the
+    first and warm steps apart, peak memory, a profiled step of each by
+    group (GEMMs, flash kernels, elementwise, optimizer); losses finite
+    and falling, each kernel 18 launches per step (encoder, causal and
+    cross-attention, replays counted); one step's gradients at 2 + 2
+    layers on the kernels against ``MXTPU_ATTN_IMPL=xla`` within 1e-3 of
+    each parameter's largest, twice: with the plain path's ReLUs taking
+    the kernel path's signs, and free on the sequences where no ReLU
+    takes another sign in the two paths (the others' loss weighted 0: a
+    pre-activation that the two paths round to opposite signs moves its
+    token's contribution between the gradients); the share of such
+    sign flips among all FFN units at most 1e-5;
+12. nmt decode: at full width, a seeded 32-token prefix through
+    ``nmt_step`` (contiguous cache), ``nmt_paged_step`` (scattered pages)
+    and the full decoder on the kernels, logits within 1e-3 of the largest
+    at every position; ``beam_search`` (K = 4, 32 tokens) against
+    ``beam_search_reference`` on 4 prompts (sequences, scores and the
+    first divergence printed);
+13. nmt serve: ``serve.DecodeEngine`` (prompt table batch 1, source
+    8-128; 32 rows, pages of 16, 128 tokens) whose decode step is one
+    CUDA graph, under ``serve.DecodeBatcher``: 256 seeded requests
+    (prompts 8-127, 16-127 new tokens) from 4 threads, then all at once:
+    tokens/s, ITL p50/p99, TTFT p50, occupancy, the step's ms replayed
+    against eager (CUDA events), the pool and the capacity; every stream
+    completes, no capture or first bucket run after warmup, the forward
+    kernel launched in prefill and the backward ones not, the capacity
+    equal to the pool's admission limit (also under a budget, priced
+    again to the same report), and 4 streams' greedy tokens equal to
+    ``beam_search(K=1)``'s unless the two tokens' logits are within 1e-3;
+14. mt gate: the JAX package's ``examples/machine_translation.py`` loop
+    (copy task, 300 steps, vocabulary 12, length 5, batch 32, Adam
+    through ``gluon.Trainer``, label smoothing 0.1) on the card, then
+    ``beam_search`` (K = 4): exact match above 0.8.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -104,6 +148,8 @@ from incubator_mxnet_tpu_torch import parallel, serve
 from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
 from incubator_mxnet_tpu_torch.ops.cuda import _build
 from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+from incubator_mxnet_tpu_torch.ops.nn import fully_connected
+from incubator_mxnet_tpu_torch.models import nmt
 from incubator_mxnet_tpu_torch.util import getenv
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense) and HBM3
@@ -219,9 +265,10 @@ def bound_ms(B, H, Lq, Lk, D, dtype, pairs, masked) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_case(gen, dtype, B, Lq, Lk, case, timed, results):
+def kernel_case(gen, dtype, B, Lq, Lk, case, timed, results, H=HEADS,
+                D=HEAD_DIM):
     """Kernel vs plain version on one shape; returns its result record."""
-    D, H, dev = HEAD_DIM, HEADS, "cuda"
+    dev = "cuda"
     q = torch.randn(B, H, Lq, D, device=dev, generator=gen).to(dtype)
     k = torch.randn(B, H, Lk, D, device=dev, generator=gen).to(dtype)
     v = torch.randn(B, H, Lk, D, device=dev, generator=gen).to(dtype)
@@ -230,7 +277,7 @@ def kernel_case(gen, dtype, B, Lq, Lk, case, timed, results):
         vl = torch.randint(1, Lk + 1, (B,), device=dev, generator=gen)
         if case == "full":     # the training path: every key valid
             vl[:] = Lk
-        else:
+        elif B > 1:            # (at batch 1 one ragged row, as in prefill)
             vl[0] = 0          # rows that see no key: o is the mean of V
             vl[-1] = Lk
         key_mask = (torch.arange(Lk, device=dev)[None] < vl[:, None]
@@ -325,7 +372,31 @@ def phase_kernels(results) -> dict:
     # the largest bucket the serving phase runs
     main = kernel_case(gen, torch.float32, 32, 512, 512, "mask", True,
                        results)
+    # the NMT training shapes: masked cross-attention with Lq < Lk and
+    # Lq > Lk, a row that sees no key in each (a generator of their own:
+    # the cases above keep their inputs)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cross = [kernel_case(gen, dtype, NMT_BATCH, lq, lk, "mask", True,
+                         results, H=NMT_CFG["num_heads"])
+             for dtype in (torch.float32, torch.bfloat16)
+             for lq, lk in NMT_CROSS]
+    main["nmt_cross"] = cross[0]
+    small_cases(kernel_case, 10, results)
     return main
+
+
+def small_cases(case_fn, seed, results) -> None:
+    """``case_fn`` (:func:`kernel_case` or :func:`bwd_case`) at the MT gate's
+    shapes (:data:`MT_CASES`, head dim 16) and the serving prefill's (batch
+    1, 16 heads, one ragged row of the largest source bucket), f32 and
+    bf16, untimed, from a generator of their own."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        for lq, lk, case in MT_CASES:
+            case_fn(gen, dtype, MT_BATCH, lq, lk, case, False, results,
+                    H=MT_HEADS, D=MT_HEAD_DIM)
+        case_fn(gen, dtype, 1, NMT_SRC, NMT_SRC, "mask", False, results,
+                H=NMT_CFG["num_heads"])
 
 
 def bwd_bound_ms(B, H, Lq, Lk, D, dtype, pairs, masked) -> dict:
@@ -348,10 +419,11 @@ def bwd_bound_ms(B, H, Lq, Lk, D, dtype, pairs, masked) -> dict:
     return out
 
 
-def bwd_case(gen, dtype, B, Lq, Lk, case, timed, results):
+def bwd_case(gen, dtype, B, Lq, Lk, case, timed, results, H=HEADS,
+             D=HEAD_DIM):
     """Both backward kernels vs their plain versions on one shape; returns
     {kernel name: result record}."""
-    D, H, dev = HEAD_DIM, HEADS, "cuda"
+    dev = "cuda"
     q, do = (torch.randn(B, H, Lq, D, device=dev, generator=gen).to(dtype)
              for _ in range(2))
     k, v = (torch.randn(B, H, Lk, D, device=dev, generator=gen).to(dtype)
@@ -361,7 +433,7 @@ def bwd_case(gen, dtype, B, Lq, Lk, case, timed, results):
         vl = torch.randint(1, Lk + 1, (B,), device=dev, generator=gen)
         if case == "full":     # the training path: every key valid
             vl[:] = Lk
-        else:
+        elif B > 1:            # (at batch 1 one ragged row, as in prefill)
             vl[0] = 0          # a row that sees no key: dQ must be 0
             vl[-1] = Lk
         key_mask = (torch.arange(Lk, device=dev)[None] < vl[:, None]
@@ -391,7 +463,7 @@ def bwd_case(gen, dtype, B, Lq, Lk, case, timed, results):
                   f"{name} {label} {dtype} B={B} Lq={Lq} Lk={Lk} {case}: "
                   f"max abs err {err} beyond atol={atol} rtol={rtol}")
             errs[name] = max(errs[name], err)
-    if case == "mask":
+    if key_mask is not None and not key_mask[0].any():
         check(bool((dq[0] == 0).all()), f"{fa.KERNEL_BWD_DQ}: a row that "
               "sees no key must give exactly 0")
     base = {"dtype": str(dtype).replace("torch.", ""), "B": B, "H": H,
@@ -467,6 +539,17 @@ def phase_kernels_bwd(results) -> dict:
                 bwd_case(gen, dtype, B, L, L, case, False, results)
     finally:
         del os.environ["MXTPU_FLASH_BQ"], os.environ["MXTPU_FLASH_BK"]
+    # the NMT training shapes (masked, Lq < Lk and Lq > Lk), from a
+    # generator of their own
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        for lq, lk in NMT_CROSS:
+            recs = bwd_case(gen, dtype, NMT_BATCH, lq, lk, "mask", True,
+                            results, H=NMT_CFG["num_heads"])
+            if dtype == torch.float32 and lq < lk:
+                for name, rec in recs.items():
+                    main[name]["nmt_cross"] = rec
+    small_cases(bwd_case, 11, results)
     return main
 
 
@@ -678,13 +761,15 @@ def phase_profile(model, B: int = 32, L: int = 512) -> dict:
     return res
 
 
-def train_run(trainer, batch, steps: int, n_layers: int, tag: str) -> dict:
+def train_run(trainer, batch, steps: int, per_step: int, tag: str) -> dict:
     """The port bench's protocol on one trainer: its losses, the kernels'
     launches over the run (counted from 0 just before it, replays
-    included: 12 per kernel per step) and its peak memory."""
+    included: ``per_step`` per kernel per step, one per attention call)
+    and its peak memory."""
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launches()
-    dt, losses = bench.measure(trainer, batch, steps)
+    timings = {}
+    dt, losses = bench.measure(trainer, batch, steps, timings)
     launches = cuda_ops.launch_counts()
     losses = [float(x) for x in losses]
     n_steps = len(losses)
@@ -693,9 +778,11 @@ def train_run(trainer, batch, steps: int, n_layers: int, tag: str) -> dict:
     check(bool(trainer.last_finite), f"{tag}: the last step's loss or "
           "gradient norm is not finite")
     for name, n in launches.items():
-        check(n == n_layers * n_steps, f"{tag}: {name} launched {n} times "
-              f"in {n_steps} steps of {n_layers} layers")
+        check(n == per_step * n_steps, f"{tag}: {name} launched {n} times "
+              f"in {n_steps} steps of {per_step} attention calls")
     return {"dt": dt, "losses": losses, "launches": launches,
+            "first_step_ms": timings["first_step_s"] * 1e3,
+            "warm_step_ms": timings["warm_step_s"] * 1e3,
             "steps": n_steps, "captures": trainer.captures,
             "last_step_graphs": trainer.last_step_graphs,
             "last_path": trainer.last_path,
@@ -1197,15 +1284,15 @@ VISION_GATE_RTOL = 1e-5
 VISION_GRAD_RTOL = 1e-3
 
 
-def vision_split(per_kernel: dict) -> dict:
-    """A vision step's device time by :data:`VISION_GROUPS` and its top
-    kernels."""
+def group_split(per_kernel: dict, kinds) -> dict:
+    """A step's device time by the groups of ``kinds`` ((group, name
+    substrings) pairs, the first match wins) and its top kernels."""
     total = sum(per_kernel.values())
-    groups = {g: 0.0 for g, _ in VISION_GROUPS}
+    groups = {g: 0.0 for g, _ in kinds}
     groups["other"] = 0.0
     for name, t in per_kernel.items():
         low = name.lower()
-        g = next((g for g, keys in VISION_GROUPS
+        g = next((g for g, keys in kinds
                   if any(k in low for k in keys)), "other")
         groups[g] += t
     top = [{"kernel": k[:90], "ms": t, "share": t / total}
@@ -1216,12 +1303,12 @@ def vision_split(per_kernel: dict) -> dict:
             if total else {}, "top": top}
 
 
-def vision_profiled_step(trainer, placed, tag: str) -> dict:
-    """One ResNet step under ``torch.profiler``: wall ms, device ms, idle
-    share and the split by :data:`VISION_GROUPS`."""
+def grouped_profiled_step(trainer, placed, tag: str, kinds) -> dict:
+    """One training step under ``torch.profiler``: wall ms, device ms, idle
+    share and the split by the groups of ``kinds``."""
     wall, per_kernel = device_split(lambda: trainer.step(*placed))
     res = {"profiled_step_wall_ms": wall}
-    res.update(vision_split(per_kernel))
+    res.update(group_split(per_kernel, kinds))
     busy = res["profiled_device_ms"]
     res["device_idle_share"] = max(0.0, 1.0 - busy / wall) if wall else 0.0
     shares = ", ".join(f"{g} {v:.1%}" for g, v in
@@ -1305,9 +1392,11 @@ def vision_bench() -> dict:
            "batch": info["batch"], "img": info["img"],
            "parameters": n_params,
            "launches": runs["fused"]["launches"]}
-    res["profile"] = vision_profiled_step(fused, placed, "vision fused")
-    res["profile_eager"] = vision_profiled_step(eager, placed,
-                                                "vision eager")
+    res["profile"] = grouped_profiled_step(fused, placed, "vision fused",
+                                           VISION_GROUPS)
+    res["profile_eager"] = grouped_profiled_step(eager, placed,
+                                                 "vision eager",
+                                                 VISION_GROUPS)
     print(f"vision: trainers built and run in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     del fused, eager, placed, info
@@ -1505,6 +1594,580 @@ def phase_vision() -> dict:
     return res
 
 
+# -- Transformer NMT and decode serving ---------------------------------------
+# Transformer-big (Vaswani et al. 2017, Table 3 "big"; §5.1: a shared
+# source-target vocabulary of about 37,000 tokens); the NMT phases train,
+# decode and serve it at full width, with seeded random weights
+NMT_VOCAB = 37000
+NMT_CFG = dict(units=1024, hidden_size=4096, num_heads=16)
+NMT_LAYERS = 6
+# training batch: 32 pairs, source 128 (valid 32-128), target 112 (the
+# cross-attention runs at Lq != Lk on purpose)
+NMT_BATCH, NMT_SRC, NMT_TGT = 32, 128, 112
+NMT_MAX_LEN = 256
+# the masked cross-attention shapes of the kernel phases: target 112 over
+# source 128, and 128 over 96
+NMT_CROSS = ((NMT_TGT, NMT_SRC), (128, 96))
+NMT_STEPS = 10
+# the MT gate's attention shapes (models/nmt.py MT_CONFIG: batch 32, units
+# 64 over 4 heads, source 5, target 6): encoder 5 over 5, decoder causal 6
+# over 6, cross-attention 6 over 5 (unmasked in the loop; also masked)
+MT_BATCH, MT_HEADS, MT_HEAD_DIM = 32, 4, 16
+MT_CASES = ((5, 5, "none"), (6, 6, "causal"), (6, 5, "none"), (6, 5, "mask"))
+# three attention calls per layer pair: encoder, causal, cross
+NMT_CALLS = 3 * NMT_LAYERS
+NMT_GROUPS = (
+    ("flash", ("flash_",)),
+    ("gemm", ("gemm",)),
+    ("optimizer", ("multi_tensor",)),
+    ("elementwise", ("elementwise", "reduce", "softmax", "index", "gather",
+                     "scatter", "cat")),
+)
+# KV-cache decode (contiguous and paged) vs the full decoder forward on the
+# kernels, float32: the same function summed in another order (one query
+# row against the whole prefix), per position max abs err over max |logit|
+DECODE_RTOL = 1e-3
+# the NMT gradient check: ReLU pre-activations that the kernel and plain
+# paths round to opposite signs, as a share of all FFN units, at most this
+# (float32 rounding flips a few in ten million); the free comparison keeps
+# at least this many of the 32 sequences
+NMT_FLIP_SHARE = 1e-5
+NMT_GRAD_MIN_CLEAN = NMT_BATCH // 4
+# a greedy token that differs between two float32 paths is a fault only if
+# the two tokens' logits differ by more than this
+FLIP_MARGIN = 1e-3
+
+
+def nmt_model(num_layers: int = NMT_LAYERS, dropout: float = 0.1,
+              seed: int = 0):
+    """Transformer-big on the card, Xavier weights from ``seed``."""
+    net = models.NMTModel(NMT_VOCAB, NMT_VOCAB, num_layers=num_layers,
+                          dropout=dropout, max_length=NMT_MAX_LEN, **NMT_CFG)
+    net.initialize(mx.init.Xavier(
+        generator=torch.Generator().manual_seed(seed)), ctx=mx.gpu(0))
+    return net
+
+
+def nmt_batch(seed: int = 0) -> tuple:
+    """``(src, target input, src valid length, label)`` from ``seed``:
+    the target input is BOS + the label shifted by one."""
+    rng = onp.random.RandomState(seed)
+    src = rng.randint(3, NMT_VOCAB, (NMT_BATCH, NMT_SRC)).astype("int32")
+    valid = rng.randint(32, NMT_SRC + 1, NMT_BATCH).astype("float32")
+    tgt = rng.randint(3, NMT_VOCAB, (NMT_BATCH, NMT_TGT + 1)).astype("int32")
+    tgt[:, 0] = nmt.BOS
+    return src, tgt[:, :-1].copy(), valid, tgt[:, 1:].copy()
+
+
+def nmt_trainer(net, fused):
+    return parallel.ShardedTrainer(net, nmt.label_smoothed_ce, "adam",
+                                   {"learning_rate": 1e-4}, device="cuda",
+                                   n_labels=1, fused=fused)
+
+
+def nmt_grads(num_layers: int = 2) -> dict:
+    """One step's gradients at full width and ``num_layers`` + ``num_layers``
+    layers (float32, dropout 0) on the kernels against the same step with
+    ``MXTPU_ATTN_IMPL=xla``: every entry within :data:`GRAD_RTOL` of its
+    parameter's largest gradient, in two comparisons.
+
+    The FFN's ReLU makes the gradient a discontinuous function of the
+    forward: a pre-activation within the two paths' rounding of 0 may take
+    another sign in each, and then that token's whole contribution moves
+    between the two gradients (of its ``ffn1`` row, and through the
+    attention of every earlier parameter, the embedding rows of its
+    sequence at full strength). Sequences do not mix in the forward, so
+    such a flip moves only its own sequence's share of the gradient.
+
+    * pinned: the whole batch, the plain path's ReLUs taking the kernel
+      path's signs (a forward hook; the values differ from a free ReLU
+      only where the pre-activation is within that rounding of 0);
+    * free: both paths with free ReLUs, the loss of every sequence that
+      holds a flip weighted 0, so that the gradients are those of the
+      other sequences alone; a sequence that flips in this run too is
+      dropped as well, up to three rounds, and at least
+      :data:`NMT_GRAD_MIN_CLEAN` sequences must stay.
+
+    The flips of the free full-batch step must be at most
+    :data:`NMT_FLIP_SHARE` of all FFN units."""
+    net = nmt_model(num_layers, dropout=0.0)
+    src, tgt, valid, label = (torch.from_numpy(a).cuda()
+                              for a in nmt_batch(1))
+    acts = {n: m for n, m in net.named_modules()
+            if n.endswith("ffn.ffn1.act")}
+    signs, pinned = {}, {}
+
+    def record(name):
+        def hook(mod, args, out):
+            x = args[0]
+            signs[name] = x.detach() > 0
+            if name in pinned:
+                return x * pinned[name].to(x.dtype)
+            return out
+        return hook
+
+    for name, m in acts.items():
+        m.register_forward_hook(record(name))
+
+    def step(weight=None):
+        net.zero_grad(set_to_none=True)
+        per_token = nmt.label_smoothed_ce(net(src, tgt, valid), label)
+        if weight is None:
+            loss = per_token.mean()
+        else:               # per sequence; all ones is the mean
+            loss = ((per_token * weight[:, None]).sum()
+                    / (weight.sum() * per_token.shape[1]))
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone()
+                             for n, p in net.named_parameters()}, dict(signs)
+
+    def plain_step(weight=None):
+        os.environ["MXTPU_ATTN_IMPL"] = "xla"
+        try:
+            return step(weight)
+        finally:
+            del os.environ["MXTPU_ATTN_IMPL"]
+
+    def flipped_rows(sa, sb):
+        """Sequences (batch rows) that hold a ReLU of another sign."""
+        rows = torch.zeros(NMT_BATCH, dtype=torch.bool, device="cuda")
+        for n in acts:
+            rows |= (sa[n] != sb[n]).flatten(1).any(1)
+        return rows
+
+    def worst_of(grads, want):
+        worst, worst_name = 0.0, ""
+        for name, gx in want.items():
+            ratio = ((grads[name] - gx).abs().max()
+                     / gx.abs().max().clamp_min(1e-30)).item()
+            if ratio > worst:
+                worst, worst_name = ratio, name
+        return worst, worst_name
+
+    cuda_ops.reset_launches()
+    loss_k, grads_k, signs_k = step()
+    launches = cuda_ops.launch_counts()
+    for name, n in launches.items():
+        check(n == 3 * num_layers, f"nmt gradients: {name} launched {n} "
+              f"times in one step of {num_layers} + {num_layers} layers")
+    loss_f, grads_f, signs_f = plain_step()
+    pinned.update(signs_k)
+    try:
+        loss_x, grads_x, _ = plain_step()
+    finally:
+        pinned.clear()
+    flips = {n: int((signs_k[n] != signs_f[n]).sum()) for n in acts}
+    units = sum(signs_k[n].numel() for n in acts)
+    share = sum(flips.values()) / units
+    worst, worst_name = worst_of(grads_k, grads_x)
+    free, free_name = worst_of(grads_k, grads_f)
+    # the free comparison on the sequences that hold no flip
+    keep = ~flipped_rows(signs_k, signs_f)
+    rounds, settled = [], False
+    clean, clean_name, loss_c = float("inf"), "", None
+    while len(rounds) < 3 and int(keep.sum()) >= NMT_GRAD_MIN_CLEAN:
+        weight = keep.float()
+        _, grads_kc, signs_kc = step(weight)
+        loss_c, grads_xc, signs_xc = plain_step(weight)
+        rounds.append(int(keep.sum()))
+        again = flipped_rows(signs_kc, signs_xc) & keep
+        if not again.any():
+            clean, clean_name = worst_of(grads_kc, grads_xc)
+            settled = True
+            break
+        keep &= ~again
+    kept = int(keep.sum())
+    check(cuda_ops.launch_counts() == {
+        n: c * (1 + len(rounds)) for n, c in launches.items()},
+        "impl='xla' reached a kernel")
+    print(f"nmt gradients: {len(grads_x)} parameters, {num_layers} + "
+          f"{num_layers} layers at full width, kernels vs plain attention "
+          f"with the kernels' ReLU signs: worst max abs err / max |grad| "
+          f"{worst:.2e} ({worst_name}, tol {GRAD_RTOL}), loss "
+          f"{loss_k:.6f} vs {loss_x:.6f}; free ReLUs, whole batch: "
+          f"{free:.2e} ({free_name}) from {sum(flips.values())} sign flips "
+          f"of {units} units (share {share:.2e}, tol {NMT_FLIP_SHARE}) "
+          f"{flips}; free ReLUs on the {kept} of {NMT_BATCH} sequences "
+          f"without a flip (rounds {rounds}): {clean:.2e} ({clean_name}, "
+          f"tol {GRAD_RTOL})", flush=True)
+    check(worst <= GRAD_RTOL, f"nmt gradients differ: {worst} at "
+          f"{worst_name}")
+    check(share <= NMT_FLIP_SHARE, f"nmt gradients: ReLU sign flips "
+          f"{share:.2e} of all FFN units, beyond {NMT_FLIP_SHARE}")
+    check(settled, f"nmt gradients: {kept} sequences without a flip after "
+          f"{len(rounds)} rounds, {NMT_GRAD_MIN_CLEAN} needed")
+    check(clean <= GRAD_RTOL, f"nmt gradients (free ReLUs, sequences "
+          f"without a flip) differ: {clean} at {clean_name}")
+    return {"layers": num_layers, "worst_rel_err": worst,
+            "worst_param": worst_name, "free_relu_rel_err": free,
+            "free_relu_param": free_name, "relu_sign_flips": flips,
+            "relu_units": units, "relu_flip_share": share,
+            "clean_rel_err": clean, "clean_param": clean_name,
+            "clean_sequences": kept, "clean_rounds": rounds,
+            "loss_kernels": loss_k, "loss_plain": loss_x,
+            "loss_plain_free": loss_f, "loss_plain_clean": loss_c,
+            "launches": launches}
+
+
+def phase_nmt_train() -> dict:
+    """Transformer-big trained through ``ShardedTrainer`` (Adam, lr 1e-4,
+    float32, dropout 0.1, label-smoothed cross-entropy) on the three
+    kernels: the fused and the eager step, timed in turns; losses finite
+    and falling, 18 launches per kernel per step, one profiled step of
+    each; then the gradient check."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch = nmt_batch(0)
+    trainers = {"fused": nmt_trainer(nmt_model(), None),
+                "eager": nmt_trainer(nmt_model(), False)}
+    check(trainers["fused"].fused and not trainers["eager"].fused,
+          "the NMT trainer is not fused by default")
+    n_params = sum(p.numel() for p in trainers["fused"]._block.parameters())
+    print(f"nmt train: Transformer-big ({n_params} parameters, vocab "
+          f"{NMT_VOCAB}), batch {NMT_BATCH}, source {NMT_SRC}, target "
+          f"{NMT_TGT}; trainers built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    runs = {}
+    for name, tr in trainers.items():
+        runs[name] = train_run(tr, batch, NMT_STEPS, NMT_CALLS,
+                               f"nmt {name}")
+    placed = trainers["fused"].place(*batch)
+    for name in ("eager", "fused"):   # in turns, after each path's run
+        tr = trainers[name]
+        runs[name]["step_ms_runs"] = [runs[name]["dt"] * 1e3, synced_ms(
+            lambda: tr.step(*placed), NMT_STEPS)[0]]
+    card = card_line()
+    tokens = NMT_BATCH * NMT_TGT
+    for name, r in runs.items():
+        ms = min(r["step_ms_runs"])
+        r["step_ms"], r["tgt_tokens_per_s"] = ms, tokens / (ms / 1e3)
+        print(f"nmt train {name}: {ms:.3f} ms per step = "
+              f"{r['tgt_tokens_per_s']:.1f} target tokens/s (runs "
+              f"{[round(t, 3) for t in r['step_ms_runs']]}), first step "
+              f"{r['first_step_ms']:.1f} ms, warm step "
+              f"{r['warm_step_ms']:.1f} ms, captures {r['captures']}, "
+              f"losses {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, "
+              f"launches {r['launches']}, peak memory "
+              f"{r['peak_memory_gib']:.2f} GiB on {card}", flush=True)
+    check(runs["fused"]["captures"] == 1
+          and runs["fused"]["last_step_graphs"] == 1,
+          f"nmt fused trainer: {runs['fused']['captures']} captures")
+    res = {"parameters": n_params, "runs": runs,
+           "launches": runs["fused"]["launches"],
+           "launches_eager": runs["eager"]["launches"]}
+    for name, tr in trainers.items():
+        res[f"profile_{name}"] = grouped_profiled_step(
+            tr, placed, f"nmt {name}", NMT_GROUPS)
+    del trainers, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["gradients"] = nmt_grads()
+    return res
+
+
+def _prefix(seed: int, n: int) -> tuple:
+    """A seeded source (one row, valid 96 of 128) and target prefix of
+    ``n`` tokens starting with BOS."""
+    rng = onp.random.RandomState(seed)
+    src = rng.randint(3, NMT_VOCAB, (1, NMT_SRC)).astype("int32")
+    tgt = rng.randint(3, NMT_VOCAB, (1, n)).astype("int32")
+    tgt[0, 0] = nmt.BOS
+    return src, onp.array([96.0], "float32"), tgt
+
+
+def forced_logits(net, src, valid, tgt) -> dict:
+    """The logits of every position of the target prefix ``tgt (1, n)``
+    through the contiguous-cache step, the paged step (the pages scattered
+    over a pool) and the full decoder forward on the kernels."""
+    n = tgt.shape[1]
+    dev = torch.device("cuda")
+    s, v, t = (torch.from_numpy(a).to(dev) for a in (src, valid, tgt))
+    params = nmt.incremental_decode_params(net)
+    NL, U = len(params["layers"]), net._units
+    with torch.no_grad(), autograd.predict_mode():
+        mem, mask = net.encode(s, v)
+        cross = nmt.cross_attention_kv(params, mem)
+        key_mask = mask[:, 0, 0, :] > 0
+        full = fully_connected_logits(net, net.decoder(
+            net.tgt_embed(t), mem, mask))[0]
+        ck = torch.zeros((NL, 1, n, U), device=dev)
+        cv = torch.zeros_like(ck)
+        bs = 16
+        nb = -(-n // bs)
+        pool = (4 * nb + 1, NL, bs, U)
+        pk, pv = torch.zeros(pool, device=dev), torch.zeros(pool, device=dev)
+        # pages scattered over the pool, none of them the scratch page 0
+        table = torch.from_numpy(onp.random.RandomState(7).permutation(
+            onp.arange(1, 4 * nb + 1))[:nb].astype("int32"))[None].to(dev)
+        cont, paged = [], []
+        for i in range(n):
+            pos = torch.tensor([i], dtype=torch.int32, device=dev)
+            tok = t[:, i]
+            lc, _, _ = nmt.nmt_step(params, ck, cv, cross, key_mask, tok, pos)
+            lp, _, _ = nmt.nmt_paged_step(params, bs, pk, pv, table, pos,
+                                          tok, cross, key_mask)
+            cont.append(lc[0])
+            paged.append(lp[0])
+    return {"full": full, "contiguous": torch.stack(cont),
+            "paged": torch.stack(paged)}
+
+
+def fully_connected_logits(net, out):
+    return fully_connected(out, net.proj_weight._tensor(),
+                           net.proj_bias._tensor(), flatten=False)
+
+
+def phase_nmt_decode(net) -> dict:
+    """The KV cache against the full re-decode at full width: a seeded
+    prefix of 32 tokens forced through both cache layouts and the full
+    decoder; then ``beam_search`` (K = 4) against ``beam_search_reference``
+    on 4 prompts."""
+    src, valid, tgt = _prefix(3, 32)
+    got = forced_logits(net, src, valid, tgt)
+    scale = got["full"].abs().max().item()
+    errs = {k: (got[k] - got["full"]).abs().max().item() / scale
+            for k in ("contiguous", "paged")}
+    print(f"nmt decode: 32 forced positions, max abs err / max |logit| "
+          f"({scale:.3f}): contiguous {errs['contiguous']:.2e}, paged "
+          f"{errs['paged']:.2e} (tol {DECODE_RTOL})", flush=True)
+    for k, e in errs.items():
+        check(e <= DECODE_RTOL, f"nmt decode: the {k} cache's logits "
+              f"differ from the full re-decode by {e} of the largest")
+    rng = onp.random.RandomState(4)
+    srcs = rng.randint(3, NMT_VOCAB, (4, NMT_SRC)).astype("int32")
+    valids = onp.array([128.0, 100.0, 64.0, 17.0], "float32")
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    seqs, scores = nmt.beam_search(net, srcs, valids, beam_size=4,
+                                   max_length=32)
+    torch.cuda.synchronize()
+    t_beam = time.perf_counter() - t0
+    beam_launches = cuda_ops.launch_counts()
+    t0 = time.perf_counter()
+    rseqs, rscores = nmt.beam_search_reference(net, srcs, valids,
+                                               beam_size=4, max_length=32)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    seqs, rseqs = seqs.cpu().numpy(), rseqs.cpu().numpy()
+    diverge = []
+    for b in range(seqs.shape[0]):
+        for k in range(seqs.shape[1]):
+            d = onp.nonzero(seqs[b, k] != rseqs[b, k])[0]
+            if len(d):
+                diverge.append({"row": b, "beam": k, "position": int(d[0])})
+    print(f"nmt beam search (K=4, max_length 32, 4 prompts): cached "
+          f"{t_beam:.3f} s, full re-decode {t_ref:.3f} s; scores "
+          f"{scores.cpu().numpy().round(4).tolist()} vs "
+          f"{rscores.cpu().numpy().round(4).tolist()}; first divergence "
+          f"{diverge[:4] if diverge else 'none'}", flush=True)
+    print(f"nmt beam search best sequences: {seqs[:, 0].tolist()}",
+          flush=True)
+    return {"rel_err": errs, "max_abs_logit": scale,
+            "beam_seconds": t_beam, "reference_seconds": t_ref,
+            "beam_launches": beam_launches,
+            "sequences_equal": not diverge, "divergences": diverge,
+            "scores": scores.cpu().numpy().tolist(),
+            "reference_scores": rscores.cpu().numpy().tolist()}
+
+
+def decode_drive(batcher, reqs, threads: int) -> dict:
+    """Submit every request (from ``threads`` client threads, or all from
+    this one when 0) and wait for every stream."""
+    n = len(reqs)
+    streams, errors = [None] * n, []
+    batcher.metrics.reset()
+
+    def client(idx, step):
+        try:
+            for i in range(idx, n, step):
+                streams[i] = batcher.submit(reqs[i][0],
+                                            max_new_tokens=reqs[i][1])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    if threads:
+        ts = [threading.Thread(target=client, args=(c, threads))
+              for c in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        check(not any(t.is_alive() for t in ts), "client threads hung")
+    else:
+        client(0, 1)
+    check(not errors, f"submit failed: {errors[:3]}")
+    outs = [s.result(timeout=600) for s in streams]
+    wall = time.perf_counter() - t0
+    snap = batcher.metrics.snapshot()
+    check(snap["requests"] == n and snap["failed"] == 0
+          and all(s.done() for s in streams),
+          f"decode served {snap['requests']}/{n}, failed {snap['failed']}")
+    return {"outs": outs, "wall_s": wall, "snapshot": snap,
+            "tokens": sum(len(o) for o in outs)}
+
+
+def step_ms(engine) -> dict:
+    """The decode step's device ms by CUDA events: the replayed graph
+    against the same step run eagerly, in turns."""
+    res = {"replay_ms": [], "eager_ms": []}
+    for _ in range(2):
+        res["eager_ms"].append(cuda_ms(engine._step))
+        res["replay_ms"].append(cuda_ms(engine._graph.replay))
+    return res
+
+
+def greedy_margin(net, src, valid, tokens, step: int) -> dict:
+    """Top-2 logit margins at ``step`` of the greedy path ``tokens``
+    forced through the paged step (the batcher's) and the contiguous one
+    (``beam_search``'s)."""
+    tgt = onp.array([[nmt.BOS] + list(tokens[:step])], "int32")
+    got = forced_logits(net, src, valid, tgt)
+    out = {}
+    for k in ("paged", "contiguous"):
+        top = torch.topk(got[k][step], 2).values
+        out[k] = (top[0] - top[1]).item()
+    return out
+
+
+def phase_nmt_serve(net, seed: int) -> dict:
+    """``DecodeBatcher`` over ``DecodeEngine`` at full width: 256 ragged
+    requests from 4 threads, then all at once; the warm contract, the
+    kernels' launches, the capacity, and greedy tokens against
+    ``beam_search(K=1)``."""
+    table = serve.BucketTable({"batch": (1, 1), "src": (8, NMT_SRC)})
+    t0 = time.perf_counter()
+    engine = serve.DecodeEngine(net, table, max_batch=32, block_size=16,
+                                max_target_len=128)
+    cap = engine.capacity
+    check(cap["max_sequences"] == engine.pool.admission_limit()
+          and engine.capacity_report() == cap,
+          f"capacity {cap} vs admission limit "
+          f"{engine.pool.admission_limit()}")
+    cuda_ops.reset_launches()
+    warm = engine.warmup()
+    warm_launches = cuda_ops.launch_counts()
+    print(f"nmt serve: engine built and warmed in "
+          f"{time.perf_counter() - t0:.1f} s: {warm}", flush=True)
+    # a budget that prices fewer seats than rows: the measured fixed bytes
+    # plus the pages of 16 sequences and a margin
+    per_seq = (serve.decode.block_bytes(NMT_LAYERS, NMT_CFG["units"], 16)
+               * cap["blocks_per_seq"])
+    budget = engine._fixed_bytes() + 16 * per_seq + per_seq // 2
+    priced = serve.DecodeEngine(net, table, max_batch=32, block_size=16,
+                                max_target_len=128, hbm_budget=budget)
+    pcap = priced.capacity
+    check(pcap["max_sequences"] == priced.pool.admission_limit()
+          and priced.capacity_report() == pcap
+          and 1 <= pcap["max_sequences"] <= 32,
+          f"priced capacity {pcap} vs admission limit "
+          f"{priced.pool.admission_limit()}")
+    print(f"nmt serve: capacity {cap}; with a budget of {budget} bytes "
+          f"{pcap}", flush=True)
+    del priced
+    rng = onp.random.RandomState(seed)
+    reqs = [(rng.randint(3, NMT_VOCAB, int(rng.randint(8, 128))).astype(
+        "int32"), int(rng.randint(16, 128))) for _ in range(256)]
+    batcher = serve.DecodeBatcher(engine).start()
+    cuda_ops.reset_launches()
+    try:
+        runs = {"threads": decode_drive(batcher, reqs, 4),
+                "burst": decode_drive(batcher, reqs, 0)}
+        launches = cuda_ops.launch_counts()
+        probe = [reqs[i][0] for i in range(4)]
+        greedy = [batcher.submit(p, max_new_tokens=31).result(timeout=600)
+                  for p in probe]
+    finally:
+        batcher.stop()
+    st = engine.stats()
+    check(st["decode"]["post_warmup_compiles"] == 0
+          and st["prefill"]["post_warmup_compiles"] == 0,
+          f"post-warmup captures or first runs: {st}")
+    check(launches[fa.KERNEL] > 0 and warm_launches[fa.KERNEL] > 0,
+          f"prefill launched no forward kernel: {launches}")
+    for name in (fa.KERNEL_BWD_DKV, fa.KERNEL_BWD_DQ):
+        check(launches[name] == 0 and warm_launches[name] == 0,
+              f"decode serving launched the backward kernel {name}")
+    flips = []
+    for p, got in zip(probe, greedy):
+        valid = onp.array([float(len(p))], "float32")
+        seqs, _ = nmt.beam_search(net, p[None], valid, beam_size=1,
+                                  max_length=32)
+        ref = [int(x) for x in seqs[0, 0].cpu().numpy()]
+        n = min(len(got), len(ref))
+        d = [i for i in range(n) if got[i] != ref[i]]
+        if d:
+            src = onp.zeros((1, NMT_SRC), "int32")
+            src[0, :len(p)] = p
+            margin = greedy_margin(net, src, valid, got, d[0])
+            flips.append({"step": d[0], "batcher": got[d[0]],
+                          "beam": ref[d[0]], "margin": margin})
+            check(max(margin.values()) <= FLIP_MARGIN,
+                  f"greedy tokens differ at step {d[0]} with top-2 margins "
+                  f"{margin} above {FLIP_MARGIN}")
+    timing = step_ms(engine)
+    card = card_line()
+    res = {"warmup": warm, "capacity": cap, "priced_capacity": pcap,
+           "stats": st, "launches": launches,
+           "warm_launches": warm_launches, "greedy_flips": flips,
+           "step": timing}
+    for name, r in runs.items():
+        m = r["snapshot"]
+        res[name] = {"wall_s": r["wall_s"], "tokens": r["tokens"],
+                     "tokens_per_s": r["tokens"] / r["wall_s"],
+                     "itl": m["itl"], "ttft": m["ttft"],
+                     "step_occupancy": m["step_occupancy"],
+                     "steps": m["steps"]}
+        print(f"nmt serve {name}: {len(reqs)} streams, {r['tokens']} tokens "
+              f"in {r['wall_s']:.3f} s = {res[name]['tokens_per_s']:.1f} "
+              f"tokens/s, ITL p50 {m['itl']['itl_ms_p50']} p99 "
+              f"{m['itl']['itl_ms_p99']} ms, TTFT p50 "
+              f"{m['ttft']['ttft_ms_p50']} ms, occupancy "
+              f"{m['step_occupancy']}, {m['steps']} steps on {card}",
+              flush=True)
+    print(f"nmt serve: decode step {min(timing['replay_ms']):.4f} ms "
+          f"replayed vs {min(timing['eager_ms']):.4f} ms eager (CUDA events,"
+          f" runs {timing}); pool {st['pool']}; launches {launches}; "
+          f"greedy flips {flips or 'none'}", flush=True)
+    return res
+
+
+def phase_mt_gate() -> dict:
+    """The JAX package's ``examples/machine_translation.py`` loop with its
+    tier-1 configuration (copy task, 300 steps, seq-len 5, vocab 12,
+    lr 0.002, batch 32; Adam through ``gluon.Trainer``, label smoothing
+    0.1) on the card, then ``beam_search`` (K = 4): exact match above 0.8,
+    as the reference asserts."""
+    t0 = time.perf_counter()
+    cuda_ops.reset_launches()
+    out = nmt.mt_example(ctx=mx.gpu(0))
+    launches = cuda_ops.launch_counts()
+    print(f"mt gate: 300 steps, loss {out['losses'][0]:.4f} -> "
+          f"{out['losses'][-1]:.4f}, beam-search exact match "
+          f"{out['accuracy']:.4f} (gate 0.8), launches {launches}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(out["accuracy"] > 0.8, f"MT exact match {out['accuracy']} <= 0.8")
+    check(all(n > 0 for n in launches.values()),
+          f"the MT loop did not run every kernel: {launches}")
+    return {"accuracy": out["accuracy"], "first_loss": out["losses"][0],
+            "last_loss": out["losses"][-1], "launches": launches}
+
+
+def phase_nmt(seed: int) -> dict:
+    res = {"train": phase_nmt_train()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = nmt_model(dropout=0.0, seed=1)
+    res["decode"] = phase_nmt_decode(net)
+    res["serve"] = phase_nmt_serve(net, seed)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["mt_gate"] = phase_mt_gate()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -1548,6 +2211,7 @@ def main(argv=None) -> int:
     grads = phase_train_grads()
     glu = phase_gluon(trained)
     vis = phase_vision()
+    nmt_res = phase_nmt(args.seed)
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -1572,7 +2236,15 @@ def main(argv=None) -> int:
                                  "gluon": glu["launches"][name],
                                  "gluon_hybrid":
                                      glu["launches_hybrid"][name],
-                                 "vision": vis["launches"][name]},
+                                 "vision": vis["launches"][name],
+                                 "nmt_train": nmt_res["train"]["launches"][
+                                     name],
+                                 "nmt_train_eager": nmt_res["train"][
+                                     "launches_eager"][name],
+                                 "nmt_serve": nmt_res["serve"]["launches"][
+                                     name],
+                                 "mt_gate": nmt_res["mt_gate"]["launches"][
+                                     name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -1580,14 +2252,19 @@ def main(argv=None) -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
             "shape": [rec[k] for k in ("B", "H", "Lq", "Lk", "D")],
-            "dtype": rec["dtype"]})
+            "dtype": rec["dtype"],
+            "nmt_cross": {k: rec["nmt_cross"][k] for k in (
+                "B", "H", "Lq", "Lk", "D", "dtype", "ms", "device_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")}})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernel_cases": results,
                        "serve": served, "profile": profiled,
                        "train": trained, "train_fused_gate": gate,
                        "train_gradients": grads,
-                       "gluon": glu, "vision": vis, "kernels": kernels},
+                       "gluon": glu, "vision": vis, "nmt": nmt_res,
+                       "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

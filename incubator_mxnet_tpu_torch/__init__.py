@@ -25,7 +25,11 @@ and vision: convolution, pooling and BatchNorm (cuDNN through torch, as the
 JAX package left them to XLA), ``gluon.nn``'s conv layers, the ResNet
 model zoo (``gluon.model_zoo.vision``), ``models.LeNet``, ``mx.io``'s
 ``NDArrayIter`` and ``mx.metric`` (``bench`` runs ``bench.py``'s
-``resnet`` workload too).
+``resnet`` workload too); and Transformer NMT with decode serving:
+``models.NMTModel`` trained on the kernels' causal and cross-attention
+paths, ``models.beam_search``, and ``serve.DecodeEngine`` (paged KV cache,
+the decode step as one CUDA graph) under ``serve.DecodeBatcher``
+(continuous batching).
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401

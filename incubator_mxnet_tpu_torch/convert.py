@@ -59,8 +59,9 @@ def params_from_jax(model: Block, arrays: Dict[str, onp.ndarray]) -> Block:
     """Copy ``arrays`` (JAX ``net.collect_params()`` names -> numpy values)
     into ``model``'s parameters, converting to each parameter's dtype and
     device. Refuses a name missing on either side and any shape mismatch.
-    A tied weight (BERT's decoder reuses ``word_embed_weight``) is one
-    parameter on both sides and maps once.
+    A tied weight (BERT's decoder reuses ``word_embed_weight``, the NMT
+    model's output projection ``tgt_embed_weight``) is one parameter on
+    both sides and maps once.
 
     Counterpart: the JAX package's ``Block.load_parameters``
     (``gluon/block.py:313``), keyed by prefix names instead of a

@@ -1,13 +1,17 @@
-"""Transformer building blocks of the BERT encoder, as Gluon blocks.
+"""Transformer building blocks of BERT and the NMT Transformer, as Gluon
+blocks.
 
-Counterpart: the JAX package's ``models/transformer.py`` (``:26-151``). One
-fused QKV projection feeds :func:`~..ops.attention.dot_product_attention`,
-which takes the flash kernel. Children and prefixes are the JAX ones
-(attribute ``attention`` with prefix ``attn_``, ``qkv_``, ``ffn1_`` ...),
-so structural and prefix parameter names match the JAX package's. The
-cell's LayerNorms are given their width, so a model initialises without a
-forward. Causal and cross-attention and ``StackedTransformerEncoder`` come
-with later slices.
+Counterpart: the JAX package's ``models/transformer.py`` (``:26-151``). A
+self-attention cell has one fused QKV projection, a cross-attention cell a
+query projection and one fused KV projection over the memory (the encdec
+layout); either feeds :func:`~..ops.attention.dot_product_attention`, which
+takes the flash kernel, with ``causal`` passed through (the band
+bottom-right aligned, as in the JAX package). Children and prefixes are the
+JAX ones (attribute ``attention`` with prefix ``attn_``, ``qkv_``,
+``query_``, ``kv_``, ``ffn1_`` ...), so structural and prefix parameter
+names match the JAX package's. The cell's LayerNorms are given their width,
+so a model initialises without a forward. ``StackedTransformerEncoder``
+comes with a later slice.
 """
 from __future__ import annotations
 
@@ -19,24 +23,41 @@ __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell"]
 
 
 class MultiHeadAttention(HybridBlock):
-    """Non-causal self-attention with one fused QKV projection (JAX
-    counterpart: ``models/transformer.py:26``; its causal and
-    cross-attention options come with the NMT slice). ``forward(query,
-    kv=None, mask=None)``; ``mask`` broadcastable to (B, H, L, L), 1 =
-    attend."""
+    """Multi-head attention (JAX counterpart: ``models/transformer.py:26``).
+
+    ``forward(query, kv=None, mask=None)``: ``kv=None`` (or ``query``)
+    is self-attention through one fused QKV projection; a cell built with
+    ``cross_attention=True`` attends from ``query`` over ``kv`` (query
+    projection ``query_`` and fused KV projection ``kv_``). Only the
+    projections a cell uses exist. ``mask`` broadcastable to (B, H, Lq,
+    Lk), 1 = attend; ``causal`` hides the keys after each query (the band
+    aligned to the last key when Lq != Lk)."""
 
     def __init__(self, units: int, num_heads: int, dropout: float = 0.0,
-                 dtype="float32", weight_initializer=None, **kwargs):
+                 causal: bool = False, dtype="float32",
+                 cross_attention: bool = False,
+                 weight_initializer=None, **kwargs):
         super().__init__(**kwargs)
         if units % num_heads:
             raise ValueError(f"units {units} not divisible by heads "
                              f"{num_heads}")
         self._units = units
         self._num_heads = num_heads
+        self._causal = causal
+        self._cross = cross_attention
         with self.name_scope():
-            self.qkv = Dense(3 * units, flatten=False, in_units=units,
-                             dtype=dtype, prefix="qkv_",
-                             weight_initializer=weight_initializer)
+            if cross_attention:
+                self.q_proj = Dense(units, flatten=False, in_units=units,
+                                    dtype=dtype, prefix="query_",
+                                    weight_initializer=weight_initializer)
+                self.kv_proj = Dense(2 * units, flatten=False,
+                                     in_units=units, dtype=dtype,
+                                     prefix="kv_",
+                                     weight_initializer=weight_initializer)
+            else:
+                self.qkv = Dense(3 * units, flatten=False, in_units=units,
+                                 dtype=dtype, prefix="qkv_",
+                                 weight_initializer=weight_initializer)
             self.proj = Dense(units, flatten=False, in_units=units,
                               dtype=dtype, prefix="proj_",
                               weight_initializer=weight_initializer)
@@ -51,12 +72,18 @@ class MultiHeadAttention(HybridBlock):
                 for p in x.chunk(n, dim=2)]
 
     def hybrid_forward(self, F, query, kv=None, mask=None):
-        if kv is not None and kv is not query:
-            raise ValueError("cross-attention is not ported yet")
-        B, L = query.shape[0], query.shape[1]
-        q, k, v = self._heads(self.qkv(query), 3)
-        out = dot_product_attention(q, k, v, mask)
-        out = out.transpose(1, 2).reshape(B, L, self._units)
+        B, Lq = query.shape[0], query.shape[1]
+        if not self._cross:
+            if kv is not None and kv is not query:
+                raise ValueError(
+                    "this MultiHeadAttention was built for self-attention; "
+                    "pass cross_attention=True to attend over a memory")
+            q, k, v = self._heads(self.qkv(query), 3)
+        else:
+            q, = self._heads(self.q_proj(query), 1)
+            k, v = self._heads(self.kv_proj(query if kv is None else kv), 2)
+        out = dot_product_attention(q, k, v, mask, causal=self._causal)
+        out = out.transpose(1, 2).reshape(B, Lq, self._units)
         out = self.proj(out)
         if self.dropout is not None:
             out = self.dropout(out)
@@ -64,15 +91,17 @@ class MultiHeadAttention(HybridBlock):
 
 
 class PositionwiseFFN(HybridBlock):
-    """dense(hidden) -> GELU -> dense(units) -> dropout (JAX counterpart:
-    ``models/transformer.py:104``)."""
+    """dense(hidden) -> ``activation`` -> dense(units) -> dropout (JAX
+    counterpart: ``models/transformer.py:104``)."""
 
     def __init__(self, units: int, hidden_size: int, dropout: float = 0.0,
-                 dtype="float32", weight_initializer=None, **kwargs):
+                 activation: str = "gelu", dtype="float32",
+                 weight_initializer=None, **kwargs):
         super().__init__(**kwargs)
         with self.name_scope():
             self.ffn1 = Dense(hidden_size, flatten=False, in_units=units,
-                              activation="gelu", dtype=dtype, prefix="ffn1_",
+                              activation=activation, dtype=dtype,
+                              prefix="ffn1_",
                               weight_initializer=weight_initializer)
             self.ffn2 = Dense(units, flatten=False, in_units=hidden_size,
                               dtype=dtype, prefix="ffn2_",

@@ -34,7 +34,7 @@ __all__ = ["FullyConnected", "LayerNorm", "Activation", "Embedding",
            "sigmoid", "tanh", "exp", "log", "sqrt", "square", "abs", "clip",
            "sum", "mean", "max", "min", "reshape", "transpose", "flatten",
            "expand_dims", "squeeze", "broadcast_to", "slice_axis", "concat",
-           "dot"] + list(_opt_ops.__all__)
+           "split", "broadcast_lesser", "dot"] + list(_opt_ops.__all__)
 
 
 def _has_nd(values) -> bool:
@@ -296,6 +296,30 @@ def slice_axis(data, axis, begin, end):
 @_nd_op
 def concat(*data, dim=1):
     return torch.cat(data, dim=dim)
+
+
+@_nd_op
+def split(data, num_outputs=1, axis=1, squeeze_axis=False):
+    """``num_outputs`` equal parts along ``axis``, a tuple (one part: the
+    array) (JAX counterpart: ``ops/tensor.py:481``)."""
+    n = data.shape[axis]
+    if n % num_outputs:
+        raise MXNetError(f"split: axis {axis} of length {n} does not "
+                         f"divide into {num_outputs} parts")
+    parts = torch.split(data, n // num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts) if num_outputs > 1 else parts[0]
+
+
+@_nd_op
+def broadcast_lesser(lhs, rhs):
+    """``lhs < rhs`` broadcast, as 0/1 in the operands' promoted dtype
+    (float32 for two booleans) (JAX counterpart: ``ops/tensor.py:174``)."""
+    dt = torch.promote_types(lhs.dtype, rhs.dtype)
+    if dt == torch.bool:
+        dt = torch.float32
+    return (lhs < rhs).to(dt)
 
 
 @_nd_op

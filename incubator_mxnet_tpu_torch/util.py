@@ -2,16 +2,17 @@
 card's peak rate for MFU.
 
 Counterpart: the JAX package's ``util.py`` (``ENV_VARS`` at ``util.py:105``,
-``getenv`` at ``util.py:519``, ``peak_tflops`` at ``util.py:60-81``). Names
-and defaults are the same; only the knobs the port reads are listed.
+``getenv`` at ``util.py:519``, ``parse_size`` and ``hbm_budget_bytes`` at
+``util.py:19-52``, ``peak_tflops`` at ``util.py:60-81``). Names and
+defaults are the same; only the knobs the port reads are listed.
 """
 from __future__ import annotations
 
 import os
 from typing import Dict, Optional
 
-__all__ = ["getenv", "ENV_VARS", "peak_tflops", "PEAK_TFLOPS_BY_KIND",
-           "DEFAULT_PEAK_TFLOPS"]
+__all__ = ["getenv", "ENV_VARS", "parse_size", "hbm_budget_bytes",
+           "peak_tflops", "PEAK_TFLOPS_BY_KIND", "DEFAULT_PEAK_TFLOPS"]
 
 #: name -> (default, description)
 ENV_VARS: Dict[str, tuple] = {
@@ -24,6 +25,27 @@ ENV_VARS: Dict[str, tuple] = {
     "MXTPU_SERVE_MAX_BATCH": ("0", "Cap on the coalesced serve batch size; "
                               "0 = the bucket table's largest batch "
                               "bucket."),
+    "MXTPU_DECODE_MAX_BATCH": ("8", "Decode batch rows: concurrent "
+                               "sequences one DecodeEngine steps per "
+                               "token boundary (the fixed shape of the "
+                               "captured decode step)."),
+    "MXTPU_DECODE_BLOCK_SIZE": ("16", "Tokens per paged-KV-cache page; "
+                                "pages are the allocation unit of the "
+                                "decode block pool."),
+    "MXTPU_DECODE_MAX_TOKENS": ("64", "Generation cap per sequence = "
+                                "pages-per-sequence x block size; must "
+                                "fit the model's position table."),
+    "MXTPU_DECODE_QUEUE_LIMIT": ("256", "Bounded decode request-queue "
+                                 "size; past it submit() sheds with "
+                                 "QueueFullError (backpressure)."),
+    "MXTPU_DECODE_MAX_REQUEUES": ("3", "Cache-pressure admissions bounce "
+                                  "back to the queue at most this many "
+                                  "times before the stream is shed with "
+                                  "CacheExhausted."),
+    "MXTPU_HBM_BUDGET": ("", "Per-card device-memory budget in bytes "
+                         "(K/M/G/T suffixes and float forms accepted); "
+                         "prices the decode engine's KV pool. Unset = no "
+                         "memory pricing (capacity = max batch)."),
     "MXTPU_ATTN_IMPL": ("", "Overrides dot_product_attention's impl "
                         "(auto|xla|flash); unset = the caller's impl."),
     "MXTPU_FLASH_BQ": ("", "Query rows per flash-attention tile, 1..64; "
@@ -64,6 +86,37 @@ def getenv(name: str, default: Optional[str] = None) -> Optional[str]:
     if default is None and name in ENV_VARS:
         default = ENV_VARS[name][0]
     return os.environ.get(name, default)
+
+
+def parse_size(s: str) -> int:
+    """Byte-size string -> int bytes: plain and float forms (``"123"``,
+    ``"16e9"``) and binary suffixes (``"512M"``, ``"16G"``, ``"1.5T"``,
+    with an optional trailing ``B``/``iB``) (JAX counterpart:
+    ``util.py:19``)."""
+    mult = 1
+    low = str(s).strip().lower()
+    if low.endswith("ib"):
+        low = low[:-2]
+    elif low.endswith("b"):
+        low = low[:-1]
+    if low and low[-1] in "kmgt":
+        mult = {"k": 1 << 10, "m": 1 << 20,
+                "g": 1 << 30, "t": 1 << 40}[low[-1]]
+        low = low[:-1]
+    try:
+        if not low:               # suffix-only input ("B", "iB", "G", " ")
+            raise ValueError(low)
+        return int(float(low) * mult)
+    except ValueError:
+        raise ValueError(f"cannot parse byte size {s!r} (want e.g. "
+                         "'2000000000', '16e9', '512M', '16G')") from None
+
+
+def hbm_budget_bytes() -> Optional[int]:
+    """``MXTPU_HBM_BUDGET`` parsed by :func:`parse_size`, or None when it
+    is unset (JAX counterpart: ``util.py:45``)."""
+    raw = getenv("MXTPU_HBM_BUDGET")
+    return parse_size(raw) if raw else None
 
 
 def peak_tflops() -> float:

@@ -11,10 +11,12 @@ themselves. On the card, from the root of a checkout::
 with one Gluon step of a small BERT on the card, then the CUDA graphs: the
 fused ``ShardedTrainer`` step against the eager one, dropout under replay,
 one graph per batch shape, launch counts with replays, and a hybridized
-block's forward and backward against the eager ones; and the vision path:
+block's forward and backward against the eager ones; the vision path:
 float32 convolutions without TF32, a hybridized BatchNorm net against the
 eager one (running statistics moved once per call), and the fused step
-over a BatchNorm net against the eager step.
+over a BatchNorm net against the eager step; and the NMT path: the three
+kernels at masked cross-length shapes, and the decode engine's captured
+step against the same step run eagerly.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -611,3 +613,80 @@ def test_fused_step_with_batchnorm_matches_eager_on_card(deterministic):
                                    atol=1e-6, rtol=1e-5)
     rm = [p for k, p in pa.items() if k.endswith("running_mean")][0]
     assert rm.data()._data.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(112, 128), (128, 96)])
+def test_kernels_masked_cross_length_on_card(lq, lk):
+    """The three kernels at the NMT training's cross-attention shapes
+    (target 112 over source 128, 128 over 96; 16 heads of 64) under a
+    ragged key mask with a row that sees no key, against their plain
+    versions."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for dtype, (atol, rtol) in TOL.items():
+        q, do = (torch.randn(4, 16, lq, 64, device="cuda",
+                             generator=g).to(dtype) for _ in range(2))
+        k, v = (torch.randn(4, 16, lk, 64, device="cuda",
+                            generator=g).to(dtype) for _ in range(2))
+        km = _mask([0, 1, lk // 2, lk], lk)
+        o, lse = fa._fwd(q, k, v, km, False, 0.125)
+        ro, rlse = fa.flash_attention_reference(q, k, v, km, False, 0.125)
+        torch.testing.assert_close(o.float(), ro.float(), atol=atol,
+                                   rtol=rtol)
+        seen = rlse > -1e29
+        torch.testing.assert_close(lse[seen], rlse[seen], atol=1e-4,
+                                   rtol=0)
+        args = (q, k, v, km, False, 0.125, None, rlse, do, fa._delta(ro, do))
+        got = fa._bwd_dkv_cuda(*args) + (fa._bwd_dq_cuda(*args),)
+        want = fa.flash_attention_bwd_dkv_reference(*args) + (
+            fa.flash_attention_bwd_dq_reference(*args),)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                       rtol=rtol)
+        assert bool((got[2][0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_decode_step_graph_replay_matches_eager_on_card():
+    """``serve.DecodeEngine`` on the card: ``warmup()`` captures the decode
+    step once; a replayed step's logits equal the same step run eagerly on
+    the same inputs, and serving ragged requests captures nothing more."""
+    _card()
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import models, serve
+    net = models.NMTModel(50, 50, units=64, hidden_size=128, num_layers=2,
+                          num_heads=4, dropout=0.0, max_length=64)
+    net.initialize(mx.init.Xavier(generator=torch.Generator().manual_seed(0)),
+                   ctx=mx.gpu(0))
+    engine = serve.DecodeEngine(
+        net, serve.BucketTable({"batch": (1, 1), "src": (4, 16)}),
+        max_batch=4, block_size=4, max_target_len=16, hbm_budget=None)
+    engine.warmup()
+    assert engine._graph is not None and engine.decode_stats["compiles"] == 1
+    rng = onp.random.RandomState(0)
+    for row in range(2):
+        table = engine.pool.alloc_sequence(f"s{row}")
+        cross, lp = engine.prefill_request(rng.randint(3, 50, 7 + row))
+        engine.bind_row(row, cross, lp)
+        engine.set_row_table(row, table)
+    pos = onp.zeros(4, "int32")
+    tok = onp.full(4, 1, "int32")
+    replayed = torch.from_numpy(engine.run_step(pos, tok))
+    eager = engine._step().float().cpu()
+    torch.testing.assert_close(replayed, eager, atol=1e-6, rtol=1e-6)
+    for row in range(2):
+        engine.pool.free_sequence(f"s{row}")
+        engine.clear_row(row)
+    batcher = serve.DecodeBatcher(engine).start()
+    try:
+        streams = [batcher.submit(rng.randint(3, 50, int(rng.randint(2, 16))),
+                                  max_new_tokens=int(rng.randint(1, 15)))
+                   for _ in range(6)]
+        assert all(len(s.result(timeout=120)) >= 1 for s in streams)
+    finally:
+        batcher.stop()
+    st = engine.stats()
+    assert st["decode"]["post_warmup_compiles"] == 0
+    assert st["prefill"]["post_warmup_compiles"] == 0
