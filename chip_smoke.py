@@ -122,7 +122,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
 14. mt gate: the JAX package's ``examples/machine_translation.py`` loop
     (copy task, 300 steps, vocabulary 12, length 5, batch 32, Adam
     through ``gluon.Trainer``, label smoothing 0.1) on the card, then
-    ``beam_search`` (K = 4): exact match above 0.8.
+    ``beam_search`` (K = 4): exact match above 0.8;
+15. detection: (a) the detection ops on the card against the same port
+    code on the CPU at full-width shapes: ``multibox_target`` over
+    SSD-300's 29,596 anchors with tied negative losses, ``multi_proposal``
+    at the frcnn bench's shape (7,056 anchors, top 1000, 128 after NMS,
+    tied scores), ``box_nms`` with ``topk=400`` and ``roi_align`` at
+    1,056 rois x 128 channels x 7x7 (and its gradient): integer outputs
+    equal, floats within stated tolerances; (b) the port bench's ``ssd``
+    (batch 16, 300x300) and ``frcnn`` (batch 8, 224x224, 128 rois)
+    workloads through the fused and the eager step, timed in turns: imgs/s,
+    step ms, first and capture steps, peak memory, one profiled step of
+    each split into convolutions, the detection ops' sorts, scatters and
+    gathers, elementwise kernels and the optimizer, and its idle share;
+    ``SSD.detect`` and ``FasterRCNN.detect`` at those sizes, timed; (c)
+    both models' fused step against the eager one at batch 2, 64x64,
+    bitwise under deterministic algorithms; (d) one step's gradients on
+    the card against the CPU's within 1e-3; (e) the JAX package's two
+    detection examples on the card (SSD 150 steps above 0.8, Faster-RCNN
+    400 steps above 0.25); the attention kernels launch on none of it.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -138,6 +156,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as onp
 import torch
@@ -2168,6 +2187,405 @@ def phase_nmt(seed: int) -> dict:
     return res
 
 
+# -- detection: SSD and Faster-RCNN ------------------------------------------
+#: device-time groups of a detection step, by kernel name (the first match
+#: wins): cuDNN's convolutions, the detection ops' sorts, scatters, gathers
+#: and argmax reductions (cub radix sorts, ``scatter_gather``, ``index``
+#: kernels), the optimizer's multi-tensor kernels, elementwise kernels, the
+#: other reductions, pooling and GEMMs
+DET_GROUPS = (
+    ("conv", VISION_GROUPS[0][1]),
+    ("sort_scatter_gather", ("sort", "radix", "scatter", "gather", "index",
+                             "argmax", "argmin")),
+    ("optimizer", ("multi_tensor",)),
+    ("elementwise", ("elementwise",)),
+    ("reduce", ("reduce",)),
+    ("pooling", ("pool",)),
+    ("gemm", ("gemm",)),
+)
+# the detection ops on the card against the same port code on the CPU: the
+# float outputs come from the same IEEE operations, but exp/log may differ
+# in the last ulp between the two libraries; integer and boolean outputs
+# (kept rows, matches, labels, the picked scores) must be equal
+DET_OP_RTOL = 1e-5
+DET_OP_ATOL = {"loc_target": 1e-5, "rois": 1e-3, "roi_align": 1e-5}
+# one step's gradients of a small SSD / Faster-RCNN on the card against the
+# CPU's: per parameter, max abs err <= DET_GRAD_RTOL * max |grad on CPU|
+DET_GRAD_RTOL = 1e-3
+#: the example gates' thresholds (``tests/test_examples.py:72-87``)
+SSD_GATE, FRCNN_GATE = 0.8, 0.25
+#: the small size of the fused-vs-eager gate and the gradient check
+DET_SMALL = {"MXTPU_BENCH_BATCH": "2", "MXTPU_BENCH_IMG": "64"}
+
+
+def _on(device, *arrays):
+    return [torch.as_tensor(a).to(device) for a in arrays]
+
+
+def _same_ints(name, card, cpu) -> int:
+    """Check ``card == cpu`` exactly; returns the count of elements."""
+    card = card.cpu()
+    diff = (card != cpu).sum().item()
+    check(diff == 0, f"{name}: {diff} of {cpu.numel()} elements differ "
+          "between the card and the CPU")
+    return cpu.numel()
+
+
+def _close(name, card, cpu, atol) -> float:
+    err = (card.cpu() - cpu).abs().max().item() if cpu.numel() else 0.0
+    tol = atol + DET_OP_RTOL * cpu.abs().max().item()
+    check(err <= tol, f"{name}: card vs CPU max abs err {err} > {tol}")
+    return err
+
+
+def det_ops_card_vs_cpu() -> dict:
+    """(a) The detection ops at full-width shapes, the card against the CPU
+    on the same inputs: ``multibox_target`` over SSD-300's 29,596 anchors
+    (16 images, up to 4 boxes, predictions rounded so that many negative
+    losses tie), ``multi_proposal`` at the frcnn bench's shape (8 images,
+    7,056 anchors, top 1000, 128 after NMS; half of each map uniform, so
+    scores tie), ``box_nms`` with ``topk=400`` over 16 x 29,596 rows with
+    tied scores, and ``roi_align`` at 1,056 rois x 128 channels x 7x7
+    (forward and the gradients for one seeded cotangent)."""
+    from incubator_mxnet_tpu_torch.ops import detection as det
+    rng = onp.random.RandomState(3)
+    res = {}
+    t0 = time.perf_counter()
+    ssd = models.SSD(bench.DETECTION_CLASSES)
+    anchors = torch.cat([det.multibox_prior(
+        torch.zeros(1, 1, h, h), sizes=s, ratios=r)
+        for h, s, r in zip((75, 37, 18, 9), ssd._sizes, ssd._ratios)], 1)
+    N = anchors.shape[1]
+    check(N == 29596, f"SSD-300 has {N} anchors, not 29,596")
+    B, M, C1 = 16, 4, bench.DETECTION_CLASSES + 1
+    label = onp.full((B, M, 5), -1.0, "float32")
+    for b in range(B):
+        for m in range(rng.randint(1, M + 1)):
+            x0, y0 = rng.uniform(0, 0.6, 2)
+            w, h = rng.uniform(0.1, 0.4, 2)
+            label[b, m] = [rng.randint(0, C1 - 1), x0, y0, x0 + w, y0 + h]
+    pred = onp.round(rng.randn(B, C1, N), 1).astype("float32")
+    pred[:, :, :N // 4] = 0.0                   # equal negative losses
+    args = [anchors.numpy(), label, pred]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        outs[dev] = det.multibox_target(*_on(dev, *args),
+                                        negative_mining_ratio=3.0)
+    res["multibox_target"] = {
+        "anchors": N, "batch": B,
+        "loc_target_max_abs_err": _close("loc_target", outs["cuda"][0],
+                                         outs["cpu"][0],
+                                         DET_OP_ATOL["loc_target"]),
+        "loc_mask_equal": _same_ints("loc_mask", outs["cuda"][1],
+                                     outs["cpu"][1]),
+        "cls_target_equal": _same_ints("cls_target", outs["cuda"][2],
+                                       outs["cpu"][2]),
+        "positives": int((outs["cpu"][2] > 0).sum()),
+        "mined_negatives": int((outs["cpu"][2] == 0).sum())}
+    # multi_proposal at the frcnn bench's shape
+    B, A, H = 8, 9, 28
+    logits = rng.randn(B, 2, A, H, H).astype("float32")
+    logits[:, :, :, H // 2:] = 0.25                         # uniform half
+    prob = onp.exp(logits) / onp.exp(logits).sum(1, keepdims=True)
+    bbox = (0.1 * rng.randn(B, 4 * A, H, H)).astype("float32")
+    bbox[:, :, H // 2:] = 0.0
+    info = onp.tile([224, 224, 1.0], (B, 1)).astype("float32")
+    kw = dict(rpn_pre_nms_top_n=1000, rpn_post_nms_top_n=bench.FRCNN_ROIS,
+              threshold=0.7, rpn_min_size=4, scales=(4, 8, 16),
+              ratios=(0.5, 1, 2), feature_stride=8, output_score=True)
+    for dev in ("cpu", "cuda"):
+        outs[dev] = det.multi_proposal(*_on(dev, prob.reshape(B, -1, H, H),
+                                            bbox, info), **kw)
+    res["multi_proposal"] = {
+        "anchors": H * H * A, "batch": B,
+        "rois_max_abs_err": _close("rois", outs["cuda"][0], outs["cpu"][0],
+                                   DET_OP_ATOL["rois"]),
+        # the picked scores are gathers of the same input: equal iff the
+        # same anchors were picked in the same order
+        "scores_equal": _same_ints("proposal scores (roi order)",
+                                   outs["cuda"][1], outs["cpu"][1]),
+        "batch_index_equal": _same_ints("roi batch index",
+                                        outs["cuda"][0][:, 0],
+                                        outs["cpu"][0][:, 0])}
+    # box_nms with topk=400 over SSD-300's anchors
+    B = 16
+    data = onp.concatenate([
+        rng.randint(0, C1 - 1, (B, N, 1)).astype("float32"),
+        onp.round(rng.rand(B, N, 1), 2).astype("float32"),
+        onp.sort(rng.rand(B, N, 2, 2), axis=2).transpose(
+            0, 1, 3, 2).reshape(B, N, 4).astype("float32")], -1)
+    for dev in ("cpu", "cuda"):
+        outs[dev] = det.box_nms(*_on(dev, data), overlap_thresh=0.45,
+                                valid_thresh=0.01, topk=400, id_index=0)
+    res["box_nms"] = {"rows": N, "batch": B, "topk": 400,
+                      "equal": _same_ints("box_nms", outs["cuda"],
+                                          outs["cpu"]),
+                      "kept": int((outs["cpu"][..., 0] >= 0).sum())}
+    # roi_align at the frcnn head's shape, forward and backward
+    R = 8 * (bench.FRCNN_ROIS + 4)
+    feat = rng.randn(8, 128, 28, 28).astype("float32")
+    rois = onp.zeros((R, 5), "float32")
+    rois[:, 0] = onp.repeat(onp.arange(8), R // 8)
+    xy = rng.uniform(0, 200, (R, 2))
+    rois[:, 1:3] = xy
+    rois[:, 3:5] = xy + rng.uniform(4, 120, (R, 2))
+    cot = rng.randn(R, 128, 7, 7).astype("float32")
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        f, r, c = _on(dev, feat, rois, cot)
+        f.requires_grad_(True)
+        out = det.roi_align(f, r, pooled_size=(7, 7), spatial_scale=1 / 8,
+                            sample_ratio=2)
+        grads[dev] = torch.autograd.grad(out, f, c)[0]
+        outs[dev] = out.detach()
+    fwd = _close("roi_align", outs["cuda"], outs["cpu"],
+                 DET_OP_ATOL["roi_align"])
+    gerr = (grads["cuda"].cpu() - grads["cpu"]).abs().max().item() \
+        / grads["cpu"].abs().max().item()
+    check(gerr <= DET_GRAD_RTOL, f"roi_align gradient: card vs CPU {gerr}")
+    f, r = _on("cuda", feat, rois)
+    f.requires_grad_(True)
+    c = torch.as_tensor(cot).cuda()
+
+    def fwd_bwd():
+        out = det.roi_align(f, r, pooled_size=(7, 7), spatial_scale=1 / 8)
+        return torch.autograd.grad(out, f, c)
+
+    res["roi_align"] = {"rois": R, "channels": 128, "pooled": [7, 7],
+                        "max_abs_err": fwd, "grad_rel_err": gerr,
+                        "fwd_bwd_ms": cuda_ms(fwd_bwd)}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"detection ops, card vs CPU ({time.perf_counter() - t0:.1f} s):"
+          f" multibox_target {res['multibox_target']}; multi_proposal "
+          f"{res['multi_proposal']}; box_nms {res['box_nms']}; roi_align "
+          f"{res['roi_align']}", flush=True)
+    return res
+
+
+def det_run(trainer, batch, steps: int, tag: str) -> dict:
+    """The port bench's protocol on a detection trainer: losses, the first
+    and warm steps apart, peak memory, and the flash kernels' launches
+    (none: no attention on this path)."""
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    timings = {}
+    dt, losses = bench.measure(trainer, batch, steps, timings)
+    launches = cuda_ops.launch_counts()
+    losses = [float(x) for x in losses]
+    check(all(onp.isfinite(losses)), f"{tag}: non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
+    check(not any(launches.values()), f"{tag}: the detection path launched "
+          f"attention kernels: {launches}")
+    return {"dt": dt, "losses": losses, "launches": launches,
+            "first_step_ms": timings["first_step_s"] * 1e3,
+            "warm_step_ms": timings["warm_step_s"] * 1e3,
+            "captures": trainer.captures,
+            "last_step_graphs": trainer.last_step_graphs,
+            "last_path": trainer.last_path,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def det_detect(workload, net, batch) -> dict:
+    """``SSD.detect`` / ``FasterRCNN.detect`` at the bench's size, timed on
+    the host clock between synchronizes (a warm call first): shape, valid
+    rows and ids in range."""
+    args = [nd.array(a, ctx=mx.gpu(0))
+            for a in batch[:1 if workload == "ssd" else 2]]
+
+    def call():
+        return net.detect(*args)
+
+    dets = call()
+    ms, _ = synced_ms(call, 3)
+    d = dets.asnumpy()
+    valid = d[..., 0] >= 0
+    check(onp.isfinite(d).all(), f"{workload} detect: non-finite rows")
+    check(((d[..., 0] < bench.DETECTION_CLASSES) & (d[..., 0] >= -1)).all(),
+          f"{workload} detect: class ids out of range")
+    return {"ms": ms, "shape": list(d.shape),
+            "valid_rows": int(valid.sum())}
+
+
+def det_bench(workload: str) -> dict:
+    """(b) The port bench's ``ssd`` or ``frcnn`` workload at full size
+    through the fused and the eager step, timed in turns: imgs/s, step ms,
+    MFU, the first and warm (capture) steps apart, peak memory, one
+    profiled step of each by group and its idle share; then ``detect`` at
+    the same size."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    build = {"ssd": bench.build_ssd, "frcnn": bench.build_frcnn}[workload]
+    t0 = time.perf_counter()
+    fused, batch, info = build("cuda")
+    eager, _, _ = build("cuda", fused=False)
+    check(fused.fused and not eager.fused, f"the {workload} bench's trainer "
+          "is not fused by default")
+    steps = int(getenv("MXTPU_BENCH_STEPS"))
+    runs = {"fused": det_run(fused, batch, steps, f"{workload} fused"),
+            "eager": det_run(eager, batch, steps, f"{workload} eager")}
+    check(runs["fused"]["captures"] == 1
+          and runs["fused"]["last_step_graphs"] == 1
+          and runs["fused"]["last_path"] == "fused"
+          and runs["eager"]["last_path"] == "eager",
+          f"{workload} trainers: {runs['fused']['captures']} captures, "
+          f"{runs['fused']['last_step_graphs']} graphs in the last step")
+    record = bench.detection_result(info, runs["fused"]["dt"],
+                                    runs["fused"]["losses"],
+                                    runs["fused"]["first_step_ms"] / 1e3)
+    print(json.dumps(record), flush=True)
+    placed = fused.place(*batch)
+    for name, tr in (("eager", eager), ("fused", fused)):   # in turns
+        runs[name]["step_ms_runs"] = [runs[name]["dt"] * 1e3, synced_ms(
+            lambda: tr.step(*placed), steps)[0]]
+    card = card_line()
+    for name, r in runs.items():
+        ms = min(r["step_ms_runs"])
+        rec = bench.detection_result(info, ms / 1e3, r["losses"])
+        r.update(step_ms=ms, imgs_per_s=info["batch"] / (ms / 1e3),
+                 mfu=rec["extra"]["mfu"])
+        print(f"{workload} {name}: batch {info['batch']} at {info['img']}: "
+              f"{ms:.3f} ms per step = {r['imgs_per_s']:.1f} imgs/s, MFU "
+              f"{r['mfu']:.4f} (runs "
+              f"{[round(t, 3) for t in r['step_ms_runs']]}); first step "
+              f"{r['first_step_ms']:.1f} ms, warm step "
+              f"{r['warm_step_ms']:.1f} ms"
+              f"{' (the capture)' if name == 'fused' else ''}; losses "
+              f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; peak memory "
+              f"{r['peak_memory_gib']:.2f} GiB on {card}", flush=True)
+    res = {"record": record, "runs": runs, "batch": info["batch"],
+           "img": info["img"], "gmacs": info["gmacs"],
+           "parameters": sum(p.numel() for p in info["net"].parameters()),
+           "launches": runs["fused"]["launches"],
+           "launches_eager": runs["eager"]["launches"]}
+    for name, tr in (("fused", fused), ("eager", eager)):
+        res[f"profile_{name}"] = grouped_profiled_step(
+            tr, placed, f"{workload} {name}", DET_GROUPS)
+    res["detect"] = det_detect(workload, info["net"], batch)
+    print(f"{workload} detect: {res['detect']} on {card}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del fused, eager, placed, info
+    return res
+
+
+def det_fused_gate(steps: int = 3) -> dict:
+    """(c) The fused detection step against the eager one under
+    ``torch.use_deterministic_algorithms``, both models at a small size
+    (batch 2, 64x64; the bench's configuration otherwise): losses and
+    weights after ``steps`` steps bitwise equal."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {}
+    for workload, build in (("ssd", bench.build_ssd),
+                            ("frcnn", bench.build_frcnn)):
+        torch.use_deterministic_algorithms(True)
+        try:
+            with mock.patch.dict(os.environ, DET_SMALL):
+                pairs = [build("cuda", fused=f) for f in (None, False)]
+            losses = [[float(tr.step(*batch)) for _ in range(steps)]
+                      for tr, batch, _ in pairs]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        nets = [p[2]["net"] for p in pairs]
+        check(pairs[0][0].last_path == "fused"
+              and pairs[0][0].last_step_graphs == 1
+              and pairs[1][0].last_path == "eager",
+              f"the {workload} gate's trainers did not take the fused and "
+              "the eager step")
+        weights, wname = _worst(nets, lambda p: p._var)
+        same = losses[0] == losses[1] and weights == 0.0
+        print(f"{workload} gate: batch 2 at 64, {steps} steps, fused vs "
+              f"eager under deterministic algorithms: losses {losses[0]} "
+              f"vs {losses[1]}; weights worst rel err {weights:.2e} "
+              f"({wname}); bitwise {same}", flush=True)
+        check(same, f"fused and eager {workload} steps differ: losses "
+              f"{losses}, weights {weights} at {wname}")
+        res[workload] = {"losses_fused": losses[0],
+                         "losses_eager": losses[1], "bitwise": same}
+    return res
+
+
+def det_grads_vs_cpu() -> dict:
+    """(d) One step's gradients of both models at the small size on the
+    card, the fused and the eager step, against the same step on the CPU
+    (the same weights and batch)."""
+    gc.collect()
+    res = {}
+    for workload, build in (("ssd", bench.build_ssd),
+                            ("frcnn", bench.build_frcnn)):
+        runs = {}
+        with mock.patch.dict(os.environ, DET_SMALL):
+            for name, device, fused in (("fused", "cuda", None),
+                                        ("eager", "cuda", False),
+                                        ("cpu", "cpu", None)):
+                tr, batch, info = build(device, fused=fused)
+                runs[name] = (info["net"], float(tr.step(*batch)))
+        cpu_net, cpu_loss = runs.pop("cpu")
+        res[workload] = {"loss_cpu": cpu_loss}
+        for name, (net, loss) in runs.items():
+            rows = _rel_errs([net, cpu_net], lambda p: p._var.grad)
+            worst, wname = rows[0]
+            print(f"{workload} gradients, {name} step (batch 2 at 64): "
+                  f"loss {loss:.6f} vs CPU {cpu_loss:.6f}; max abs err / "
+                  f"max |grad|, worst three: "
+                  + ", ".join(f"{r:.2e} ({k})" for r, k in rows[:3])
+                  + f" (tol {DET_GRAD_RTOL})", flush=True)
+            check(worst <= DET_GRAD_RTOL, f"{workload} gradients of the "
+                  f"{name} step differ from the CPU's: {worst} at {wname}")
+            check(abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss),
+                  f"{workload} losses differ: card {loss}, CPU {cpu_loss}")
+            res[workload][name] = {"loss_card": loss,
+                                   "grads_worst_rel_err": worst,
+                                   "grads_worst_param": wname}
+    return res
+
+
+def det_example_gates() -> dict:
+    """(e) The JAX package's two detection examples on the card, with the
+    thresholds of its tier-1 gates: ``ssd_example(steps=150)`` (hybridized
+    SSD, ``gluon.Trainer``) above 0.8 and ``frcnn_example(steps=400)``
+    above 0.25, each a top-detection hit rate on held-out images."""
+    from incubator_mxnet_tpu_torch.models import rcnn, ssd
+    res = {}
+    for name, fn, steps, gate in (("ssd_example", ssd.ssd_example, 150,
+                                   SSD_GATE),
+                                  ("frcnn_example", rcnn.frcnn_example, 400,
+                                   FRCNN_GATE)):
+        gc.collect()
+        t0 = time.perf_counter()
+        cuda_ops.reset_launches()
+        out = fn(steps=steps, ctx=mx.gpu(0))
+        launches = cuda_ops.launch_counts()
+        secs = time.perf_counter() - t0
+        print(f"{name}: {steps} steps, loss {out['losses'][0]:.4f} -> "
+              f"{out['losses'][-1]:.4f}, accuracy {out['accuracy']:.4f} "
+              f"(gate {gate}), {secs:.1f} s", flush=True)
+        check(out["accuracy"] > gate,
+              f"{name} accuracy {out['accuracy']} <= {gate}")
+        check(not any(launches.values()), f"{name} launched attention "
+              f"kernels: {launches}")
+        res[name] = {"accuracy": out["accuracy"], "steps": steps,
+                     "first_loss": out["losses"][0],
+                     "last_loss": out["losses"][-1], "seconds": secs,
+                     "launches": launches}
+    return res
+
+
+def phase_detection() -> dict:
+    """The detection path: (a) the ops card vs CPU, (b) the ``ssd`` and
+    ``frcnn`` bench workloads with ``detect``, (c) fused vs eager, (d)
+    card vs CPU gradients, (e) the two example gates."""
+    t0 = time.perf_counter()
+    res = {"ops": det_ops_card_vs_cpu()}
+    for workload in ("ssd", "frcnn"):
+        res[workload] = det_bench(workload)
+    res["fused_gate"] = det_fused_gate()
+    res["grads_vs_cpu"] = det_grads_vs_cpu()
+    res.update(det_example_gates())
+    res["seconds"] = time.perf_counter() - t0
+    print(f"detection: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -2212,6 +2630,7 @@ def main(argv=None) -> int:
     glu = phase_gluon(trained)
     vis = phase_vision()
     nmt_res = phase_nmt(args.seed)
+    det_res = phase_detection()
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -2244,7 +2663,13 @@ def main(argv=None) -> int:
                                  "nmt_serve": nmt_res["serve"]["launches"][
                                      name],
                                  "mt_gate": nmt_res["mt_gate"]["launches"][
-                                     name]},
+                                     name],
+                                 "ssd": det_res["ssd"]["launches"][name],
+                                 "frcnn": det_res["frcnn"]["launches"][name],
+                                 "ssd_example": det_res["ssd_example"][
+                                     "launches"][name],
+                                 "frcnn_example": det_res["frcnn_example"][
+                                     "launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -2264,7 +2689,7 @@ def main(argv=None) -> int:
                        "train": trained, "train_fused_gate": gate,
                        "train_gradients": grads,
                        "gluon": glu, "vision": vis, "nmt": nmt_res,
-                       "kernels": kernels},
+                       "detection": det_res, "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

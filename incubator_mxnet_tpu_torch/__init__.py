@@ -29,7 +29,11 @@ model zoo (``gluon.model_zoo.vision``), ``models.LeNet``, ``mx.io``'s
 ``models.NMTModel`` trained on the kernels' causal and cross-attention
 paths, ``models.beam_search``, and ``serve.DecodeEngine`` (paged KV cache,
 the decode step as one CUDA graph) under ``serve.DecodeBatcher``
-(continuous batching).
+(continuous batching); and detection: the ops of ``ops/detection.py``
+(``mx.nd`` and ``contrib.nd``), ``models.SSD`` and ``models.FasterRCNN``
+with their losses and example loops (``bench`` runs ``bench.py``'s
+``ssd`` and ``frcnn`` workloads), and ``mx.image``'s augmenters and
+``ImageDetIter``.
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
@@ -37,7 +41,7 @@ from .context import (  # noqa: F401
 )
 from . import (  # noqa: F401
     autograd, random, ndarray, initializer, gluon, ops, nn, models, serve,
-    convert, optimizer, parallel, lr_scheduler, metric, io,
+    convert, optimizer, parallel, lr_scheduler, metric, io, contrib, image,
 )
 
 nd = ndarray
@@ -47,4 +51,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "resolve_device", "autograd", "random", "ndarray",
            "nd", "initializer", "init", "gluon", "ops", "nn", "models",
            "serve", "convert", "optimizer", "parallel", "lr_scheduler",
-           "metric", "io"]
+           "metric", "io", "contrib", "image"]

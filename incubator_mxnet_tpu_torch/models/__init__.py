@@ -1,5 +1,5 @@
 """Model zoo of the port (JAX counterpart: ``models/__init__.py``)."""
-from . import bert, lenet, nmt, transformer  # noqa: F401
+from . import bert, lenet, nmt, rcnn, ssd, transformer  # noqa: F401
 from .bert import (  # noqa: F401
     BERT_CONFIGS, BERTEncoder, BERTModel, bert_pretrain_loss, get_bert,
 )
@@ -8,6 +8,8 @@ from .nmt import (  # noqa: F401
     NMTModel, TransformerDecoder, TransformerEncoder, beam_search,
     beam_search_reference,
 )
+from .rcnn import FasterRCNN, FasterRCNNTargetLoss, RPN  # noqa: F401
+from .ssd import SSD, SSDTargetLoss, ssd_300  # noqa: F401
 from .transformer import (  # noqa: F401
     MultiHeadAttention, PositionwiseFFN, TransformerEncoderCell,
 )

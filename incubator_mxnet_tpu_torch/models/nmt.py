@@ -40,6 +40,7 @@ from ..ndarray import NDArray
 from ..ndarray.op import _nd_op
 from ..nn import Dropout, Embedding, LayerNorm
 from ..ops.nn import fully_connected
+from ..ops.nn import top_k as _top_k
 from .transformer import MultiHeadAttention, PositionwiseFFN
 
 __all__ = ["TransformerEncoder", "TransformerDecoder", "NMTModel",
@@ -436,14 +437,6 @@ def _as_tensor(x, device, dtype):
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(onp.ascontiguousarray(onp.asarray(x)))
     return x.to(device=device, dtype=dtype)
-
-
-def _top_k(cand, k):
-    """The ``k`` largest of each row, ties to the lower index, as
-    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order on
-    ties): a stable descending sort."""
-    vals, idx = torch.sort(cand, dim=-1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k]
 
 
 def _beam_loop(step_logits, B, K, V, max_length, bos_id, eos_id, alpha,

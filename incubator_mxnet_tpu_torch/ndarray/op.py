@@ -5,8 +5,13 @@ and losses use (``ops/nn.py``: ``FullyConnected``, ``Convolution``,
 ``Deconvolution``, ``Pooling``, ``BatchNorm``, ``LayerNorm``,
 ``Activation``, ``LeakyReLU``, ``Dropout``, softmax; ``ops/tensor.py``:
 ``Embedding``, ``take``, ``pick``, ``pad``, shape ops and reductions)
-and the update ops of ``ops/optimizer_ops.py`` (:mod:`..ops.optimizer_ops`),
-whose ``out=`` writes the results into the given arrays in place. Each op is a function on
+``smooth_l1``, the comparisons, ``BlockGrad``, ``broadcast_axis`` and the
+``*_like`` fills; the detection ops of ``ops/detection.py``
+(:mod:`..ops.detection`) under the registry's names and aliases
+(``MultiBoxPrior``, ``ROIAlign``, ``MultiProposal``, ``_contrib_box_nms``
+...); and the update ops of ``ops/optimizer_ops.py``
+(:mod:`..ops.optimizer_ops`), whose ``out=`` writes the results into the
+given arrays in place. Each op is a function on
 tensors. Given NDArrays it unwraps them, runs under
 ``torch.set_grad_enabled(autograd.is_recording())`` and wraps the result;
 given tensors (inside ``hybrid_forward``, which the Gluon blocks run on
@@ -23,6 +28,7 @@ from .. import autograd
 from .. import random as _random
 from ..base import MXNetError
 from ..context import Context
+from ..ops import detection as _det
 from ..ops import nn as _nn
 from ..ops import optimizer_ops as _opt_ops
 from .ndarray import NDArray, _recorded
@@ -34,7 +40,11 @@ __all__ = ["FullyConnected", "LayerNorm", "Activation", "Embedding",
            "sigmoid", "tanh", "exp", "log", "sqrt", "square", "abs", "clip",
            "sum", "mean", "max", "min", "reshape", "transpose", "flatten",
            "expand_dims", "squeeze", "broadcast_to", "slice_axis", "concat",
-           "split", "broadcast_lesser", "dot"] + list(_opt_ops.__all__)
+           "split", "broadcast_lesser", "dot", "smooth_l1", "BlockGrad",
+           "stop_gradient", "broadcast_axis", "zeros_like", "ones_like",
+           "equal", "greater", "greater_equal", "broadcast_equal",
+           "broadcast_greater", "broadcast_greater_equal"] \
+    + list(_opt_ops.__all__)
 
 
 def _has_nd(values) -> bool:
@@ -330,6 +340,93 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False):
     b = rhs.t() if transpose_b else rhs
     return torch.tensordot(a, b, dims=1)
 
+
+@_nd_op
+def smooth_l1(data, scalar=1.0):
+    """Huber-style smooth L1 with MXNet's ``scalar`` (JAX counterpart:
+    ``ops/nn.py:576``)."""
+    s2 = scalar * scalar
+    a = torch.abs(data)
+    return torch.where(a < 1.0 / s2, 0.5 * s2 * torch.square(data),
+                       a - 0.5 / s2)
+
+
+@_nd_op
+def BlockGrad(data):
+    """The input, cut from the autograd graph (JAX counterpart:
+    ``ops/tensor.py:99``, ``lax.stop_gradient``)."""
+    return data.detach()
+
+
+stop_gradient = BlockGrad
+
+
+@_nd_op
+def broadcast_axis(data, axis=(), size=()):
+    """``data`` broadcast to ``size`` along each of ``axis`` (JAX
+    counterpart: ``ops/tensor.py:395``)."""
+    axis = (axis,) if isinstance(axis, int) else tuple(axis)
+    size = (size,) if isinstance(size, int) else tuple(size)
+    shape = list(data.shape)
+    for a, s in zip(axis, size):
+        shape[a] = s
+    return data.expand(tuple(shape))
+
+
+@_nd_op
+def zeros_like(data):
+    return torch.zeros_like(data)
+
+
+@_nd_op
+def ones_like(data):
+    return torch.ones_like(data)
+
+
+def _cmp(fn, name):
+    """A comparison as 0/1 in the operands' promoted dtype, float32 for two
+    booleans (JAX counterpart: ``_cmp``, ``ops/tensor.py:159``)."""
+    @_nd_op
+    def op(lhs, rhs):
+        dt = torch.result_type(lhs, rhs)
+        if dt == torch.bool:
+            dt = torch.float32
+        return fn(lhs, rhs).to(dt)
+    op.__name__ = op.__qualname__ = name
+    return op
+
+
+equal = broadcast_equal = _cmp(torch.eq, "equal")
+greater = broadcast_greater = _cmp(torch.gt, "greater")
+greater_equal = broadcast_greater_equal = _cmp(torch.ge, "greater_equal")
+
+
+# -- detection (ops/detection.py), under the registry's names and aliases ----
+#: op -> its aliases in the JAX registry (``ops/detection.py:53-719``)
+DETECTION_ALIASES = {
+    "box_iou": ("_contrib_box_iou",),
+    "box_nms": ("_contrib_box_nms",),
+    "bipartite_matching": ("_contrib_bipartite_matching",),
+    "multibox_prior": ("_contrib_MultiBoxPrior", "MultiBoxPrior"),
+    "multibox_target": ("_contrib_MultiBoxTarget", "MultiBoxTarget"),
+    "multibox_detection": ("_contrib_MultiBoxDetection",
+                           "MultiBoxDetection"),
+    "roi_align": ("_contrib_ROIAlign", "ROIAlign"),
+    "roi_pooling": ("ROIPooling",),
+    "multi_proposal": ("_contrib_MultiProposal", "MultiProposal"),
+    "proposal": ("_contrib_Proposal", "Proposal"),
+    "deformable_convolution": ("_contrib_DeformableConvolution",
+                               "DeformableConvolution"),
+    "psroi_pooling": ("_contrib_PSROIPooling", "PSROIPooling"),
+    "rpn_target": ("_contrib_rpn_target", "AnchorTarget"),
+    "proposal_target": ("_contrib_proposal_target", "ProposalTarget"),
+}
+for _name, _aliases in DETECTION_ALIASES.items():
+    _fn = _nd_op(getattr(_det, _name))
+    for _n in (_name,) + _aliases:
+        globals()[_n] = _fn
+        __all__.append(_n)
+del _name, _aliases, _fn, _n
 
 
 # -- optimizer updates and AMP casts (ops/optimizer_ops.py) ------------------

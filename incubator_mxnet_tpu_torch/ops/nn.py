@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 __all__ = ["fully_connected", "layer_norm", "gelu", "tanh", "activation",
            "embedding", "ACTIVATIONS", "convolution", "deconvolution",
-           "pooling", "batch_norm", "flatten", "leaky_relu", "pad"]
+           "pooling", "batch_norm", "flatten", "leaky_relu", "pad", "top_k"]
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -322,3 +322,11 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     if x is not data:
         out = out.movedim(1, axis)
     return out, mean, var
+
+
+def top_k(x, k):
+    """The ``k`` largest along the last axis, ties to the lower index, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order on
+    ties): a stable descending sort. Returns ``(values, indices)``."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

@@ -690,3 +690,147 @@ def test_decode_step_graph_replay_matches_eager_on_card():
     st = engine.stats()
     assert st["decode"]["post_warmup_compiles"] == 0
     assert st["prefill"]["post_warmup_compiles"] == 0
+
+
+def _det_inputs(seed=0):
+    """Seeded detection inputs on the CPU: an SSD batch, a Faster-RCNN
+    batch (images, im_info, gt), RPN maps with a uniform half (tied
+    scores), and NMS rows with tied scores."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(2, 3, 64, 64, generator=g)
+    x[:, :, 40:] = 0.5
+    lab = torch.full((2, 2, 5), -1.0)
+    lab[:, 0] = torch.tensor([[1, 0.1, 0.2, 0.5, 0.6],
+                              [0, 0.4, 0.3, 0.9, 0.8]])
+    gt = torch.full((2, 3, 5), -1.0)
+    gt[0, 0] = torch.tensor([1, 8, 8, 31, 35])
+    gt[0, 1] = torch.tensor([2, 30, 20, 60, 50])
+    gt[1, 0] = torch.tensor([0, 4, 30, 40, 62])
+    info = torch.tensor([[64, 64, 1.0], [64, 64, 1.0]])
+    logits = torch.randn(2, 2, 9, 16, 16, generator=g)
+    logits[..., 8:] = 0.3
+    prob = torch.softmax(logits, 1).reshape(2, 18, 16, 16)
+    bbox = 0.1 * torch.randn(2, 36, 16, 16, generator=g)
+    bbox[..., 8:] = 0.0
+    N = 3000
+    xy = torch.rand(2, N, 2, generator=g) * 0.7
+    rows = torch.cat([torch.randint(0, 4, (2, N, 1), generator=g).float(),
+                      (torch.rand(2, N, 1, generator=g) * 10).round() / 10,
+                      xy, xy + 0.1 + torch.rand(2, N, 2, generator=g) * 0.3],
+                     -1)
+    return x, lab, gt, info, prob, bbox, rows
+
+
+@pytest.mark.cuda
+def test_detection_ties_and_scatters_match_cpu_on_card():
+    """The detection ops' integer answers on the card equal the CPU's on
+    inputs built with ties: NMS rows kept and their order (stable sort),
+    the RPN's top-k and NMS picks on a uniform half (the picked scores are
+    gathers of the input, so equal picks give equal bits), MultiBoxTarget's
+    forced matches (``scatter_reduce`` "amax" with a padding gt) and hard
+    negatives among equal losses, AnchorTarget's labels."""
+    _card()
+    from incubator_mxnet_tpu_torch.ops import detection as det
+    x, lab, gt, info, prob, bbox, rows = _det_inputs()
+    for topk in (-1, 400):
+        got = det.box_nms(rows.cuda(), overlap_thresh=0.45, topk=topk,
+                          id_index=0, valid_thresh=0.05)
+        want = det.box_nms(rows, overlap_thresh=0.45, topk=topk, id_index=0,
+                           valid_thresh=0.05)
+        assert torch.equal(got.cpu(), want)
+    kw = dict(rpn_pre_nms_top_n=500, rpn_post_nms_top_n=64, threshold=0.7,
+              rpn_min_size=4, scales=(4, 8, 16), ratios=(0.5, 1, 2),
+              feature_stride=4, output_score=True)
+    (rois, sc), (wrois, wsc) = (det.multi_proposal(
+        *[t.to(d) for t in (prob, bbox, info)], **kw)
+        for d in ("cuda", "cpu"))
+    assert torch.equal(sc.cpu(), wsc)
+    torch.testing.assert_close(rois.cpu(), wrois, atol=1e-4, rtol=1e-5)
+    anchors = torch.cat([det.multibox_prior(torch.zeros(1, 1, h, h),
+                                            sizes=(0.2, 0.3),
+                                            ratios=(1, 2, 0.5))
+                         for h in (16, 8)], 1)
+    anchors = torch.cat([anchors, anchors], 1)            # equal IoUs
+    pred = torch.zeros(2, 3, anchors.shape[1])             # equal losses
+    for d in ("cuda", "cpu"):
+        out = det.multibox_target(anchors.to(d), lab.to(d), pred.to(d),
+                                  negative_mining_ratio=3.0)
+        if d == "cuda":
+            card = [o.cpu() for o in out]
+    for a, b in zip(card[1:], out[1:]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(card[0], out[0], atol=1e-5, rtol=1e-5)
+    assert (out[2] == -1).any() and (out[2] > 0).any()
+    labels = [det.rpn_target(prob.to(d), gt.to(d), info.to(d),
+                             feature_stride=4, scales=(4, 8, 16))[0].cpu()
+              for d in ("cuda", "cpu")]
+    assert torch.equal(*labels)
+
+
+def _det_gluon(kind, x, info):
+    """A small SSD or Faster-RCNN on the card with its loss and an SGD
+    ``gluon.Trainer``; the weights drawn from the seeded CPU stream by a
+    first forward here (their shapes are deferred), so two builds are
+    equal."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, models
+    mx.random.seed(0)
+    if kind == "ssd":
+        net = models.SSD(num_classes=2, filters=(8, 8, 8, 8, 8))
+        loss = models.SSDTargetLoss()
+    else:
+        net = models.FasterRCNN(num_classes=3, rpn_pre_nms_top_n=32,
+                                rpn_post_nms_top_n=8, output_rpn=True)
+        loss = models.FasterRCNNTargetLoss(num_classes=3)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(x) if kind == "ssd" else net(x, info)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.01, "momentum": 0.9})
+    return net, loss, trainer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ssd", "frcnn"])
+def test_hybridized_detection_step_matches_eager_on_card(kind,
+                                                         deterministic):
+    """A hybridized SSD / Faster-RCNN Gluon step (eager call, capture,
+    replays) against an un-hybridized twin under deterministic
+    algorithms: outputs, loss and gradients bitwise, weights after
+    ``Trainer.step``. Faster-RCNN alternates its two call signatures,
+    ``(x, info, gt)`` under ``record()`` and ``(x, info)`` in predict mode:
+    one graph each, never the other's."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, nd
+    x, lab, gt, info = (nd.array(t.numpy(), ctx=mx.gpu(0))
+                        for t in _det_inputs()[:4])
+    nets = [_det_gluon(kind, x, info), _det_gluon(kind, x, info)]
+    nets[0][0].hybridize()
+    for step in range(4):
+        outs, grads = [], []
+        for net, loss_fn, trainer in nets:
+            with autograd.record():
+                if kind == "ssd":
+                    out = net(x)
+                    loss = loss_fn(*out, lab)
+                else:
+                    out = net(x, info, gt)
+                    loss = loss_fn(*out, gt, info)
+            loss.backward()
+            grads.append({k: p.grad()._data.clone() for k, p in
+                          net._collect_params_with_prefix().items()})
+            if kind == "frcnn":
+                with autograd.predict_mode():
+                    plain = net(x, info)
+                assert plain[0].shape == (2, 8, 4)
+                out = list(out) + list(plain)
+            outs.append([o._data for o in out] + [loss._data])
+            trainer.step(1)
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+        for k in grads[0]:
+            assert torch.equal(grads[0][k], grads[1][k]), k
+    cached = nets[0][0]._cached_ops
+    assert len(cached) == (1 if kind == "ssd" else 2)
+    assert all(op.fwd is not None for op in cached.values())
+    _close_params(nets[0][0], nets[1][0], rel=0.0)
