@@ -140,7 +140,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
     bitwise under deterministic algorithms; (d) one step's gradients on
     the card against the CPU's within 1e-3; (e) the JAX package's two
     detection examples on the card (SSD 150 steps above 0.8, Faster-RCNN
-    400 steps above 0.25); the attention kernels launch on none of it.
+    400 steps above 0.25); the attention kernels launch on none of it;
+16. int8 serve (after the profile, on phase 4's model): calibration with
+    ``quantization.observe_net`` on one batch of 32 ragged requests
+    (drawn as phase 4 draws, from another seed), ``quantization.
+    quantize_model`` into a quantized ``CompiledModel`` over the same
+    table, ``warmup`` and ``DynamicBatcher``; the float and int8 models
+    serve phase 4's requests in turns (paced, then all at once): every
+    request answered, no post-warmup compile, the 48 encoder Dense layers
+    and the pooler ``QuantizedDense``, served outputs within 1e-3 of the
+    largest of unbatched int8 forwards, the forward kernel launched and
+    the backward ones not; layer 0's four products (qkv, proj, ffn1,
+    ffn2) at one 512-token request and at 8 rows, the card
+    (``torch._int_mm``) against the CPU (int32 ``@``): quantized inputs,
+    int32 accumulators and dequantized outputs bitwise equal; printed, not
+    gated: the mean relative error against the float model, parameter
+    bytes, p50/p99 and throughput, the (32, 512) forward by CUDA events
+    and its device time by int8 op (quantize, ``_int_mm``, bias,
+    dequantize), the flash kernel and the rest; the ``bert_encoder``
+    smoke twin within 0.05 of its float twin (the JAX package's gate);
+17. amp: (a) BERT-base at the bench's configuration with float32 weights
+    under ``amp.init("bfloat16")``, through the fused and the eager
+    ``ShardedTrainer`` step, timed in turns against the same steps
+    without AMP: step ms, tokens/s, losses finite and falling, 12
+    launches per kernel per step, the dtype of q at the kernels' launch
+    wrapper (bf16 under AMP), one profiled step of each by group (flash
+    kernels, GEMMs, casts, optimizer, reductions, elementwise) and its
+    idle share; (b) at full width and 2 layers, dropout 0, under
+    deterministic algorithms, the AMP fused step against the eager one
+    over 3 steps, within 1e-5 of each parameter's largest; (c) one AMP
+    step's gradients at 2 layers, batch 2x512, on the card against the
+    CPU's within 5e-2 of each parameter's largest (bf16 roundings that
+    fall on the other side); (d) ResNet-50 v1 (1000 classes, batch 32,
+    224x224, float32 weights) through the image-classification example
+    loop, hybridized, with ``--amp`` and without, in turns: imgs/s and
+    step ms of the last epoch; (e) the example's gate with ``--amp``
+    (resnet18_v1, 2 epochs, 4 classes, batch 16): accuracy above 0.5.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -2586,6 +2621,622 @@ def phase_detection() -> dict:
     return res
 
 
+# -- int8 serving and mixed-precision training --------------------------------
+#: the int8 serving phase's calibration batch: 32 ragged requests drawn as
+#: the serving phase draws its own, from this seed plus the run's seed
+INT8_CALIB_SEED = 1
+INT8_CALIB_REQUESTS = 32
+#: served int8 outputs against unbatched int8 forwards (both on the flash
+#: kernel; the int8 products are exact, the float parts the same kernels):
+#: max abs err <= this times the largest |output|
+INT8_SERVE_RTOL = 1e-3
+#: the JAX package's accuracy gate of the bert_encoder smoke twin
+#: (tests/test_quantization.py:298-314)
+INT8_SMOKE_GATE = 0.05
+#: the int8 forward's device-time groups: the wrappers whose kernels each
+#: group collects (torch.profiler ranges around them, chip_smoke's own)
+INT8_RANGES = ("int8:quantize", "int8:int_mm", "int8:bias", "int8:dequantize")
+#: one full-width layer's shapes for the card-vs-CPU accumulator check:
+#: (in, out) of qkv, proj, ffn1 and ffn2, at one 512-token request and at
+#: the smallest bucket's 8 rows (padded to _int_mm's 17+ on the card)
+INT8_LAYER_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+INT8_ROWS = (512, 8)
+
+
+def _requests(rng, n: int) -> list:
+    """``n`` ragged BERT requests as the serving phase draws them."""
+    reqs = []
+    for _ in range(n):
+        L = int(rng.randint(4, 512))
+        reqs.append((rng.randint(1, 30522, L).astype("int32"),
+                     (onp.arange(L) >= L // 2).astype("int32"),
+                     onp.array(L, "float32")))
+    return reqs
+
+
+def _padded_batch(reqs) -> list:
+    """The requests as one batch padded with zeros to the longest, as
+    ``CompiledModel`` pads."""
+    Lmax = max(len(r[0]) for r in reqs)
+    ids = onp.zeros((len(reqs), Lmax), "int32")
+    tt = onp.zeros_like(ids)
+    for i, (a, b, _) in enumerate(reqs):
+        ids[i, :len(a)], tt[i, :len(b)] = a, b
+    vl = onp.array([r[2] for r in reqs], "float32")
+    return [torch.from_numpy(x).cuda() for x in (ids, tt, vl)]
+
+
+def _param_bytes(block) -> int:
+    return sum(p.numel() * p.element_size() for p in block.parameters())
+
+
+class _Int8Ranges:
+    """While active, each int8 op of ``ops/quantization.py`` runs inside a
+    ``torch.profiler`` range named after it (:data:`INT8_RANGES`), so a
+    profile attributes their kernels."""
+
+    def __init__(self):
+        from incubator_mxnet_tpu_torch.ops import quantization as tq
+        self.tq = tq
+        self.saved = {}
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        for name in ("quantize", "int_matmul", "_bias32", "dequantize"):
+            fn = getattr(self.tq, name)
+            label = {"int_matmul": "int8:int_mm",
+                     "_bias32": "int8:bias"}.get(name, f"int8:{name}")
+
+            def wrapped(*a, _fn=fn, _label=label, **k):
+                with record_function(_label):
+                    return _fn(*a, **k)
+            self.saved[name] = fn
+            setattr(self.tq, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.tq, name, fn)
+
+
+def int8_forward_split(model, B: int = 32, L: int = 512) -> dict:
+    """One forward at the largest bucket, timed with CUDA events, then
+    split by ``torch.profiler``: the int8 ops' ranges (quantize, the
+    ``_int_mm`` product, the bias re-encoding, dequantize), the flash
+    kernel, and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(1, 30522, (B, L), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    tt = torch.zeros_like(ids)
+    vl = torch.full((B,), float(L), device="cuda")
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(ids, tt, vl), target_ms=300.0)
+        with _Int8Ranges():
+            model(ids, tt, vl)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                model(ids, tt, vl)
+                torch.cuda.synchronize()
+    total, flash, groups = 0.0, 0.0, {r: 0.0 for r in INT8_RANGES}
+    for e in prof.events():
+        if e.name in groups:
+            # the range on the CPU holds its kernels' device time; its
+            # copy on the device timeline is no kernel
+            if e.device_type == DeviceType.CPU:
+                groups[e.name] += e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            total += ms
+            if "flash_fwd_kernel" in e.name:
+                flash += ms
+    groups["flash_fwd_kernel"] = flash
+    groups["other"] = total - sum(groups.values())
+    return {"bucket": [B, L], "forward_ms": fwd_ms,
+            "profiled_device_ms": total, "ms_by_group": groups}
+
+
+def int8_accumulators_vs_cpu(qblock) -> dict:
+    """One layer's int8 products on the card against the CPU's plain
+    version on the same int8 inputs: at the full-width shapes of layer 0
+    (its own int8 weights for qkv, proj, ffn1 and ffn2) with one 512-token
+    request and with 8 rows (padded for ``_int_mm``): the int32
+    accumulators bitwise equal, and the dequantized float32 outputs too
+    (the same IEEE operations)."""
+    from incubator_mxnet_tpu_torch import quantization
+    from incubator_mxnet_tpu_torch.ops import quantization as tq
+    layers = [b for b in qblock.modules()
+              if isinstance(b, quantization.QuantizedDense)][:4]
+    rng = onp.random.RandomState(7)
+    res = []
+    for layer, (k, n) in zip(layers, INT8_LAYER_SHAPES):
+        w = layer.qweight._tensor()
+        check(tuple(w.shape) == (n, k), f"{layer.name}: weight "
+              f"{tuple(w.shape)}, not {(n, k)}")
+        for m in INT8_ROWS:
+            x = torch.from_numpy(rng.randn(m, k).astype("float32") * 2)
+            outs = {}
+            for dev in ("cpu", "cuda"):
+                qx, lo, hi = tq.quantize(x.to(dev), *layer._range)
+                acc, olo, ohi = tq.quantized_fully_connected(
+                    qx, w.to(dev), None, lo, hi, -1.0, 1.0, flatten=False)
+                outs[dev] = (qx, acc, tq.dequantize(acc, olo, ohi))
+            for i, name in enumerate(("quantized input", "accumulator",
+                                      "dequantized output")):
+                same = torch.equal(outs["cuda"][i].cpu(), outs["cpu"][i])
+                check(same, f"{layer.name} at ({m}, {k}) x ({k}, {n}): the "
+                      f"{name} differs between the card and the CPU")
+            res.append({"layer": layer.name, "m": m, "k": k, "n": n,
+                        "bitwise": True})
+    print(f"int8 accumulators, card (torch._int_mm) vs CPU (int32 @): "
+          f"bitwise equal for {len(res)} cases "
+          f"{[(r['m'], r['k'], r['n']) for r in res]}", flush=True)
+    return {"cases": res}
+
+
+def phase_int8_serve(model, seed: int) -> dict:
+    """BERT-base served int8: calibration with ``quantization.observe_net``
+    on one batch of 32 ragged requests, ``quantization.quantize_model``
+    into a quantized ``CompiledModel`` over the serving table, ``warmup``
+    and ``DynamicBatcher``; the float and int8 models serve the same
+    requests in turns (paced, then all at once); gates: every request
+    answered, no post-warmup compile, the 48 encoder Dense layers and the
+    pooler int8, served = unbatched int8 forwards, the forward kernel
+    launched and the backward ones not, the accumulators bitwise equal to
+    the CPU's; printed: the error against the float model, parameter
+    bytes, latency and throughput, the forward's device split; then the
+    ``bert_encoder`` smoke twin's gate on the card."""
+    from incubator_mxnet_tpu_torch import quantization
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spec = models.serve_spec("bert_encoder")
+    table = serve.BucketTable({"batch": (1, 32), "seq": (8, 512)})
+    example = (onp.zeros((1, 8), "int32"), onp.zeros((1, 8), "int32"),
+               onp.zeros((1,), "float32"))
+    cm = serve.CompiledModel(model, table, spec["input_axes"], example,
+                             output_axes=spec["output_axes"],
+                             pad_values=spec["pad_values"])
+    calib = _requests(onp.random.RandomState(seed + INT8_CALIB_SEED),
+                      INT8_CALIB_REQUESTS)
+    t1 = time.perf_counter()
+    obs = quantization.observe_net(model, [_padded_batch(calib)])
+    calib_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    qcm = quantization.quantize_model(cm, obs)
+    quant_s = time.perf_counter() - t1
+    qblock = qcm._block
+    n_layers = models.BERT_CONFIGS["bert_12_768_12"]["num_layers"]
+    qdense = [b.name for b in qblock.modules()
+              if isinstance(b, quantization.QuantizedDense)]
+    left = [b.name for b in qblock.modules()
+            if isinstance(b, gluon.nn.Dense)]
+    check(len(qdense) == 4 * n_layers + 1 and not left
+          and any(n.endswith("pooler_int8") for n in qdense),
+          f"{len(qdense)} QuantizedDense layers (want {4 * n_layers + 1}), "
+          f"float Dense left: {left}")
+    warm = {"float": cm.warmup(), "int8": qcm.warmup()}
+    bytes_ = {"float": _param_bytes(model), "int8": _param_bytes(qblock)}
+    print(f"int8 serve: calibrated on {len(calib)} ragged requests in "
+          f"{calib_s:.1f} s, quantized in {quant_s:.1f} s, "
+          f"{len(qdense)} QuantizedDense layers; parameter bytes "
+          f"{bytes_['int8']:,} int8 vs {bytes_['float']:,} float32; warmup "
+          f"{warm}", flush=True)
+
+    reqs = _requests(onp.random.RandomState(seed), N_REQUESTS)
+    gaps = onp.random.RandomState(seed).exponential(4.0 / OFFERED_RATE,
+                                                    N_REQUESTS)
+    runs, launches = {}, {}
+    cms = {"float": cm, "int8": qcm}
+    # in turns: paced float, int8; all at once int8, float
+    for mode, order in (("paced", ("float", "int8")),
+                        ("burst", ("int8", "float"))):
+        for name in order:
+            batcher = serve.DynamicBatcher(cms[name], max_delay_ms=5.0)
+            cuda_ops.reset_launches()
+            batcher.start()
+            try:
+                runs[(name, mode)] = drive(
+                    batcher, cms[name], reqs,
+                    gaps if mode == "paced" else onp.zeros(N_REQUESTS))
+            finally:
+                batcher.stop()
+            launches[(name, mode)] = cuda_ops.launch_counts()
+    int8_launches = {k: launches[("int8", "paced")][k]
+                     + launches[("int8", "burst")][k] for k in fa.KERNELS}
+    batches = sum(runs[("int8", m)]["snapshot"]["batches"]
+                  for m in ("paced", "burst"))
+    check(int8_launches[fa.KERNEL] >= n_layers * batches > 0,
+          f"int8 serving launched {fa.KERNEL} {int8_launches[fa.KERNEL]} "
+          f"times for {batches} batches of {n_layers} layers")
+    for name in (fa.KERNEL_BWD_DKV, fa.KERNEL_BWD_DQ):
+        check(int8_launches[name] == 0, f"int8 serving launched the "
+              f"backward kernel {name}")
+
+    # served int8 outputs against unbatched int8 forwards, and the float
+    # model's error against int8 on the same requests
+    picks = sorted(range(N_REQUESTS), key=lambda i: reqs[i][2])
+    picks = [picks[int(j)] for j in onp.linspace(0, N_REQUESTS - 1, 8)]
+    served = runs[("int8", "paced")]["outs"]
+    served_f = runs[("float", "paced")]["outs"]
+    worst, num, den = 0.0, 0.0, 0.0
+    with torch.inference_mode():
+        for i in picks:
+            ids, tt, vl = (torch.from_numpy(a[None]).cuda() for a in reqs[i])
+            seq, pooled = qblock(ids, tt, vl)
+            got_seq, got_pooled = served[i]
+            check(bool(torch.isfinite(got_seq).all()
+                       and torch.isfinite(got_pooled).all()),
+                  "served int8 outputs are not finite")
+            for g, w in ((got_seq, seq[0]), (got_pooled, pooled[0])):
+                worst = max(worst, ((g - w.cpu()).abs().max()
+                                    / w.abs().max()).item())
+            for g, f in zip(served[i], served_f[i]):
+                num += (g - f).abs().sum().item()
+                den += f.abs().sum().item()
+    check(worst <= INT8_SERVE_RTOL, f"served vs unbatched int8 forward: "
+          f"max abs err / max |out| {worst} > {INT8_SERVE_RTOL}")
+    rel_vs_float = num / den
+    card = card_line()
+    res = {"requests": N_REQUESTS, "calibration_requests": len(calib),
+           "calibration_s": calib_s, "quantize_s": quant_s,
+           "quantized_dense": len(qdense), "param_bytes": bytes_,
+           "warmup": warm, "served_vs_unbatched_rel_err": worst,
+           "mean_rel_err_vs_float": rel_vs_float,
+           "launches": int8_launches, "batches": batches}
+    for (name, mode), r in runs.items():
+        lat = r["snapshot"]["latency"]
+        res[f"{name}_{mode}"] = {
+            "wall_s": r["wall_s"], "req_s": N_REQUESTS / r["wall_s"],
+            "p50_ms": lat["latency_ms_p50"], "p99_ms": lat["latency_ms_p99"],
+            "batches": r["snapshot"]["batches"]}
+        print(f"int8 serve, {name} {mode}: {N_REQUESTS} requests in "
+              f"{r['wall_s']:.3f} s = {N_REQUESTS / r['wall_s']:.1f} req/s, "
+              f"latency p50 {lat['latency_ms_p50']} ms p99 "
+              f"{lat['latency_ms_p99']} ms, {r['snapshot']['batches']} "
+              f"batches on {card}", flush=True)
+    print(f"int8 serve: served vs unbatched int8 max rel err {worst:.2e} "
+          f"(tol {INT8_SERVE_RTOL}); mean relative error against the float "
+          f"model {rel_vs_float:.4f} (printed, not gated); launches "
+          f"{int8_launches}", flush=True)
+    res["accumulators"] = int8_accumulators_vs_cpu(qblock)
+    res["split"] = {name: int8_forward_split(cms[name]._block)
+                    for name in ("int8", "float")}
+    for name, sp in res["split"].items():
+        print(f"int8 serve, {name} forward at (32, 512): "
+              f"{sp['forward_ms']:.3f} ms (CUDA events); profiled device "
+              f"{sp['profiled_device_ms']:.3f} ms: "
+              + ", ".join(f"{g} {t:.3f}" for g, t in
+                          sp["ms_by_group"].items()), flush=True)
+    smoke = models.quantized_smoke("bert_encoder", device="cuda")
+    args = models.calib_args("bert_encoder", seed=5, device="cuda")
+    want = smoke["f32"]["compiled"].predict(*args)
+    got = smoke["compiled"].predict(*args)
+    rels = [((w - g).abs().mean() / (w.abs().mean() + 1e-6)).item()
+            for w, g in zip(want, got)]
+    print(f"int8 serve: bert_encoder smoke twin on the card, mean rel err "
+          f"{[round(r, 5) for r in rels]} (gate {INT8_SMOKE_GATE})",
+          flush=True)
+    check(max(rels) < INT8_SMOKE_GATE, f"bert_encoder smoke twin: {rels}")
+    res["smoke_rel_err"] = rels
+    res["seconds"] = time.perf_counter() - t0
+    del qcm, cm, qblock
+    return res
+
+
+#: AMP gradients of a 2-layer BERT at full width on the card against the
+#: CPU's: bfloat16 keeps 8 significant bits, and the card (cuBLAS, the
+#: flash kernels) and the CPU (oneDNN, the plain attention) round GEMM
+#: outputs, GELU and the attention probabilities to bfloat16 at the same
+#: places from float32 values summed in another order, so some round to the
+#: neighbouring bfloat16; a few such flips compound through two layers
+#: forward and back (the CPU parity test against the JAX package sees up
+#: to 2.4e-2): per parameter, max abs err <= this times max |grad on CPU|
+AMP_GRAD_RTOL = 5e-2
+#: the AMP gradient check's batch: 2 sequences of the bench's 512 (the CPU
+#: side computes the full-width step too)
+AMP_GRAD_BATCH = 2
+#: device-time groups of a BERT training step under AMP and in float32, by
+#: kernel name (the first match wins): the three flash kernels, the GEMMs
+#: (cuBLAS's and CUTLASS's, SIMT float32 and bf16 tensor-core kernels),
+#: dtype casts and copies, the optimizer's multi-tensor kernels,
+#: reductions (LayerNorm statistics, softmax, the loss), the other
+#: elementwise kernels
+AMP_GROUPS = (
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    ("cast_copy", ("copy_kernel",)),
+    ("optimizer", ("multi_tensor",)),
+    ("reduce", ("reduce", "softmax", "norm")),
+    ("elementwise", ("elementwise",)),
+)
+#: the example gate of the JAX package's tests/test_examples.py:29-33, run
+#: on the example's default model (its mobilenet0.25 is not ported)
+AMP_EXAMPLE = dict(model="resnet18_v1", epochs=2, classes=4, batch_size=16)
+AMP_EXAMPLE_GATE = 0.5
+
+
+class _amp_on:
+    """``amp.init("bfloat16")`` while active (``on``), else the float32
+    namespace; restores the previous state on exit."""
+
+    def __init__(self, on: bool = True):
+        from incubator_mxnet_tpu_torch import amp
+        self.amp, self.on = amp, on
+
+    def __enter__(self):
+        self.prev = self.amp._STATE["initialized"]
+        if self.on:
+            self.amp.init("bfloat16")
+        else:
+            self.amp.reset()
+        return self
+
+    def __exit__(self, *exc):
+        if self.prev:
+            self.amp.init("bfloat16")
+        else:
+            self.amp.reset()
+
+
+class _launch_dtypes:
+    """Record the dtype of q at every call of the flash kernels' launch
+    wrapper (eager launches and the launches a capture records)."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        self.orig = fa._launch
+
+        def spy(name, q, *a, **k):
+            key = (name, str(q.dtype).replace("torch.", ""))
+            self.seen[key] = self.seen.get(key, 0) + 1
+            return self.orig(name, q, *a, **k)
+        fa._launch = spy
+        return self
+
+    def __exit__(self, *exc):
+        fa._launch = self.orig
+
+    def dtypes(self) -> dict:
+        return {f"{n}:{d}": c for (n, d), c in sorted(self.seen.items())}
+
+
+def _bert_trainer(fused, num_layers: int = None, dropout: float = 0.1,
+                  device: str = "cuda"):
+    """BERT-base at the bench's configuration with float32 weights (AdamW
+    at lr 1e-4), on ``device``."""
+    kw = {} if num_layers is None else {"num_layers": num_layers}
+    net = models.get_bert("bert_12_768_12", vocab_size=bench.VOCAB,
+                          max_length=TRAIN_SHAPE[1], dropout=dropout,
+                          dtype="float32", device=device,
+                          generator=torch.Generator().manual_seed(0), **kw)
+    return net, parallel.ShardedTrainer(
+        net, models.bert_pretrain_loss, "adamw", {"learning_rate": 1e-4},
+        device=device, n_labels=3, fused=fused)
+
+
+def amp_bert_train() -> dict:
+    """(b1) BERT-base (bench configuration, float32 weights) under
+    ``amp.init("bfloat16")`` through the fused and the eager step, timed
+    in turns against the same steps without AMP: step ms, tokens/s,
+    losses finite and falling, 12 launches per kernel per step with bf16
+    q (recorded at the wrapper), one profiled step of each by group."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = bench.make_batch(*TRAIN_SHAPE)
+    steps = int(getenv("MXTPU_BENCH_STEPS"))
+    n_layers = models.BERT_CONFIGS["bert_12_768_12"]["num_layers"]
+    tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    res = {}
+    for path, fused in (("fused", None), ("eager", False)):
+        trainers, runs = {}, {}
+        for name, on in (("float32", False), ("amp", True)):
+            _, trainers[name] = _bert_trainer(fused)
+            with _amp_on(on), _launch_dtypes() as spy:
+                runs[name] = train_run(trainers[name], batch, steps,
+                                       n_layers, f"amp train {name} {path}")
+            runs[name]["launch_dtypes"] = spy.dtypes()
+        want = "bfloat16"
+        for key in runs["amp"]["launch_dtypes"]:
+            check(key.endswith(want), f"amp {path}: a kernel took "
+                  f"{key}: {runs['amp']['launch_dtypes']}")
+        for key in runs["float32"]["launch_dtypes"]:
+            check(key.endswith("float32"), f"float32 {path}: {key}")
+        placed = trainers["amp"].place(*batch)
+        # in turns: amp, float32, float32, amp (each path's own run first)
+        for name in ("amp", "float32", "float32", "amp"):
+            with _amp_on(name == "amp"):
+                runs[name].setdefault("step_ms_runs", [
+                    runs[name]["dt"] * 1e3]).append(synced_ms(
+                        lambda: trainers[name].step(*placed), steps)[0])
+        card = card_line()
+        for name, r in runs.items():
+            ms = min(r["step_ms_runs"])
+            r.update(step_ms=ms, tokens_per_s=tokens / (ms / 1e3))
+            with _amp_on(name == "amp"):
+                r["profile"] = grouped_profiled_step(
+                    trainers[name], placed, f"amp train {name} {path}",
+                    AMP_GROUPS)
+            print(f"amp train {path}, {name}: {ms:.3f} ms per step = "
+                  f"{r['tokens_per_s']:.1f} tokens/s (runs "
+                  f"{[round(t, 3) for t in r['step_ms_runs']]}), losses "
+                  f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, "
+                  f"launches {r['launches']}, q dtypes at the wrapper "
+                  f"{r['launch_dtypes']}, peak memory "
+                  f"{r['peak_memory_gib']:.2f} GiB on {card}", flush=True)
+        if path == "fused":
+            check(runs["amp"]["captures"] == 1
+                  and runs["amp"]["last_path"] == "fused",
+                  f"the AMP fused trainer: {runs['amp']['captures']} "
+                  "captures")
+        res[path] = runs
+        del trainers, placed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def amp_fused_gate(num_layers: int = 2, steps: int = 3) -> dict:
+    """The train gate (phase 7) under AMP: at full width and
+    ``num_layers`` layers, dropout 0, float32 weights, under
+    ``torch.use_deterministic_algorithms``, the fused step against the
+    eager one over ``steps`` steps: losses and weights within 1e-5 of each
+    parameter's largest value."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = bench.make_batch(*TRAIN_SHAPE)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with _amp_on():
+            pairs = [_bert_trainer(f, num_layers, dropout=0.0)
+                     for f in (None, False)]
+            losses = [[float(tr.step(*batch)) for _ in range(steps)]
+                      for _, tr in pairs]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(pairs[0][1].last_step_graphs == 1 and pairs[0][1].captures == 1,
+          "the AMP gate's fused trainer did not replay a graph")
+    worst, wname = 0.0, ""
+    eager = dict(pairs[1][0].named_parameters())
+    for name, p in pairs[0][0].named_parameters():
+        want = eager[name].detach().float()
+        ratio = ((p.detach().float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30)).item()
+        if ratio > worst:
+            worst, wname = ratio, name
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    print(f"amp train gate, {num_layers} layers at full width, {steps} "
+          f"steps, fused vs eager under deterministic algorithms: losses "
+          f"{losses[0]} vs {losses[1]} (worst rel err {loss_err:.2e}), "
+          f"weights worst rel err {worst:.2e} ({wname})", flush=True)
+    check(loss_err <= 1e-5 and worst <= 1e-5, f"AMP fused and eager steps "
+          f"differ: losses {loss_err}, weights {worst} at {wname}")
+    return {"losses_fused": losses[0], "losses_eager": losses[1],
+            "loss_rel_err": loss_err, "weights_worst_rel_err": worst,
+            "weights_worst_param": wname,
+            "bitwise": loss_err == 0.0 and worst == 0.0}
+
+
+def amp_grads_vs_cpu(num_layers: int = 2) -> dict:
+    """One AMP step's gradients of a ``num_layers``-layer BERT at full
+    width (dropout 0, float32 weights) on the card (fused trainer, its
+    first step) against the same step on the CPU (eager), within
+    :data:`AMP_GRAD_RTOL` of each parameter's largest."""
+    gc.collect()
+    batch = bench.make_batch(AMP_GRAD_BATCH, TRAIN_SHAPE[1])
+    out = {}
+    with _amp_on():
+        for device in ("cuda", "cpu"):
+            net, tr = _bert_trainer(None, num_layers, dropout=0.0,
+                                    device=device)
+            loss = float(tr.step(*batch))
+            out[device] = (loss, {n: p.grad.detach().float().cpu()
+                                  for n, p in net.named_parameters()})
+    (lc, gc_), (lx, gx) = out["cuda"], out["cpu"]
+    worst, wname = 0.0, ""
+    for name, g in gx.items():
+        ratio = ((gc_[name] - g).abs().max()
+                 / g.abs().max().clamp_min(1e-30)).item()
+        if ratio > worst:
+            worst, wname = ratio, name
+    print(f"amp gradients, {num_layers} layers at full width, batch "
+          f"{AMP_GRAD_BATCH}x{TRAIN_SHAPE[1]}: card vs CPU worst max abs err"
+          f" / max |grad| {worst:.2e} ({wname}, tol {AMP_GRAD_RTOL}); loss "
+          f"{lc:.6f} vs {lx:.6f}", flush=True)
+    check(worst <= AMP_GRAD_RTOL, f"AMP gradients differ: {worst} at "
+          f"{wname}")
+    check(abs(lc - lx) <= 1e-2 * abs(lx), f"AMP losses differ: {lc}, {lx}")
+    return {"worst_rel_err": worst, "worst_param": wname,
+            "loss_card": lc, "loss_cpu": lx}
+
+
+def amp_resnet() -> dict:
+    """(b2) ResNet-50 v1 (1000 classes, batch 32, 224x224, float32
+    weights) through the image-classification example loop, hybridized,
+    with ``--amp`` and without, in turns: imgs/s and step ms of the last
+    epoch (16 steps; the first epoch holds the eager first call and the
+    captures), losses finite; no attention kernel."""
+    from incubator_mxnet_tpu_torch.models import image_classification as ic
+    res = {}
+    for name in ("float32", "amp", "amp", "float32"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cuda_ops.reset_launches()
+        with _amp_on(False):           # the example's --amp turns it on
+            out = ic.image_classification_example(
+                model="resnet50_v1", classes=1000, image_size=224,
+                epochs=2, batch_size=32, amp=name == "amp", ctx=mx.gpu(0))
+        launches = cuda_ops.launch_counts()
+        check(all(onp.isfinite(out["losses"])), f"resnet50 {name}: "
+              f"non-finite loss")
+        check(not any(launches.values()), f"resnet50 {name} launched "
+              f"attention kernels: {launches}")
+        secs = out["epoch_seconds"][-1]
+        steps = len(out["losses"]) // len(out["epoch_seconds"])
+        r = res.setdefault(name, {"epoch_s_runs": [], "launches": launches,
+                                  "first_epoch_s": out["epoch_seconds"][0],
+                                  "losses": out["losses"]})
+        r["epoch_s_runs"].append(secs)
+        r["imgs_per_s"] = 32 * steps / min(r["epoch_s_runs"])
+        r["step_ms"] = min(r["epoch_s_runs"]) / steps * 1e3
+    card = card_line()
+    for name, r in res.items():
+        print(f"amp resnet50_v1 example loop, {name}: {r['step_ms']:.3f} ms "
+              f"per step = {r['imgs_per_s']:.1f} imgs/s (last-epoch runs "
+              f"{[round(s, 3) for s in r['epoch_s_runs']]} s), first epoch "
+              f"{r['first_epoch_s']:.1f} s, loss {r['losses'][0]:.4f} -> "
+              f"{r['losses'][-1]:.4f} on {card}", flush=True)
+    return res
+
+
+def amp_example_gate() -> dict:
+    """(b3) The example's own gate with ``--amp``: resnet18_v1, 2 epochs,
+    4 classes, batch 16, training accuracy above 0.5."""
+    from incubator_mxnet_tpu_torch import amp
+    from incubator_mxnet_tpu_torch.models import image_classification as ic
+    gc.collect()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = ic.image_classification_example(amp=True, ctx=mx.gpu(0),
+                                              **AMP_EXAMPLE)
+    finally:
+        amp.reset()
+    launches = cuda_ops.launch_counts()
+    secs = time.perf_counter() - t0
+    print(f"amp example gate: {AMP_EXAMPLE}, --amp: accuracy "
+          f"{out['epochs']} (gate {AMP_EXAMPLE_GATE}), loss "
+          f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, "
+          f"{secs:.1f} s", flush=True)
+    check(out["accuracy"] > AMP_EXAMPLE_GATE, f"the example's accuracy "
+          f"{out['accuracy']} <= {AMP_EXAMPLE_GATE}")
+    check(not any(launches.values()), f"the example launched attention "
+          f"kernels: {launches}")
+    return {"accuracy": out["accuracy"], "epochs": out["epochs"],
+            "seconds": secs, "launches": launches}
+
+
+def phase_amp() -> dict:
+    """Mixed-precision training: (b1) BERT-base under AMP, fused and
+    eager, against float32, with its fused = eager gate and card vs CPU
+    gradients; (b2) ResNet-50 through the example loop; (b3) the
+    example's gate."""
+    t0 = time.perf_counter()
+    res = {"bert": amp_bert_train()}
+    res["fused_gate"] = amp_fused_gate()
+    res["grads_vs_cpu"] = amp_grads_vs_cpu()
+    res["resnet"] = amp_resnet()
+    res["example"] = amp_example_gate()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"amp: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -2623,7 +3274,10 @@ def main(argv=None) -> int:
     main_rec = phase_kernels(results)
     main_bwd = phase_kernels_bwd(results)
     served = phase_serve(N_REQUESTS, OFFERED_RATE, args.seed)
-    profiled = phase_profile(served.pop("model"))
+    model = served.pop("model")
+    profiled = phase_profile(model)
+    int8_res = phase_int8_serve(model, args.seed)
+    del model
     trained = phase_train()
     gate = phase_train_fused_gate()
     grads = phase_train_grads()
@@ -2631,6 +3285,7 @@ def main(argv=None) -> int:
     vis = phase_vision()
     nmt_res = phase_nmt(args.seed)
     det_res = phase_detection()
+    amp_res = phase_amp()
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -2669,6 +3324,15 @@ def main(argv=None) -> int:
                                  "ssd_example": det_res["ssd_example"][
                                      "launches"][name],
                                  "frcnn_example": det_res["frcnn_example"][
+                                     "launches"][name],
+                                 "int8_serve": int8_res["launches"][name],
+                                 "amp_train": amp_res["bert"]["fused"][
+                                     "amp"]["launches"][name],
+                                 "amp_train_eager": amp_res["bert"][
+                                     "eager"]["amp"]["launches"][name],
+                                 "amp_resnet": amp_res["resnet"]["amp"][
+                                     "launches"][name],
+                                 "amp_example": amp_res["example"][
                                      "launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
@@ -2689,7 +3353,8 @@ def main(argv=None) -> int:
                        "train": trained, "train_fused_gate": gate,
                        "train_gradients": grads,
                        "gluon": glu, "vision": vis, "nmt": nmt_res,
-                       "detection": det_res, "kernels": kernels},
+                       "detection": det_res, "int8_serve": int8_res,
+                       "amp": amp_res, "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

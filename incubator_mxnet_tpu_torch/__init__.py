@@ -33,7 +33,11 @@ the decode step as one CUDA graph) under ``serve.DecodeBatcher``
 (``mx.nd`` and ``contrib.nd``), ``models.SSD`` and ``models.FasterRCNN``
 with their losses and example loops (``bench`` runs ``bench.py``'s
 ``ssd`` and ``frcnn`` workloads), and ``mx.image``'s augmenters and
-``ImageDetIter``.
+``ImageDetIter``; and mixed precision and int8: ``amp.init("bfloat16")``
+casting the inputs of the matmul-class ops of ``mx.nd`` (the flash
+kernels then run in bf16), and ``quantization`` (calibration,
+``quantize_net``, ``quantize_model``) on the int8 ops of
+``ops/quantization.py`` (``torch._int_mm`` on the card).
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
@@ -42,6 +46,7 @@ from .context import (  # noqa: F401
 from . import (  # noqa: F401
     autograd, random, ndarray, initializer, gluon, ops, nn, models, serve,
     convert, optimizer, parallel, lr_scheduler, metric, io, contrib, image,
+    amp, quantization,
 )
 
 nd = ndarray
@@ -51,4 +56,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "resolve_device", "autograd", "random", "ndarray",
            "nd", "initializer", "init", "gluon", "ops", "nn", "models",
            "serve", "convert", "optimizer", "parallel", "lr_scheduler",
-           "metric", "io", "contrib", "image"]
+           "metric", "io", "contrib", "image", "amp", "quantization"]

@@ -4,10 +4,10 @@ Counterpart: the JAX package's ``contrib/__init__.py`` (``:20-34``), whose
 ``contrib.nd.<op>`` is every ``_contrib_<op>`` of the registry under its
 short name. The port's ``contrib.nd`` holds the ``_contrib_*`` ops the
 port has: the detection ops (``box_nms``, ``MultiBoxPrior``, ``ROIAlign``,
-``MultiProposal``, ``rpn_target`` ...) and the update ops
-``adamw_update`` and ``multi_sum_sq``. ``contrib.sym``, the control-flow
-ops and the ``interleaved_matmul_*`` and quantization ops come with the
-modules that define them.
+``MultiProposal``, ``rpn_target`` ...), the int8 ops (``quantize``,
+``quantized_fully_connected`` ...) and the update ops ``adamw_update``
+and ``multi_sum_sq``. ``contrib.sym``, the control-flow ops and the
+``interleaved_matmul_*`` ops come with the modules that define them.
 """
 from __future__ import annotations
 

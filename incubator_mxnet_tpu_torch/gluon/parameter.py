@@ -4,8 +4,8 @@ Counterpart: the JAX package's ``gluon/parameter.py`` (``:29-509``): the
 prefix-named ``Parameter`` with ``grad_req``, deferred initialisation
 (``allow_deferred_init``; shape dims of 0 are unknown until the first
 forward), ``initialize``/``data``/``grad``/``set_data``/``zero_grad``/
-``cast``/``_load_init``, ``Constant``, ``ParameterDict`` and
-``DeferredInitializationError``.
+``cast``/``_load_init``, ``Constant``, ``ParameterDict`` (with
+``get_constant``) and ``DeferredInitializationError``.
 
 Each ``Parameter`` owns one ``torch.nn.Parameter``, which the first block
 it is assigned to registers with torch: so ``Module.parameters()``,
@@ -70,7 +70,10 @@ class Parameter:
         self.wd_mult = wd_mult
         self.init = init
         self.allow_deferred_init = allow_deferred_init
-        self._var = UninitializedParameter(dtype=torch_dtype(self.dtype))
+        dt = torch_dtype(self.dtype)
+        # an integer parameter (an int8 ``Constant``) cannot take gradients
+        self._var = UninitializedParameter(
+            requires_grad=dt.is_floating_point, dtype=dt)
         self._owned = False          # registered with torch by a block yet
         self._ctx: Optional[Context] = None
         self._deferred_init = ()     # (init, ctx, default_init, data)
@@ -278,6 +281,18 @@ class Parameter:
                f"dtype={self.dtype})"
 
 
+class _ConstantValue(init_mod.Constant):
+    """A :class:`Constant`'s initializer: its value, whatever the
+    parameter's name, as upstream MXNet's ``Constant`` initialises (the
+    JAX package's ``_CInit`` fills only through ``_init_weight``, so its
+    name dispatch zeroes a constant named ``*bias``: its quantized
+    layers' ``qbias``)."""
+
+    def __call__(self, name, arr) -> None:
+        with torch.no_grad():
+            self._init_weight(name, getattr(arr, "_data", arr))
+
+
 class Constant(Parameter):
     """A parameter the Trainer never updates: ``grad_req='null'``, its value
     fixed at construction (JAX counterpart: ``gluon/parameter.py:348``)."""
@@ -288,7 +303,7 @@ class Constant(Parameter):
         self.value = value
         super().__init__(name, grad_req="null", shape=value.shape,
                          dtype=value._data.dtype,
-                         init=init_mod.Constant(value._data.cpu()))
+                         init=_ConstantValue(value._data.cpu()))
 
 
 class ParameterDict:
@@ -352,6 +367,21 @@ class ParameterDict:
                     f"attribute does not match with stored for attribute {k}")
             elif getattr(param, k, None) is None:
                 setattr(param, k, v)
+        return param
+
+    def get_constant(self, name: str, value=None) -> Constant:
+        """Get or create the :class:`Constant` ``prefix + name`` holding
+        ``value`` (JAX counterpart: ``gluon/parameter.py:429``)."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError(f"No constant named '{name}'.")
+            param = Constant(name, value)
+            self._params[name] = param
+        elif value is not None and not isinstance(param, Constant):
+            raise AssertionError(f"Parameter '{name}' already exists but is "
+                                 "not a constant.")
         return param
 
     def update(self, other: "ParameterDict") -> None:

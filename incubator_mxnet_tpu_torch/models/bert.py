@@ -27,7 +27,6 @@ from ..gluon.loss import SoftmaxCrossEntropyLoss
 from ..initializer import Xavier
 from ..ndarray.op import _nd_op
 from ..nn import Dense, Dropout, Embedding, LayerNorm
-from ..ops.nn import fully_connected
 from .transformer import TransformerEncoderCell
 
 __all__ = ["BERTEncoder", "BERTModel", "get_bert", "bert_pretrain_loss",
@@ -170,8 +169,8 @@ class BERTModel(HybridBlock):
             # take(mode="clip"), as the JAX op
             h = flat[idx.clamp(0, B * L - 1)].reshape(B, P, self._units)
             h = self.decoder_ln(self.decoder_transform(h))
-            outputs.append(fully_connected(h, decoder_tied_weight,
-                                           decoder_bias, flatten=False))
+            outputs.append(F.FullyConnected(h, decoder_tied_weight,
+                                            decoder_bias, flatten=False))
         return tuple(outputs) if len(outputs) > 1 else outputs[0]
 
 

@@ -39,7 +39,6 @@ from ..gluon.block import HybridBlock
 from ..ndarray import NDArray
 from ..ndarray.op import _nd_op
 from ..nn import Dropout, Embedding, LayerNorm
-from ..ops.nn import fully_connected
 from ..ops.nn import top_k as _top_k
 from .transformer import MultiHeadAttention, PositionwiseFFN
 
@@ -249,7 +248,7 @@ class NMTModel(HybridBlock):
         mask = source_mask(src_valid_length, B, Ls)
         memory = self.encoder(self.src_embed(src), mask)
         out = self.decoder(self.tgt_embed(tgt), memory, mask)
-        return fully_connected(out, proj_weight, proj_bias, flatten=False)
+        return F.FullyConnected(out, proj_weight, proj_bias, flatten=False)
 
 
 @_nd_op
@@ -546,7 +545,7 @@ def beam_search_reference(model: NMTModel, src, src_valid_length=None,
         with autograd.predict_mode():
             out = model.decoder(model.tgt_embed(seqs[:, :max_length]), mem,
                                 mmask)
-        return fully_connected(out, proj_w, proj_b, flatten=False)[:, t]
+        return F.FullyConnected(out, proj_w, proj_b, flatten=False)[:, t]
 
     return _beam_loop(step_logits, B, K, model._tgt_vocab, max_length,
                       bos_id, eos_id, alpha, dev)

@@ -4,8 +4,9 @@ blocks.
 Counterpart: the JAX package's ``models/transformer.py`` (``:26-151``). A
 self-attention cell has one fused QKV projection, a cross-attention cell a
 query projection and one fused KV projection over the memory (the encdec
-layout); either feeds :func:`~..ops.attention.dot_product_attention`, which
-takes the flash kernel, with ``causal`` passed through (the band
+layout); either feeds ``F.dot_product_attention`` (the op namespace's
+:func:`~..ops.attention.dot_product_attention`, where ``amp.init()`` casts
+its inputs), which takes the flash kernel, with ``causal`` passed through (the band
 bottom-right aligned, as in the JAX package). Children and prefixes are the
 JAX ones (attribute ``attention`` with prefix ``attn_``, ``qkv_``,
 ``query_``, ``kv_``, ``ffn1_`` ...), so structural and prefix parameter
@@ -17,7 +18,6 @@ from __future__ import annotations
 
 from ..gluon.block import HybridBlock
 from ..nn import Dense, Dropout, LayerNorm
-from ..ops.attention import dot_product_attention
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell"]
 
@@ -82,7 +82,7 @@ class MultiHeadAttention(HybridBlock):
         else:
             q, = self._heads(self.q_proj(query), 1)
             k, v = self._heads(self.kv_proj(query if kv is None else kv), 2)
-        out = dot_product_attention(q, k, v, mask, causal=self._causal)
+        out = F.dot_product_attention(q, k, v, mask, causal=self._causal)
         out = out.transpose(1, 2).reshape(B, Lq, self._units)
         out = self.proj(out)
         if self.dropout is not None:

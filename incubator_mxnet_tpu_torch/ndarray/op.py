@@ -11,7 +11,11 @@ and losses use (``ops/nn.py``: ``FullyConnected``, ``Convolution``,
 (``MultiBoxPrior``, ``ROIAlign``, ``MultiProposal``, ``_contrib_box_nms``
 ...); and the update ops of ``ops/optimizer_ops.py``
 (:mod:`..ops.optimizer_ops`), whose ``out=`` writes the results into the
-given arrays in place. Each op is a function on
+given arrays in place; ``batch_dot``, ``linalg_gemm2`` and
+``dot_product_attention`` (``ops/tensor.py``, ``ops/attention.py``); and
+the int8 ops of ``ops/quantization.py`` (:mod:`..ops.quantization`) under
+their names and ``_contrib_*`` aliases. ``amp.init()`` casts the inputs of
+the ops of its list here, in this namespace. Each op is a function on
 tensors. Given NDArrays it unwraps them, runs under
 ``torch.set_grad_enabled(autograd.is_recording())`` and wraps the result;
 given tensors (inside ``hybrid_forward``, which the Gluon blocks run on
@@ -28,9 +32,11 @@ from .. import autograd
 from .. import random as _random
 from ..base import MXNetError
 from ..context import Context
+from ..ops import attention as _attn
 from ..ops import detection as _det
 from ..ops import nn as _nn
 from ..ops import optimizer_ops as _opt_ops
+from ..ops import quantization as _quant
 from .ndarray import NDArray, _recorded
 
 __all__ = ["FullyConnected", "LayerNorm", "Activation", "Embedding",
@@ -40,7 +46,8 @@ __all__ = ["FullyConnected", "LayerNorm", "Activation", "Embedding",
            "sigmoid", "tanh", "exp", "log", "sqrt", "square", "abs", "clip",
            "sum", "mean", "max", "min", "reshape", "transpose", "flatten",
            "expand_dims", "squeeze", "broadcast_to", "slice_axis", "concat",
-           "split", "broadcast_lesser", "dot", "smooth_l1", "BlockGrad",
+           "split", "broadcast_lesser", "dot", "batch_dot", "linalg_gemm2",
+           "dot_product_attention", "smooth_l1", "BlockGrad",
            "stop_gradient", "broadcast_axis", "zeros_like", "ones_like",
            "equal", "greater", "greater_equal", "broadcast_equal",
            "broadcast_greater", "broadcast_greater_equal"] \
@@ -342,6 +349,27 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False):
 
 
 @_nd_op
+def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
+    """Batched ``lhs @ rhs`` over the last two axes, either transposed
+    first (JAX counterpart: ``ops/tensor.py:286``)."""
+    a = lhs.transpose(-1, -2) if transpose_a else lhs
+    b = rhs.transpose(-1, -2) if transpose_b else rhs
+    return torch.matmul(a, b)
+
+
+@_nd_op
+def linalg_gemm2(A, B, transpose_a=False, transpose_b=False, alpha=1.0):
+    """``alpha * A @ B`` over the last two axes (JAX counterpart:
+    ``ops/tensor.py:710``)."""
+    a = A.transpose(-1, -2) if transpose_a else A
+    b = B.transpose(-1, -2) if transpose_b else B
+    return alpha * torch.matmul(a, b)
+
+
+dot_product_attention = _nd_op(_attn.dot_product_attention)
+
+
+@_nd_op
 def smooth_l1(data, scalar=1.0):
     """Huber-style smooth L1 with MXNet's ``scalar`` (JAX counterpart:
     ``ops/nn.py:576``)."""
@@ -427,6 +455,15 @@ for _name, _aliases in DETECTION_ALIASES.items():
         globals()[_n] = _fn
         __all__.append(_n)
 del _name, _aliases, _fn, _n
+
+
+# -- int8 (ops/quantization.py), under the registry's names and aliases ------
+for _name in _quant.OPS:
+    _fn = _nd_op(getattr(_quant, _name))
+    for _n in (_name, "_contrib_" + _name):
+        globals()[_n] = _fn
+        __all__.append(_n)
+del _name, _fn, _n
 
 
 # -- optimizer updates and AMP casts (ops/optimizer_ops.py) ------------------

@@ -68,6 +68,10 @@ ENV_VARS: Dict[str, tuple] = {
     "MXTPU_BENCH_STEPS": ("20", "Timed training steps of the port bench."),
     "MXTPU_BENCH_DROPOUT": ("0.1", "Dropout rate of the port bench's "
                             "BERT."),
+    "MXTPU_QUANT_PERCENTILE": ("99.99", "Default |x| percentile kept by "
+                               "int8 calibration from Observer tables "
+                               "(quantize_net / quantize_model); 100 = "
+                               "no outlier clipping."),
     "MXTPU_FUSED_STEP": ("1", "Whole-step capture of parallel."
                          "ShardedTrainer on the card (one CUDA graph "
                          "replay per step); 0 = the eager step."),

@@ -16,7 +16,11 @@ float32 convolutions without TF32, a hybridized BatchNorm net against the
 eager one (running statistics moved once per call), and the fused step
 over a BatchNorm net against the eager step; and the NMT path: the three
 kernels at masked cross-length shapes, and the decode engine's captured
-step against the same step run eagerly.
+step against the same step run eagerly; int8 and mixed precision: the
+int8 ops on the card (``torch._int_mm``) bitwise against their plain
+versions (padded row counts, ragged inner sizes), calibration of a
+hybridized net, and the fused step under ``amp.init("bfloat16")`` against
+the eager one.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -834,3 +838,122 @@ def test_hybridized_detection_step_matches_eager_on_card(kind,
     assert len(cached) == (1 if kind == "ssd" else 2)
     assert all(op.fwd is not None for op in cached.values())
     _close_params(nets[0][0], nets[1][0], rel=0.0)
+
+
+@pytest.mark.cuda
+def test_int8_ops_match_plain_versions_on_card():
+    """The int8 ops on the card (``torch._int_mm`` for the products) against
+    their plain versions on the CPU, bitwise: quantize, and
+    ``quantized_fully_connected`` with a bias at row counts that
+    ``_int_mm`` refuses (1, 8, 16: padded to its shape rules) and at inner
+    and outer sizes that are not multiples of 8; ``quantized_conv`` over
+    27 inner elements (3 channels x 3x3) with stride, padding and
+    dilation; ``quantized_pooling``, max and avg."""
+    _card()
+    from incubator_mxnet_tpu_torch.ops import quantization as tq
+    g = torch.Generator().manual_seed(0)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8)
+
+    def same(fn, *args, **kw):
+        cpu = fn(*args, **kw)
+        card = fn(*[a.cuda() if isinstance(a, torch.Tensor) else a
+                    for a in args], **kw)
+        for c, d in zip(cpu, card):
+            if isinstance(c, torch.Tensor):
+                assert torch.equal(d.cpu(), c), fn.__name__
+        return card
+
+    rng = (-2.5, 3.0, -0.7, 0.6, -0.2, 0.1)
+    x = torch.randn(40, 100, generator=g) * 3
+    same(tq.quantize, x, -4.0, 4.0)
+    for m, k, n in ((1, 768, 2304), (8, 768, 768), (16, 3072, 768),
+                    (17, 13, 6), (40, 100, 30)):
+        acc = same(tq.quantized_fully_connected, int8(m, k), int8(n, k),
+                   int8(n), *rng, num_hidden=n)
+        assert acc[0].shape == (m, n) and acc[0].dtype == torch.int32
+        same(lambda *a: (tq.dequantize(*a),), acc[0].cpu(), acc[1], acc[2])
+    for kw in (dict(stride=(1, 1), pad=(0, 0)),
+               dict(stride=(2, 1), pad=(1, 2), dilate=(2, 1))):
+        same(tq.quantized_conv, int8(2, 3, 17, 15), int8(5, 3, 3, 3),
+             int8(5), *rng, **kw)
+    for pool in ("max", "avg"):
+        same(tq.quantized_pooling, int8(2, 4, 9, 8), -1.0, 1.0,
+             kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type=pool)
+
+
+@pytest.mark.cuda
+def test_quantize_net_on_hybridized_net_on_card():
+    """Calibration of a hybridized net whose cached op has captured its
+    graphs (a replay runs no pre-hook) sees every layer's input, the
+    same ranges as the plain net's; ``quantize_model`` over it leaves its
+    graphs and outputs as they were; the swapped net then runs on the
+    card (JAX counterpart: ``tests/test_quantization.py:164``)."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, nd, quantization, serve
+    x = nd.array(torch.randn(2, 1, 12, 12).numpy(), ctx=mx.gpu(0))
+    nets = []
+    for hybrid in (False, True):
+        mx.random.seed(43)
+        net = gluon.nn.HybridSequential(prefix="net_")
+        with net.name_scope():
+            net.add(gluon.nn.Conv2D(4, 3, activation="relu",
+                                    in_channels=1),
+                    gluon.nn.Flatten(), gluon.nn.Dense(3, in_units=400))
+        net.initialize(ctx=mx.gpu(0))
+        if hybrid:
+            net.hybridize()
+        for _ in range(3):                      # eager, capture, replay
+            net(x)
+        nets.append(net)
+    assert any(op.fwd is not None for op in nets[1]._cached_ops.values())
+    ranges = [quantization.observe_net(n, [x]).ranges() for n in nets]
+    assert ranges[0] == ranges[1] and len(ranges[1]) == 2
+    # quantize_model copies the hybridized block without its graphs, which
+    # the original keeps, serving as before
+    want = nets[1](x)._data.clone()
+    cm = serve.CompiledModel(nets[1], serve.BucketTable({"batch": (2, 2)}),
+                             [{0: "batch"}], example_args=[x])
+    qcm = quantization.quantize_model(
+        cm, quantization.observe_net(nets[1], [x]))
+    assert nets[1]._cached_ops and not qcm._block._cached_ops
+    assert torch.equal(nets[1](x)._data, want)
+    assert bool(torch.isfinite(qcm.predict(x)).all())
+    quantization.quantize_net(nets[1], calib_data=[x])
+    out = nets[1](x)
+    assert out.context == mx.gpu(0) and bool(torch.isfinite(out._data).all())
+
+
+@pytest.mark.cuda
+def test_amp_fused_step_matches_eager_on_card(deterministic):
+    """Under ``amp.init("bfloat16")`` (float32 weights) three fused steps
+    against three eager ones: losses to rtol 1e-5, every weight within
+    1e-5 of its largest value; the kernels took bfloat16 q, k and v."""
+    _card()
+    from incubator_mxnet_tpu_torch import amp, bench
+    batch = bench.make_batch(2, 64, vocab=100)
+    amp.init("bfloat16")
+    seen = []
+    orig = fa._launch
+
+    def spy(name, q, *a, **k):
+        seen.append(q.dtype)
+        return orig(name, q, *a, **k)
+
+    fa._launch = spy
+    try:
+        fused, eager = _bert(), _bert()
+        tf, te = _trainer(fused, None), _trainer(eager, False)
+        lf = [float(tf.step(*batch)) for _ in range(3)]
+        le = [float(te.step(*batch)) for _ in range(3)]
+    finally:
+        fa._launch = orig
+        amp.reset()
+    assert tf.captures == 1 and tf.last_step_graphs == 1
+    assert seen and set(seen) == {torch.bfloat16}
+    torch.testing.assert_close(lf, le, rtol=1e-5, atol=0)
+    _close_params(fused, eager)
+    assert all(p.grad.dtype == torch.float32 for p in fused.parameters())
