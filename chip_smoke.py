@@ -177,6 +177,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
     step ms of the last epoch; (e) the example's gate with ``--amp``
     (resnet18_v1, 2 epochs, 4 classes, batch 16): accuracy above 0.5.
 
+18. nd ops: every op of the registry's ``ops/tensor.py``, ``ops/nn.py``
+    and ``ops/vision.py`` (194 ops, 267 cases) on the card and on the CPU
+    on the same seeded inputs ((64, 4096) float32 for elementwise ops and
+    reductions, (32, 30522) with forced ties for ``argmax``/``sort``/
+    ``topk``): dtypes and shapes equal, integer and index results equal,
+    floats within the family's tolerance (1e-5; special functions and
+    linear algebra 1e-4), gradients of the differentiable ones, custom
+    gradients included, within 1e-5; each sampler's draws repeated under
+    one seed on the card and its mean and variance over 1,000,000 draws
+    within 5 standard errors; ``boolean_mask`` and ``bincount`` refuse a
+    CUDA graph capture, naming the op;
+19. mobilenet: (a) ``mobilenetv2_1.0`` and ``mobilenet1.0`` (1000
+    classes, batch 32, 224x224) through the image-classification example
+    loop, hybridized, SGD momentum, float32 and ``--amp`` in turns: step ms
+    and imgs/s of the last epoch; (b) one hybridized step of v2 under
+    ``torch.profiler``, float32 and AMP: device time by group (depthwise
+    convolutions, the other convolutions, BatchNorm, elementwise,
+    optimizer) and idle share; (c) at mobilenet0.25 (float32, batch 8,
+    64x64) the hybridized loop against the eager one under deterministic
+    algorithms, 3 steps, within 1e-5, and two eager loops without them
+    (printed); (d) one step's gradients at mobilenet0.25 (batch 8, 64x64)
+    on the card against the CPU's float64 step: float64 within 1e-9 and
+    float32 within 1e-4 of the largest; (e) the
+    JAX package's example test (``--model mobilenet0.25 --epochs 2
+    --classes 4 --batch-size 16``): accuracy above 0.5;
+20. zoo: AlexNet, VGG-11, SqueezeNet 1.1, DenseNet-121 (224x224) and
+    Inception v3 (299x299), 1000 classes: the hybridized forward against
+    the eager one within 1e-5, and training steps at batch 8 with finite
+    losses, timed.
+
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
 """
@@ -186,6 +216,7 @@ import argparse
 import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -3237,6 +3268,858 @@ def phase_amp() -> dict:
     return res
 
 
+# -- the mx.nd op surface and the vision zoo ----------------------------------
+# card vs CPU, the same port code on the same seeded inputs, by family:
+# float results within the family's tolerance of the largest CPU value
+# (elementwise, shapes, normalisation and the output heads: another libm
+# or summation order, 1e-5; the special functions and linear algebra:
+# other algorithms, 1e-4); integer, boolean and index results equal, ties
+# included; custom-gradient ops' gradients within 1e-5
+ND_TOL = {"elementwise": 1e-5, "special": 1e-4, "binary": 1e-5,
+          "reduction": 1e-5, "linalg": 1e-4, "shape": 1e-5,
+          "ordering": 0.0, "sequence": 1e-5, "nn": 1e-5, "output": 1e-5,
+          "resample": 1e-5, "vision": 1e-5}
+ND_GRAD_TOL = 1e-5
+ND_DRAWS = 1_000_000
+ND_SE = 5.0
+# MobileNet's gradients on the card against the CPU's float64 step, each
+# error over the net's largest gradient (a BatchNorm beta that feeds a
+# training-mode BatchNorm has a gradient of rounding noise only, so the
+# scale is the net's, not each parameter's): the card's float64 step
+# (the same function, float64 rounding apart) and its float32 step
+MOBILENET_GRAD_F64_RTOL = 1e-9
+MOBILENET_GRAD_F32_RTOL = 1e-4
+MOBILENET_GATE_RTOL = 1e-5
+MOBILENET_EXAMPLE = dict(model="mobilenet0.25", epochs=2, classes=4,
+                         batch_size=16)
+MOBILENET_MODELS = ("mobilenetv2_1.0", "mobilenet1.0")
+MOBILENET_GROUPS = (("depthwise", ("depthwise", "dwconv")),) + VISION_GROUPS
+ZOO_MODELS = (("alexnet", 224), ("vgg11", 224), ("squeezenet1.1", 224),
+              ("densenet121", 224), ("inceptionv3", 299))
+ZOO_HYBRID_RTOL = 1e-5
+
+
+def _nd_cases(rng) -> list:
+    """``(family, op, args, kwargs, gradient positions)`` for every op of
+    ``ops/tensor.py``, ``ops/nn.py`` and ``ops/vision.py`` at the sizes
+    the paths give them: (64, 4096) for elementwise ops and reductions,
+    (32, 30522) with forced ties for the orderings."""
+    f = lambda *s: rng.randn(*s).astype("float32")  # noqa: E731
+    x, y, yb = f(64, 4096), f(64, 4096), f(1, 4096)
+    pos = (rng.rand(64, 4096) + 0.5).astype("float32")
+    u = rng.uniform(-0.9, 0.9, (64, 4096)).astype("float32")
+    i32 = rng.randint(-50, 50, (64, 4096)).astype("int32")
+    u8 = rng.randint(0, 255, (64, 4096)).astype("uint8")
+    g0 = (0,)
+    cases = []
+    for name in ("negative", "abs", "sign", "ceil", "floor", "round", "rint",
+                 "trunc", "fix", "square", "cbrt", "exp", "expm1", "sin",
+                 "cos", "tan", "arctan", "sinh", "cosh", "tanh", "arcsinh",
+                 "degrees", "radians", "reciprocal", "erf", "logical_not",
+                 "relu", "sigmoid", "softsign", "softrelu", "hard_sigmoid",
+                 "identity", "BlockGrad", "isnan", "isinf", "isfinite"):
+        differentiable = name not in ("logical_not", "BlockGrad", "isnan",
+                                      "isinf", "isfinite")
+        cases.append(("elementwise", name, [x], {},
+                      g0 if differentiable else ()))
+    for name in ("sqrt", "rsqrt", "rcbrt", "log", "log10", "log2", "log1p"):
+        cases.append(("elementwise", name, [pos], {}, g0))
+    for name in ("arcsin", "arccos", "arctanh"):
+        cases.append(("elementwise", name, [u], {}, g0))
+    cases += [("elementwise", "arccosh", [pos + 1], {}, g0),
+              ("special", "erfinv", [u], {}, ()),
+              ("special", "gamma", [pos], {}, ()),
+              ("special", "gammaln", [pos], {}, ()),
+              ("special", "digamma", [pos], {}, ()),
+              ("elementwise", "cast", [x * 1e3], {"dtype": "int8"}, ()),
+              ("elementwise", "cast", [x], {"dtype": "float16"}, ()),
+              ("elementwise", "clip", [x], {"a_min": -0.5, "a_max": 0.7},
+               g0)]
+    for name in ("add", "subtract", "multiply", "divide", "maximum",
+                 "minimum", "hypot", "arctan2", "mod", "floor_divide",
+                 "power"):
+        b = pos if name in ("mod", "floor_divide", "power") else y
+        cases += [("binary", name, [pos if name == "power" else x, b], {},
+                   (0, 1) if name not in ("mod", "floor_divide") else ()),
+                  ("binary", name, [i32, onp.abs(i32) % 7 + 1], {}, ())]
+    for name in ("equal", "not_equal", "greater", "greater_equal", "lesser",
+                 "lesser_equal", "logical_and", "logical_or",
+                 "logical_xor"):
+        cases += [("binary", name, [onp.round(x), onp.round(yb)], {}, ()),
+                  ("binary", name, [i32, i32[::-1].copy()], {}, ())]
+    cases += [("binary", "add_n", [x, y, pos], {}, (0, 2)),
+              ("binary", "where", [(x > 0).astype("float32"), x, y], {},
+               (1, 2))]
+    for name in ("sum", "mean", "prod", "nansum", "nanprod", "max", "min",
+                 "norm", "logsumexp"):
+        for kw in ({}, {"axis": 1}, {"axis": 0, "keepdims": True}):
+            data = pos if name in ("prod", "nanprod") and not kw else x
+            cases.append(("reduction", name, [data * (0.1 if name in (
+                "prod", "nanprod") and kw.get("axis") == 1 else 1.0)],
+                kw, g0 if name not in ("max", "min") else ()))
+    for name in ("sum", "mean", "prod", "max", "min", "nansum"):
+        cases += [("reduction", name, [u8], {"axis": 1}, ()),
+                  ("reduction", name, [i32 % 3], {}, ())]
+    ties = onp.round(f(32, 30522) * 2)
+    ties[:, 17] = ties[:, 20000] = ties[:, 30521] = ties.max() + 1
+    for name in ("argmax", "argmin"):
+        cases += [("ordering", name, [ties], {"axis": 1}, ()),
+                  ("ordering", name, [ties], {}, ())]
+    cases.append(("ordering", "argmax_channel", [ties], {}, ()))
+    for kw in ({}, {"is_ascend": False}):
+        cases += [("ordering", "sort", [ties], kw, ()),
+                  ("ordering", "argsort", [ties], kw, ())]
+    for kw in ({"k": 10}, {"k": 5, "is_ascend": True},
+               {"k": 10, "ret_typ": "both"}, {"k": 10, "ret_typ": "value"},
+               {"k": 3, "ret_typ": "mask"}):
+        cases.append(("ordering", "topk", [ties], kw, ()))
+    a3, m, spd = f(32, 128, 256), f(256, 256), None
+    spd = (m @ m.T / 256 + onp.eye(256, dtype="float32")).astype("float32")
+    low = onp.tril(m) / 16 + 4 * onp.eye(256, dtype="float32")
+    cases += [
+        ("linalg", "dot", [f(512, 1024), f(1024, 512)], {}, (0, 1)),
+        ("linalg", "dot", [f(1024, 512), f(1024, 256)],
+         {"transpose_a": True}, ()),
+        ("linalg", "batch_dot", [a3, f(32, 256, 64)], {}, (0, 1)),
+        ("linalg", "matmul", [a3, f(256, 64)], {}, ()),
+        ("linalg", "khatri_rao", [f(16, 64), f(32, 64)], {}, ()),
+        ("linalg", "linalg_gemm", [f(32, 64, 128), f(32, 128, 64),
+                                   f(32, 64, 64)], {"alpha": 0.5}, ()),
+        ("linalg", "linalg_gemm2", [f(32, 64, 128), f(32, 64, 128)],
+         {"transpose_b": True}, ()),
+        ("linalg", "linalg_potrf", [spd], {}, ()),
+        ("linalg", "linalg_trsm", [low, f(256, 64)], {}, ()),
+        ("linalg", "linalg_trsm", [low, f(64, 256)],
+         {"rightside": True, "transpose": True}, ()),
+        ("linalg", "linalg_trmm", [low, f(256, 64)], {"lower": True}, ()),
+        ("linalg", "linalg_sumlogdiag", [spd], {}, ()),
+        ("linalg", "linalg_syrk", [f(128, 256)], {"alpha": 2.0}, ()),
+        ("linalg", "linalg_extractdiag", [spd], {"offset": 1}, ()),
+        ("linalg", "linalg_makediag", [f(32, 64)], {}, ()),
+        ("linalg", "tril", [m], {"k": 1}, ()),
+        ("linalg", "triu", [m], {"k": -1}, ()),
+        ("linalg", "kron", [f(16, 16), f(32, 32)], {}, ()),
+        ("linalg", "trace", [m], {}, ()),
+    ]
+    idx = rng.randint(-10, 4200, (64, 128)).astype("float32")
+    img = f(32, 64, 28, 28)
+    cases += [
+        ("shape", "reshape", [a3], {"shape": (-3, -2)}, ()),
+        ("shape", "reshape", [a3], {"shape": (0, -4, 4, -1, -2)}, ()),
+        ("shape", "reshape_like", [x, f(4096, 64)], {}, ()),
+        ("shape", "transpose", [a3], {"axes": (2, 0, 1)}, ()),
+        ("shape", "swapaxes", [a3], {"dim1": 0, "dim2": 2}, ()),
+        ("shape", "flatten", [img], {}, ()),
+        ("shape", "expand_dims", [x], {"axis": 1}, ()),
+        ("shape", "squeeze", [f(64, 1, 4096)], {}, ()),
+        ("shape", "broadcast_to", [yb], {"shape": (64, 0)}, g0),
+        ("shape", "broadcast_like", [yb, x], {}, ()),
+        ("shape", "broadcast_axis", [f(64, 1, 256)],
+         {"axis": 1, "size": 16}, ()),
+        ("shape", "slice", [a3], {"begin": (0, None, 255),
+                                  "end": (32, 64, 0), "step": (2, 1, -3)},
+         g0),
+        ("shape", "slice_axis", [a3], {"axis": 2, "begin": 7, "end": -9},
+         ()),
+        ("shape", "slice_like", [a3, f(16, 64, 3)], {"axes": (0, 1)}, ()),
+        ("shape", "take", [x, idx], {}, g0),
+        ("shape", "take", [x, idx], {"axis": 1, "mode": "wrap"}, ()),
+        ("shape", "pick", [x, idx[:, 0]], {}, g0),
+        ("shape", "gather_nd", [x, onp.stack([idx[:, 0] % 64,
+                                              idx[:, 1] % 4096])], {}, ()),
+        ("shape", "scatter_nd", [f(128), onp.stack([
+            onp.arange(128) % 64, onp.arange(128) * 31 % 4096]).astype(
+                "float32")], {"shape": (64, 4096)}, ()),
+        ("shape", "one_hot", [idx[:, :4] % 1000], {"depth": 1000}, ()),
+        ("shape", "concat", [x, y, pos], {"dim": 1}, ()),
+        ("shape", "stack", [x, y], {"axis": 1}, ()),
+        ("shape", "split", [x], {"num_outputs": 4, "axis": 1}, ()),
+        ("shape", "split_v2", [x], {"indices_or_sections": (100, 3000),
+                                    "axis": 1}, ()),
+        ("shape", "tile", [f(64, 256)], {"reps": (2, 4)}, ()),
+        ("shape", "repeat", [f(64, 256)], {"repeats": 3, "axis": 1}, ()),
+        ("shape", "pad", [img], {"mode": "constant", "pad_width": (
+            0, 0, 0, 0, 2, 1, 1, 2), "constant_value": 0.5}, ()),
+        ("shape", "reverse", [a3], {"axis": (0, 2)}, ()),
+        ("shape", "roll", [a3], {"shift": 5, "axis": 2}, ()),
+        ("shape", "diag", [m], {"k": 2}, ()),
+        ("shape", "depth_to_space", [img], {"block_size": 2}, ()),
+        ("shape", "space_to_depth", [img], {"block_size": 2}, ()),
+        ("shape", "ravel_multi_index", [onp.stack([idx[:, 0] % 70,
+                                                   idx[:, 1] % 4200])],
+         {"shape": (64, 4096)}, ()),
+        ("shape", "unravel_index", [idx[:, 0] * 50], {"shape": (64, 4096)},
+         ()),
+        ("shape", "shape_array", [a3], {}, ()),
+        ("shape", "size_array", [a3], {}, ()),
+        ("shape", "zeros_like", [x], {}, ()),
+        ("shape", "ones_like", [i32], {}, ()),
+        ("shape", "full_like", [x], {"fill_value": 3.5}, ()),
+        ("shape", "cumsum", [x], {"axis": 1}, ()),
+        ("shape", "cumprod", [pos[:, :64]], {"axis": 1}, ()),
+        ("shape", "bincount", [idx % 5000], {}, ()),
+        ("shape", "boolean_mask", [x, (idx[:, 0] > 2000).astype(
+            "float32")], {}, g0),
+        ("shape", "index_copy", [x, onp.arange(0, 64, 3).astype(
+            "float32"), f(22, 4096)], {}, ()),
+        ("shape", "index_array", [img[:2]], {"axes": (1, 3)}, ()),
+        ("shape", "Embedding", [idx, f(4200, 64)], {}, (1,)),
+        ("shape", "all_finite", [x], {}, ()),
+        ("shape", "multi_all_finite", [x, y], {}, ()),
+        ("shape", "make_loss", [x], {"normalization": "batch"}, g0),
+    ]
+    seq = f(128, 64, 256)
+    lens = rng.randint(0, 129, 64).astype("float32")
+    cases += [
+        ("sequence", "SequenceMask", [seq, lens],
+         {"use_sequence_length": True, "value": -1.0}, g0),
+        ("sequence", "SequenceMask", [seq.transpose(1, 0, 2).copy(), lens],
+         {"use_sequence_length": True, "axis": 1}, ()),
+        ("sequence", "SequenceLast", [seq, lens],
+         {"use_sequence_length": True}, g0),
+        ("sequence", "SequenceLast", [seq.transpose(1, 0, 2).copy(), lens],
+         {"use_sequence_length": True, "axis": 1}, ()),
+        ("sequence", "SequenceReverse", [seq, lens],
+         {"use_sequence_length": True}, g0),
+    ]
+    feat = f(32, 256, 28, 28)
+    logits = f(32, 30522)
+    cases += [
+        ("nn", "Convolution", [feat, f(128, 256, 3, 3), f(128)],
+         {"kernel": (3, 3), "pad": (1, 1), "stride": (2, 2)}, (0, 1, 2)),
+        ("nn", "Convolution", [feat, f(256, 1, 3, 3)],
+         {"kernel": (3, 3), "pad": (1, 1), "num_group": 256,
+          "no_bias": True}, (0, 1)),
+        ("nn", "Deconvolution", [feat, f(256, 64, 4, 4)],
+         {"kernel": (4, 4), "stride": (2, 2), "pad": (1, 1),
+          "no_bias": True}, (0, 1)),
+        ("nn", "Pooling", [feat], {"kernel": (3, 3), "stride": (2, 2),
+                                   "pool_type": "max",
+                                   "pooling_convention": "full"}, g0),
+        ("nn", "Pooling", [feat], {"kernel": (2, 2), "stride": (2, 2),
+                                   "pool_type": "avg"}, g0),
+        ("nn", "BatchNorm", [feat, f(256), f(256), f(256) * 0.1,
+                             onp.abs(f(256)) + 0.5],
+         {"fix_gamma": False, "training": True}, (0, 1, 2)),
+    ]
+    labels = rng.randint(0, 30522, 32).astype("float32")
+    cases += [
+        ("nn", "GroupNorm", [feat, f(256), f(256)], {"num_groups": 32},
+         (0, 1, 2)),
+        ("nn", "InstanceNorm", [feat, f(256), f(256)], {}, (0,)),
+        ("nn", "L2Normalization", [feat], {"mode": "channel"}, g0),
+        ("nn", "RMSNorm", [f(64, 1024), f(1024)], {}, (0, 1)),
+        ("nn", "LRN", [f(32, 96, 55, 55)], {"nsize": 5}, g0),
+        ("nn", "LayerNorm", [feat, f(256), f(256)], {"axis": 1}, g0),
+        ("nn", "FullyConnected", [f(64, 1024), f(512, 1024), f(512)], {},
+         (0, 1)),
+        ("nn", "Activation", [x], {"act_type": "softrelu"}, g0),
+        ("nn", "LeakyReLU", [x], {"act_type": "elu", "slope": 0.3}, g0),
+        ("nn", "LeakyReLU", [feat, f(256)], {"act_type": "prelu"}, ()),
+        ("nn", "gelu_tanh", [x], {}, g0),
+        ("nn", "silu", [x], {}, g0),
+        ("nn", "softmax", [logits], {"temperature": 2.0}, g0),
+        ("nn", "softmax", [f(64, 16, 512), onp.full((64, 16), 300,
+                                                    "float32")],
+         {"use_length": True}, g0),
+        ("nn", "log_softmax", [logits], {}, g0),
+        ("nn", "softmin", [logits], {}, ()),
+        ("nn", "SoftmaxActivation", [feat[:4]], {"mode": "channel"}, ()),
+        ("nn", "masked_softmax", [x, (y > 0).astype("float32")], {}, ()),
+        ("nn", "softmax_cross_entropy", [logits, labels], {}, g0),
+        ("nn", "smooth_l1", [x], {"scalar": 2.0}, g0),
+        ("output", "SoftmaxOutput", [logits, labels],
+         {"normalization": "batch"}, g0),
+        ("output", "SoftmaxOutput", [f(32, 10, 49), rng.randint(
+            -1, 10, (32, 49)).astype("float32")],
+         {"multi_output": True, "use_ignore": True,
+          "normalization": "valid"}, g0),
+        ("output", "LinearRegressionOutput", [x, y], {}, g0),
+        ("output", "LogisticRegressionOutput", [x, (y > 0).astype(
+            "float32")], {}, g0),
+        ("output", "MAERegressionOutput", [x, y], {}, g0),
+        ("output", "SVMOutput", [logits[:, :1000], labels % 1000], {}, g0),
+        ("output", "MakeLoss", [x], {"normalization": "valid",
+                                     "valid_thresh": 0.5}, g0),
+        ("resample", "UpSampling", [img], {"scale": 2}, g0),
+        ("resample", "UpSampling", [img], {"scale": 2,
+                                           "sample_type": "bilinear"}, g0),
+        ("resample", "contrib_BilinearResize2D", [img],
+         {"height": 17, "width": 40}, g0),
+        ("resample", "im2col", [img], {"kernel": (3, 3), "pad": (1, 1)},
+         ()),
+        ("resample", "col2im", [f(32, 576, 784)], {"output_size": (28, 28),
+                                                   "kernel": (3, 3),
+                                                   "pad": (1, 1)}, ()),
+    ]
+    theta = (onp.tile([1, 0, 0, 0, 1, 0], (32, 1))
+             + 0.1 * f(32, 6)).astype("float32")
+    grid = rng.uniform(-1.1, 1.1, (32, 2, 56, 56)).astype("float32")
+    cases += [
+        ("vision", "GridGenerator", [theta], {"target_shape": (56, 56)},
+         ()),
+        ("vision", "GridGenerator", [f(32, 2, 56, 56)],
+         {"transform_type": "warp"}, ()),
+        ("vision", "BilinearSampler", [f(32, 64, 56, 56), grid], {},
+         (0, 1)),
+        ("vision", "SpatialTransformer", [f(32, 64, 56, 56), theta],
+         {"target_shape": (28, 28)}, ()),
+        ("vision", "Correlation", [f(4, 64, 48, 64), f(4, 64, 48, 64)],
+         {"max_displacement": 4, "stride2": 2, "pad_size": 4}, ()),
+        ("vision", "Crop", [img], {"h_w": (20, 24), "center_crop": True},
+         ()),
+        ("vision", "batch_take", [x, idx[:, 0]], {}, ()),
+    ]
+    return cases
+
+
+def _nd_on(v, ctx):
+    if isinstance(v, onp.ndarray):
+        return nd.array(v, ctx=ctx, dtype=v.dtype)
+    return v
+
+
+def _nd_run(name, args, kw, grad, ctx, cot_seed):
+    """``mx.nd.<name>`` on ``ctx``: the outputs (numpy) and, for the
+    positions in ``grad``, the gradients for a seeded cotangent."""
+    op = getattr(nd, name)
+    arrs = [_nd_on(a, ctx) for a in args]
+    kws = {k: _nd_on(v, ctx) for k, v in kw.items()}
+    if not grad:
+        out = op(*arrs, **kws)
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        return [o.asnumpy() for o in outs], [str(o.dtype) for o in outs], []
+    for i in grad:
+        arrs[i].attach_grad()
+    with autograd.record():
+        out = op(*arrs, **kws)
+        outs = out if isinstance(out, (list, tuple)) else [out]
+    cot = onp.asarray(onp.random.RandomState(cot_seed).randn(
+        *outs[0].shape), "float32")
+    outs[0].backward(nd.array(cot, ctx=ctx))
+    return ([o.asnumpy() for o in outs], [str(o.dtype) for o in outs],
+            [arrs[i].grad.asnumpy() for i in grad])
+
+
+def _nd_err(a, b) -> float:
+    """max |a - b| over max(|b|, 1) (NaN where NaN; inf where inf)."""
+    a, b = a.astype("float64"), b.astype("float64")
+    same = (onp.isnan(a) & onp.isnan(b)) | (a == b)
+    fin = onp.isfinite(b)
+    scale = max(float(onp.abs(b[fin]).max()) if fin.any() else 0.0, 1.0)
+    diff = onp.where(same, 0.0, onp.abs(a - b))
+    return float(onp.nan_to_num(diff, nan=onp.inf).max()) / scale \
+        if diff.size else 0.0
+
+
+def nd_ops_card_vs_cpu(seed: int = 0) -> dict:
+    """(a) Every op of the registry's tensor, nn and vision modules on the
+    card and on the CPU, on the same seeded inputs, by family: values,
+    dtypes, ties and gradients."""
+    from incubator_mxnet_tpu_torch.ops.registry import OPS
+    cases = _nd_cases(onp.random.RandomState(seed))
+    want = {id(d) for d in OPS.values() if d.module.rsplit(".", 1)[-1]
+            in ("tensor", "nn", "vision")}
+    covered = {id(OPS[c[1]]) for c in cases}
+    missing = sorted({d.name for d in OPS.values() if id(d) in want
+                      and id(d) not in covered})
+    check(not missing, f"nd ops: no card case for {missing}")
+    worst, failed = {}, []
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    for n, (family, name, args, kw, grad) in enumerate(cases):
+        card = _nd_run(name, args, kw, grad, mx.gpu(0), n)
+        cpu = _nd_run(name, args, kw, grad, mx.cpu(), n)
+        tol = ND_TOL[family]
+        errs = []
+        for a, b, da, db in zip(card[0], cpu[0], card[1], cpu[1]):
+            if da != db or a.shape != b.shape:
+                failed.append(f"{name} {sorted(kw)}: {da}{a.shape} on the "
+                              f"card, {db}{b.shape} on the CPU")
+                continue
+            exact = b.dtype.kind in "biu" or family == "ordering"
+            e = _nd_err(a, b)
+            if (exact and e != 0.0) or e > tol:
+                failed.append(f"{name} {sorted(kw)}: output err {e:.2e} "
+                              f"(tol {0.0 if exact else tol})")
+            errs.append(e)
+        for a, b in zip(card[2], cpu[2]):
+            e = _nd_err(a, b)
+            gtol = max(tol, ND_GRAD_TOL)
+            if e > gtol:
+                failed.append(f"{name} {sorted(kw)}: gradient err {e:.2e} "
+                              f"(tol {gtol})")
+            errs.append(e)
+        w = worst.setdefault(family, [0.0, "", 0])
+        w[2] += 1
+        if errs and max(errs) >= w[0]:
+            w[0], w[1] = max(errs), name
+    secs = time.perf_counter() - t0
+    launches = cuda_ops.launch_counts()
+    ops = len({id(OPS[c[1]]) for c in cases})
+    print(f"nd ops: {ops} ops ({len(cases)} cases) card vs CPU in "
+          f"{secs:.1f} s; worst error by family: " + ", ".join(
+              f"{fam} {w[0]:.2e} ({w[1]}, {w[2]} cases, tol "
+              f"{ND_TOL[fam]})" for fam, w in worst.items()), flush=True)
+    check(not failed, "nd ops differ on the card:\n" + "\n".join(failed))
+    check(not any(launches.values()), f"nd ops launched attention kernels:"
+          f" {launches}")
+    return {"ops": ops, "cases": len(cases), "seconds": secs,
+            "worst_by_family": {k: {"err": v[0], "op": v[1], "cases": v[2]}
+                                for k, v in worst.items()},
+            "launches": launches}
+
+
+def nd_samplers_on_card() -> dict:
+    """(b) Each sampler on the card: the same draws after the same
+    ``mx.random.seed``, and the mean and variance of ``ND_DRAWS`` draws
+    within ``ND_SE`` standard errors of the distribution's."""
+    ctx, n = mx.gpu(0), ND_DRAWS
+    samplers = {
+        "uniform": (lambda: nd.random.uniform(-1.0, 3.0, shape=n, ctx=ctx),
+                    1.0, 16 / 12),
+        "normal": (lambda: nd.random.normal(2.0, 3.0, shape=n, ctx=ctx),
+                   2.0, 9.0),
+        "randint": (lambda: nd.random.randint(-3, 5, shape=n, ctx=ctx),
+                    0.5, 5.25),
+        "exponential": (lambda: nd.random.exponential(2.0, shape=n,
+                                                      ctx=ctx), 2.0, 4.0),
+        "gamma": (lambda: nd.random.gamma(3.0, 2.0, shape=n, ctx=ctx),
+                  6.0, 12.0),
+        "poisson": (lambda: nd.random.poisson(4.0, shape=n, ctx=ctx),
+                    4.0, 4.0),
+        "negative_binomial": (lambda: nd.random.negative_binomial(
+            3, 0.4, shape=n, ctx=ctx), 4.5, 11.25),
+        "generalized_negative_binomial": (
+            lambda: nd.random.generalized_negative_binomial(
+                2.0, 0.5, shape=n, ctx=ctx), 2.0, 4.0),
+        "bernoulli": (lambda: nd.random.bernoulli(0.3, shape=n, ctx=ctx),
+                      0.3, 0.21),
+        "multinomial": (lambda: nd.random.multinomial(
+            nd.array([0.1, 0.2, 0.7], ctx=ctx), shape=n), 1.6, 0.44),
+    }
+    res = {}
+    for name, (draw, mean, var) in samplers.items():
+        mx.random.seed(3)
+        a = draw().asnumpy().astype("float64")
+        mx.random.seed(3)
+        b = draw().asnumpy().astype("float64")
+        m, v = a.mean(), a.var()
+        se_m, se_v = onp.sqrt(var / n), ((a - m) ** 2).std() / onp.sqrt(n)
+        res[name] = {"mean": m, "var": v, "want_mean": mean,
+                     "want_var": var, "same_draws": bool((a == b).all())}
+        check((a == b).all(), f"{name}: other draws after the same seed")
+        check(abs(m - mean) < ND_SE * se_m and abs(v - var) < ND_SE * se_v,
+              f"{name}: mean {m} var {v} against {mean} {var} (SE {se_m}, "
+              f"{se_v})")
+    mx.random.seed(3)
+    perm = nd.random.shuffle(nd.arange(n, ctx=ctx)).asnumpy()
+    check((onp.sort(perm) == onp.arange(n)).all(), "shuffle lost rows")
+    print(f"nd samplers on the card: {len(res)} samplers x {n:,} draws, "
+          f"same draws after the same seed, moments within {ND_SE} SE: "
+          + ", ".join(f"{k} {r['mean']:.4f}/{r['var']:.4f}"
+                      for k, r in res.items()), flush=True)
+    return res
+
+
+def nd_refuses_capture() -> dict:
+    """(c) ``boolean_mask`` and ``bincount`` (output shapes that depend on
+    the data) raise inside a CUDA graph capture, naming the op."""
+    from incubator_mxnet_tpu_torch.base import MXNetError
+    x = torch.ones(8, 4, device="cuda")
+    mask = torch.ones(8, device="cuda")
+    res = {}
+    for name, call in (("boolean_mask", lambda: nd.boolean_mask(x, mask)),
+                       ("bincount", lambda: nd.bincount(mask))):
+        g, s = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        msg = ""
+        with torch.cuda.stream(s):
+            g.capture_begin()
+            try:
+                call()
+            except MXNetError as e:
+                msg = str(e)
+            finally:
+                g.capture_end()
+        torch.cuda.current_stream().wait_stream(s)
+        check(name in msg and "capture" in msg, f"{name} did not refuse a "
+              f"CUDA graph capture: {msg!r}")
+        res[name] = msg[:80]
+    print(f"nd ops refuse a capture: {sorted(res)}", flush=True)
+    return res
+
+
+def phase_nd_ops() -> dict:
+    """The op surface on the card: (a) every op against the CPU, (b) the
+    samplers, (c) the data-dependent shapes under a capture."""
+    t0 = time.perf_counter()
+    res = {"ops": nd_ops_card_vs_cpu(), "samplers": nd_samplers_on_card(),
+           "capture": nd_refuses_capture()}
+    res["launches"] = res["ops"]["launches"]
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _mobilenet(name, ctx, classes: int, seed: int = 0):
+    """A zoo model on ``ctx``, seeded ``Xavier`` (drawn on the CPU, so
+    twins on any device have the same weights; shapes at the first
+    call)."""
+    net = gluon.model_zoo.vision.get_model(name, classes=classes)
+    net.initialize(mx.init.Xavier(generator=torch.Generator().manual_seed(
+        seed)), ctx=ctx)
+    return net
+
+
+def _gluon_step(net, trainer, x, y, loss_fn, batch_size):
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(batch_size)
+    return loss
+
+
+def mobilenet_bench() -> dict:
+    """(a) MobileNet v2 1.0 and v1 1.0 (1000 classes, batch 32, 224x224)
+    through the image-classification example loop, hybridized, SGD
+    momentum, with ``--amp`` and without, in turns: step ms and imgs/s
+    of the last epoch, the median over the turns (their spread
+    printed)."""
+    from incubator_mxnet_tpu_torch.models import image_classification as ic
+    res = {}
+    order = {"mobilenetv2_1.0": ("float32", "amp", "amp", "float32",
+                                 "float32", "amp"),
+             "mobilenet1.0": ("float32", "amp", "amp", "float32")}
+    launches = {}
+    for model in MOBILENET_MODELS:
+        for mode in order[model]:
+            gc.collect()
+            torch.cuda.empty_cache()
+            cuda_ops.reset_launches()
+            with _amp_on(False):
+                out = ic.image_classification_example(
+                    model=model, classes=1000, image_size=224, epochs=2,
+                    batch_size=32, amp=mode == "amp", ctx=mx.gpu(0))
+            got = cuda_ops.launch_counts()
+            launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+            check(all(onp.isfinite(out["losses"])), f"{model} {mode}: "
+                  "non-finite loss")
+            steps = len(out["losses"]) // len(out["epoch_seconds"])
+            r = res.setdefault(model, {}).setdefault(mode, {
+                "epoch_s_runs": [], "first_epoch_s": out["epoch_seconds"][0],
+                "losses": out["losses"]})
+            r["epoch_s_runs"].append(out["epoch_seconds"][-1])
+            r["steps_per_epoch"] = steps
+            median = statistics.median(r["epoch_s_runs"])
+            r["step_ms"] = median / steps * 1e3
+            r["step_ms_min_max"] = [t / steps * 1e3 for t in (
+                min(r["epoch_s_runs"]), max(r["epoch_s_runs"]))]
+            r["imgs_per_s"] = 32 * steps / median
+    card = card_line()
+    for model, modes in res.items():
+        for mode, r in modes.items():
+            lo, hi = r["step_ms_min_max"]
+            print(f"mobilenet {model} example loop, {mode}: "
+                  f"{r['step_ms']:.3f} ms per step = {r['imgs_per_s']:.1f} "
+                  f"imgs/s (median of {len(r['epoch_s_runs'])} turns' last "
+                  f"epochs of {r['steps_per_epoch']} steps; turns "
+                  f"{lo:.3f} to {hi:.3f} ms; last-epoch runs "
+                  f"{[round(s, 4) for s in r['epoch_s_runs']]} s), first "
+                  f"epoch {r['first_epoch_s']:.1f} s, loss "
+                  f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} on {card}",
+                  flush=True)
+    check(not any(launches.values()), f"mobilenet launched attention "
+          f"kernels: {launches}")
+    res["launches"] = launches
+    return res
+
+
+def mobilenet_profile(model: str = "mobilenetv2_1.0") -> dict:
+    """(b) One hybridized step of the example's loop (batch 32, 224x224,
+    1000 classes) under ``torch.profiler``, float32 and ``--amp``: device
+    time by group (depthwise convolutions, the other (pointwise)
+    convolutions, BatchNorm, elementwise, the optimizer) and the idle
+    share."""
+    res = {}
+    rng = onp.random.RandomState(0)
+    xb = rng.rand(32, 3, 224, 224).astype("float32")
+    yb = rng.randint(0, 1000, 32).astype("float32")
+    for mode in ("float32", "amp"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        with _amp_on(mode == "amp"):
+            net = _mobilenet(model, mx.gpu(0), 1000)
+            net.hybridize()
+            trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                    {"learning_rate": 0.05,
+                                     "momentum": 0.9})
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            x, y = nd.array(xb, ctx=mx.gpu(0)), nd.array(yb, ctx=mx.gpu(0))
+            for _ in range(3):
+                _gluon_step(net, trainer, x, y, loss_fn, 32)
+            wall, per_kernel = device_split(
+                lambda: _gluon_step(net, trainer, x, y, loss_fn, 32))
+        r = {"profiled_step_wall_ms": wall}
+        r.update(group_split(per_kernel, MOBILENET_GROUPS))
+        busy = r["profiled_device_ms"]
+        r["device_idle_share"] = max(0.0, 1.0 - busy / wall) if wall else 0.0
+        print(f"mobilenet {model} {mode} profile: one hybridized step "
+              f"{wall:.3f} ms wall, device busy {busy:.3f} ms in "
+              f"{r['kernels']} kernels, idle share "
+              f"{r['device_idle_share']:.1%}; by group: " + ", ".join(
+                  f"{g} {t:.3f} ms ({r['share_by_group'].get(g, 0):.1%})"
+                  for g, t in r["ms_by_group"].items()), flush=True)
+        for t in r["top"][:6]:
+            print(f"  {t['ms']:9.3f} ms {t['share']:6.1%}  {t['kernel']}",
+                  flush=True)
+        res[mode] = r
+    return res
+
+
+def _mobilenet_twin_steps(name, ctxs, hybrid, steps, B=8, img=64,
+                          classes=10, dtype="float32"):
+    """``steps`` Gluon training steps of twin nets (same weights and
+    batches), one per ``(ctx, hybridize)``: the nets and the losses."""
+    rng = onp.random.RandomState(5)
+    xb = rng.rand(B, 3, img, img).astype("float32")
+    yb = rng.randint(0, classes, B).astype("float32")
+    nets, losses = [], []
+    for ctx, hyb in zip(ctxs, hybrid):
+        net = _mobilenet(name, ctx, classes)
+        net(nd.array(xb[:1], ctx=ctx))
+        if dtype != "float32":
+            net.cast(dtype)
+        if hyb:
+            net.hybridize()
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.05, "momentum": 0.9})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        x = nd.array(xb, ctx=ctx, dtype=dtype)
+        y = nd.array(yb, ctx=ctx, dtype=dtype)
+        run = []
+        for _ in range(steps):
+            run.append(float(_gluon_step(net, trainer, x, y, loss_fn,
+                                         B).mean().asscalar()))
+        nets.append(net)
+        losses.append(run)
+    return nets, losses
+
+
+def _net_rel_err(nets, pick) -> tuple:
+    """max |a - b| over the largest |b| of all the net's tensors
+    ``pick(param)``, and the parameter where it is largest (one scale for
+    the net: a BatchNorm beta that feeds a training-mode BatchNorm holds
+    rounding noise only)."""
+    n0, n1 = len(nets[0].prefix), len(nets[1].prefix)
+    by_suffix = {k[n1:]: p for k, p in nets[1].collect_params().items()}
+    diffs, scale = {}, 0.0
+    for k, p in nets[0].collect_params().items():
+        a, b = pick(p), pick(by_suffix[k[n0:]])
+        if a is None or b is None:
+            continue
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        diffs[k] = float((a - b).abs().max())
+        scale = max(scale, float(b.abs().max()))
+    worst = max(diffs, key=diffs.get)
+    return diffs[worst] / scale, worst
+
+
+def mobilenet_hybrid_gate(steps: int = 3, img: int = 64) -> dict:
+    """(c) At mobilenet0.25 (float32, batch 8, ``img`` x ``img``, 10
+    classes), the hybridized Gluon loop (CUDA graphs) against the eager
+    one under ``torch.use_deterministic_algorithms``: losses, weights and
+    running statistics after ``steps`` steps. Two eager loops without
+    deterministic algorithms are compared the same way and printed: how
+    far the kernels' own rounding parts two runs of one loop."""
+    gc.collect()
+    nets, losses = _mobilenet_twin_steps("mobilenet0.25",
+                                         (mx.gpu(0), mx.gpu(0)),
+                                         (False, False), steps, img=img)
+    free_loss = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    free_weights, free_name = _net_rel_err(nets, lambda p: p._var)
+    print(f"mobilenet eager vs eager: mobilenet0.25 float32 batch 8 at "
+          f"{img}, {steps} steps, without deterministic algorithms: "
+          f"losses worst rel err {free_loss:.2e}, weights and running "
+          f"statistics worst err {free_weights:.2e} of the largest "
+          f"({free_name})", flush=True)
+    del nets
+    cuda_ops.reset_launches()
+    torch.use_deterministic_algorithms(True)
+    try:
+        nets, losses = _mobilenet_twin_steps("mobilenet0.25",
+                                             (mx.gpu(0), mx.gpu(0)),
+                                             (True, False), steps, img=img)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    weights, wname = _net_rel_err(nets, lambda p: p._var)
+    print(f"mobilenet gate: mobilenet0.25 float32 batch 8 at {img}, {steps} "
+          f"steps, hybridized vs eager under deterministic algorithms: "
+          f"losses {losses[0]} vs {losses[1]} (worst rel err "
+          f"{loss_err:.2e}); weights and running statistics worst err "
+          f"{weights:.2e} of the largest ({wname}), tol "
+          f"{MOBILENET_GATE_RTOL}", flush=True)
+    check(loss_err <= MOBILENET_GATE_RTOL and weights <= MOBILENET_GATE_RTOL,
+          f"hybridized and eager MobileNet differ: losses {loss_err}, "
+          f"weights {weights} at {wname}")
+    return {"losses_hybrid": losses[0], "losses_eager": losses[1],
+            "loss_rel_err": loss_err, "weights_worst_rel_err": weights,
+            "weights_worst_param": wname,
+            "bitwise": loss_err == 0.0 and weights == 0.0,
+            "eager_vs_eager_nondeterministic": {
+                "loss_rel_err": free_loss, "weights_worst_rel_err":
+                free_weights, "weights_worst_param": free_name},
+            "launches": cuda_ops.launch_counts()}
+
+
+def _grads_by_suffix(net) -> dict:
+    n = len(net.prefix)
+    return {k[n:]: p._var.grad.detach().double().cpu() for k, p in
+            net.collect_params().items() if p.grad_req != "null"}
+
+
+def mobilenet_grads_vs_cpu(img: int = 64) -> dict:
+    """(d) One Gluon step's gradients of mobilenet0.25 (batch 8, ``img`` x
+    ``img``) on the card against the CPU's. The CPU's float32 step is the
+    inexact one here: its gradients lie 3e-3 to 3e-2 of the largest from
+    its float64 step, depending on the seed and size (the JAX package's on
+    the CPU too), while the card's float32 gradients lie ~1e-5 from it.
+    So the gate holds the card against the CPU's float64 step: in float64
+    (the same function on both, within ``MOBILENET_GRAD_F64_RTOL``) and in
+    float32 (within ``MOBILENET_GRAD_F32_RTOL``); the float32 card vs CPU
+    distance is printed beside the CPU's own float32 error. Each error is
+    max |a - b| over the net's largest gradient."""
+    gc.collect()
+    runs = {}
+    for dtype in ("float32", "float64"):
+        nets, losses = _mobilenet_twin_steps(
+            "mobilenet0.25", (mx.gpu(0), mx.cpu()), (False, False), 1,
+            img=img, dtype=dtype)
+        runs[dtype] = ([_grads_by_suffix(n) for n in nets],
+                       [lo[0] for lo in losses])
+
+    def rel(a, b):
+        scale = max(float(g.abs().max()) for g in b.values())
+        errs = {k: float((a[k] - b[k]).abs().max()) / scale for k in b}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+    (card32, cpu32), losses32 = runs["float32"]
+    (card64, cpu64), losses64 = runs["float64"]
+    e64, w64 = rel(card64, cpu64)
+    e32, w32 = rel(card32, cpu64)
+    cond, _ = rel(cpu32, cpu64)
+    pair, _ = rel(card32, cpu32)
+    tol32 = MOBILENET_GRAD_F32_RTOL
+    print(f"mobilenet gradients: mobilenet0.25 batch 8 at {img}, one step: "
+          f"float64 card vs CPU {e64:.2e} ({w64}), tol "
+          f"{MOBILENET_GRAD_F64_RTOL}; float32 card vs the CPU's float64 step "
+          f"{e32:.2e} ({w32}), tol {tol32:.2e} (the CPU's float32 step vs "
+          f"its float64 step {cond:.2e}; card vs CPU in float32 "
+          f"{pair:.2e}); losses float32 {losses32[0]:.6f} vs "
+          f"{losses32[1]:.6f}, float64 {losses64[0]:.9f} vs "
+          f"{losses64[1]:.9f}", flush=True)
+    check(e64 <= MOBILENET_GRAD_F64_RTOL, f"MobileNet float64 gradients on the "
+          f"card differ from the CPU's: {e64} at {w64}")
+    check(e32 <= tol32, f"MobileNet float32 gradients on the card are "
+          f"{e32} from the float64 step at {w32} (tol {tol32})")
+    check(abs(losses32[0] - losses32[1]) <= 1e-4 * abs(losses32[1]),
+          f"MobileNet losses differ: {losses32}")
+    return {"float64_rel_err": e64, "float64_worst_param": w64,
+            "float32_vs_float64": e32, "float32_worst_param": w32,
+            "cpu_float32_vs_float64": cond, "card_vs_cpu_float32": pair,
+            "losses_float32": losses32, "losses_float64": losses64}
+
+
+def mobilenet_example_gate() -> dict:
+    """(e) The JAX package's example test on the card: ``--model
+    mobilenet0.25 --epochs 2 --classes 4 --batch-size 16``, accuracy
+    above 0.5."""
+    from incubator_mxnet_tpu_torch.models import image_classification as ic
+    gc.collect()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    with _amp_on(False):
+        out = ic.image_classification_example(ctx=mx.gpu(0),
+                                              **MOBILENET_EXAMPLE)
+    launches = cuda_ops.launch_counts()
+    secs = time.perf_counter() - t0
+    print(f"mobilenet example gate: {MOBILENET_EXAMPLE}: accuracy "
+          f"{out['epochs']} (gate 0.5), loss {out['losses'][0]:.4f} -> "
+          f"{out['losses'][-1]:.4f}, {secs:.1f} s", flush=True)
+    check(out["accuracy"] > 0.5, f"the mobilenet0.25 example's accuracy "
+          f"{out['accuracy']} <= 0.5")
+    check(not any(launches.values()), f"the example launched attention "
+          f"kernels: {launches}")
+    return {"accuracy": out["accuracy"], "epochs": out["epochs"],
+            "seconds": secs, "launches": launches}
+
+
+def phase_mobilenet() -> dict:
+    """MobileNet: (a) v2 and v1 at full width through the example loop,
+    float32 and AMP in turns; (b) a profiled step; (c) hybridized =
+    eager; (d) card vs CPU gradients; (e) the JAX example test's run."""
+    t0 = time.perf_counter()
+    res = {"bench": mobilenet_bench(), "profile": mobilenet_profile(),
+           "hybrid_gate": mobilenet_hybrid_gate(),
+           "grads_vs_cpu": mobilenet_grads_vs_cpu(),
+           "example": mobilenet_example_gate()}
+    res["launches"] = res["bench"]["launches"]
+    res["seconds"] = time.perf_counter() - t0
+    print(f"mobilenet: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def phase_zoo(B: int = 8) -> dict:
+    """The other zoo families at their published widths (1000 classes;
+    224x224, Inception 299x299): the hybridized forward (CUDA graphs)
+    against the eager one on the card (predict mode), then training steps
+    of the hybridized net at batch ``B``: two warm ones (eager, capture),
+    three timed, every loss finite."""
+    t0 = time.perf_counter()
+    res = {}
+    cuda_ops.reset_launches()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for name, size in ZOO_MODELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rng = onp.random.RandomState(7)
+        x = nd.array(rng.rand(B, 3, size, size).astype("float32"),
+                     ctx=mx.gpu(0))
+        y = nd.array(rng.randint(0, 1000, B).astype("float32"),
+                     ctx=mx.gpu(0))
+        net = _mobilenet(name, mx.gpu(0), 1000)
+        with autograd.predict_mode():
+            eager = net(x).asnumpy()
+            net.hybridize()
+            hyb = [net(x).asnumpy() for _ in range(2)]
+        err = max(_nd_err(h, eager) for h in hyb)
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.01, "momentum": 0.9})
+        # the first call runs eagerly, the second captures the graphs
+        first = [float(_gluon_step(net, trainer, x, y, loss_fn,
+                                   B).mean().asscalar()) for _ in range(2)]
+        ms, losses = synced_ms(lambda: _gluon_step(net, trainer, x, y,
+                                                   loss_fn, B), 3)
+        losses = first + [float(v.mean().asscalar()) for v in losses]
+        res[name] = {"hybrid_vs_eager": err, "step_ms": ms,
+                     "losses": losses, "image": size}
+        print(f"zoo {name} ({size}x{size}, 1000 classes): hybridized vs "
+              f"eager forward {err:.2e} (tol {ZOO_HYBRID_RTOL}); training "
+              f"step at batch {B}: {ms:.3f} ms, losses {losses}",
+              flush=True)
+        check(err <= ZOO_HYBRID_RTOL, f"{name}: hybridized forward differs "
+              f"from the eager one by {err}")
+        check(all(onp.isfinite(losses)), f"{name}: non-finite loss "
+              f"{losses}")
+        del net, trainer
+    res["launches"] = cuda_ops.launch_counts()
+    check(not any(res["launches"].values()), f"the zoo launched attention "
+          f"kernels: {res['launches']}")
+    res["seconds"] = time.perf_counter() - t0
+    print(f"zoo: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -3286,6 +4169,9 @@ def main(argv=None) -> int:
     nmt_res = phase_nmt(args.seed)
     det_res = phase_detection()
     amp_res = phase_amp()
+    nd_res = phase_nd_ops()
+    mob_res = phase_mobilenet()
+    zoo_res = phase_zoo()
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -3333,7 +4219,12 @@ def main(argv=None) -> int:
                                  "amp_resnet": amp_res["resnet"]["amp"][
                                      "launches"][name],
                                  "amp_example": amp_res["example"][
-                                     "launches"][name]},
+                                     "launches"][name],
+                                 "nd_ops": nd_res["launches"][name],
+                                 "mobilenet": mob_res["launches"][name],
+                                 "mobilenet_example": mob_res["example"][
+                                     "launches"][name],
+                                 "zoo": zoo_res["launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -3354,7 +4245,9 @@ def main(argv=None) -> int:
                        "train_gradients": grads,
                        "gluon": glu, "vision": vis, "nmt": nmt_res,
                        "detection": det_res, "int8_serve": int8_res,
-                       "amp": amp_res, "kernels": kernels},
+                       "amp": amp_res, "nd_ops": nd_res,
+                       "mobilenet": mob_res, "zoo": zoo_res,
+                       "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -37,23 +37,31 @@ with their losses and example loops (``bench`` runs ``bench.py``'s
 casting the inputs of the matmul-class ops of ``mx.nd`` (the flash
 kernels then run in bf16), and ``quantization`` (calibration,
 ``quantize_net``, ``quantize_model``) on the int8 ops of
-``ops/quantization.py`` (``torch._int_mm`` on the card).
+``ops/quantization.py`` (``torch._int_mm`` on the card); and the op
+surface: every op of the JAX registry but ``RNN``, ``CTCLoss``, ``Custom``
+and the ``interleaved_matmul_*`` ops, in one registry
+(``ops/registry.py``; ``ops/tensor.py``, ``ops/nn.py``, ``ops/vision.py``)
+that ``mx.nd``, ``F`` and ``amp.init`` read, the samplers of
+``mx.nd.random``, ``mx.waitall``, and the whole vision model zoo
+(MobileNet, AlexNet, VGG, SqueezeNet, DenseNet, Inception, ResNet).
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
     Context, cpu, current_context, gpu, num_gpus, resolve_device,
 )
 from . import (  # noqa: F401
-    autograd, random, ndarray, initializer, gluon, ops, nn, models, serve,
+    autograd, engine, random, ndarray, initializer, gluon, ops, nn, models, serve,
     convert, optimizer, parallel, lr_scheduler, metric, io, contrib, image,
     amp, quantization,
 )
+
+from .engine import waitall  # noqa: F401
 
 nd = ndarray
 init = initializer
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "resolve_device", "autograd", "random", "ndarray",
+           "num_gpus", "resolve_device", "waitall", "engine", "autograd", "random", "ndarray",
            "nd", "initializer", "init", "gluon", "ops", "nn", "models",
            "serve", "convert", "optimizer", "parallel", "lr_scheduler",
            "metric", "io", "contrib", "image", "amp", "quantization"]

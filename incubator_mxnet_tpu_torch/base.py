@@ -26,6 +26,8 @@ _DTYPES = {
     "float64": torch.float64,
     "int8": torch.int8,
     "uint8": torch.uint8,
+    "uint16": torch.uint16,
+    "uint32": torch.uint32,
     "int16": torch.int16,
     "int32": torch.int32,
     "int64": torch.int64,

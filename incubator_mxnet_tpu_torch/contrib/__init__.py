@@ -5,8 +5,9 @@ Counterpart: the JAX package's ``contrib/__init__.py`` (``:20-34``), whose
 short name. The port's ``contrib.nd`` holds the ``_contrib_*`` ops the
 port has: the detection ops (``box_nms``, ``MultiBoxPrior``, ``ROIAlign``,
 ``MultiProposal``, ``rpn_target`` ...), the int8 ops (``quantize``,
-``quantized_fully_connected`` ...) and the update ops ``adamw_update``
-and ``multi_sum_sq``. ``contrib.sym``, the control-flow ops and the
+``quantized_fully_connected`` ...), ``boolean_mask``, ``index_copy``,
+``index_array`` and the update ops ``adamw_update`` and
+``multi_sum_sq``. ``contrib.sym``, the control-flow ops and the
 ``interleaved_matmul_*`` ops come with the modules that define them.
 """
 from __future__ import annotations

@@ -32,9 +32,10 @@ import torch
 from .. import autograd
 from ..base import MXNetError, dtype_name, torch_dtype
 from ..context import Context, as_context
+from ..ops.tensor import cast_saturating
 from .serialization import BFLOAT16
 
-__all__ = ["NDArray", "array"]
+__all__ = ["NDArray", "array", "DLPackCarrier"]
 
 
 def _unwrap(x):
@@ -247,12 +248,47 @@ class NDArray:
         with torch.set_grad_enabled(autograd.is_recording()):
             return NDArray(self._data.clone())
 
+    as_in_ctx = as_in_context
+
     def astype(self, dtype, copy: bool = True) -> "NDArray":
+        """A copy as ``dtype``; a float going to an integer type saturates
+        at the type's range and NaN gives 0, as in the JAX package."""
         dt = torch_dtype(dtype)
         if not copy and dt == self._data.dtype:
             return self
         with torch.set_grad_enabled(autograd.is_recording()):
-            return _recorded(self._data.to(dt, copy=True))
+            out = cast_saturating(self._data, dt)
+            return _recorded(out if out is not self._data else out.clone())
+
+    @property
+    def stype(self) -> str:
+        """The storage type: ``"default"`` (dense)."""
+        return "default"
+
+    def tostype(self, stype: str) -> "NDArray":
+        """This array in storage ``stype``: only ``"default"`` until the
+        sparse types are ported."""
+        if stype == "default":
+            return self
+        raise MXNetError(f"storage type {stype!r} needs ndarray.sparse, "
+                         "which is not ported yet")
+
+    @property
+    def version(self) -> int:
+        """How many times the array was written in place."""
+        return self._data._version
+
+    def to_dlpack_for_read(self) -> "DLPackCarrier":
+        """A DLPack-protocol view of the tensor (no copy)."""
+        return DLPackCarrier(self._data.detach())
+
+    to_dlpack_for_write = to_dlpack_for_read
+
+    def as_nd_ndarray(self) -> "NDArray":
+        return self
+
+    def asnumpy_or_none(self):
+        return self.asnumpy()
 
     def detach(self) -> "NDArray":
         return NDArray(self._data.detach())
@@ -281,9 +317,37 @@ class NDArray:
     # methods over the op namespace
     # ------------------------------------------------------------------
     def reshape(self, *shape, **kwargs) -> "NDArray":
+        """The array in ``shape``, with MXNet's codes (``nd.reshape``)."""
         if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
             shape = tuple(shape[0])
-        return _op.reshape(self, kwargs.get("shape", shape))
+        return _op.reshape(self, kwargs.get("shape", shape),
+                           reverse=kwargs.get("reverse", False))
+
+    def reshape_like(self, other) -> "NDArray":
+        return self.reshape(other.shape)
+
+    def broadcast_like(self, other) -> "NDArray":
+        return self.broadcast_to(other.shape)
+
+    def slice(self, begin, end, step=None) -> "NDArray":
+        return _op.slice(self, begin=begin, end=end, step=step)
+
+    def take(self, indices, axis=0, mode="clip") -> "NDArray":
+        return _op.take(self, indices, axis=axis, mode=mode)
+
+    def pick(self, index, axis=-1, keepdims=False) -> "NDArray":
+        return _op.pick(self, index, axis=axis, keepdims=keepdims)
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0,
+                dtype="float32") -> "NDArray":
+        return _op.one_hot(self, depth=depth, on_value=on_value,
+                           off_value=off_value, dtype=dtype)
+
+    def norm(self, ord=2, axis=None, keepdims=False) -> "NDArray":
+        return _op.norm(self, ord=ord, axis=axis, keepdims=keepdims)
+
+    def dot(self, other) -> "NDArray":
+        return _op.dot(self, other)
 
     def transpose(self, axes=None) -> "NDArray":
         return _op.transpose(self, axes=axes)
@@ -310,11 +374,11 @@ class NDArray:
     def clip(self, a_min=None, a_max=None) -> "NDArray":
         return _op.clip(self, a_min=a_min, a_max=a_max)
 
-    def softmax(self, axis=-1) -> "NDArray":
-        return _op.softmax(self, axis=axis)
+    def softmax(self, *args, **kwargs) -> "NDArray":
+        return _op.softmax(self, *args, **kwargs)
 
-    def log_softmax(self, axis=-1) -> "NDArray":
-        return _op.log_softmax(self, axis=axis)
+    def log_softmax(self, *args, **kwargs) -> "NDArray":
+        return _op.log_softmax(self, *args, **kwargs)
 
     # ------------------------------------------------------------------
     # operators
@@ -431,9 +495,25 @@ def _unary_method(name):
     return method
 
 
-for _name in ("abs", "sqrt", "square", "exp", "log", "relu", "sigmoid",
-              "tanh", "sum", "mean", "max", "min"):
+for _name in ("abs", "sign", "sqrt", "square", "exp", "log", "relu",
+              "sigmoid", "tanh", "sum", "mean", "max", "min", "prod",
+              "argmax", "argmin"):
     setattr(NDArray, _name, _unary_method(_name))
+
+
+class DLPackCarrier:
+    """A DLPack-protocol view of a tensor: consumers (``np.from_dlpack``,
+    ``torch.from_dlpack`` ...) take the buffer without a copy (JAX
+    counterpart: ``ndarray/__init__.py:DLPackCarrier``)."""
+
+    def __init__(self, tensor: torch.Tensor):
+        self._tensor = tensor
+
+    def __dlpack__(self, **kwargs):
+        return self._tensor.__dlpack__(**kwargs)
+
+    def __dlpack_device__(self):
+        return self._tensor.__dlpack_device__()
 
 
 def array(source_array, ctx=None, dtype=None) -> NDArray:

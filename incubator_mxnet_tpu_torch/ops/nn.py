@@ -1,6 +1,16 @@
-"""The neural-network ops of the BERT and vision paths.
+"""The neural-network ops, registered under MXNet's names.
 
-Counterpart: the JAX package's ``ops/nn.py`` and ``ops/tensor.py``. JAX
+Counterpart: the JAX package's ``ops/nn.py`` (every op but ``RNN`` and
+``CTCLoss``): the layers' ops (``FullyConnected``, ``Convolution``,
+``Pooling``, ``BatchNorm``, ``LayerNorm`` ...), the other normalisations
+(``GroupNorm``, ``InstanceNorm``, ``L2Normalization``, ``RMSNorm``,
+``LRN``), the softmax family, the output heads (``SoftmaxOutput`` and the
+regression and SVM outputs, each a ``torch.autograd.Function`` whose
+backward is the reference's fused loss gradient, the incoming gradient
+ignored), ``UpSampling``, the bilinear resize and ``im2col``/``col2im``
+(1-D and 2-D windows). The registry (:mod:`.registry`) puts them in
+``mx.nd``; the layers call the plain functions (``fully_connected``,
+``layer_norm`` ...) directly. JAX
 promotes mixed dtypes where PyTorch's matmul refuses them, so the casts JAX
 makes implicitly are written out here. In a "bfloat16" BERT the LayerNorm
 parameters stay float32, the normalised value times ``gamma`` promotes to
@@ -28,9 +38,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .registry import register_op
+
 __all__ = ["fully_connected", "layer_norm", "gelu", "tanh", "activation",
-           "embedding", "ACTIVATIONS", "convolution", "deconvolution",
-           "pooling", "batch_norm", "flatten", "leaky_relu", "pad", "top_k"]
+           "ACTIVATIONS", "convolution", "deconvolution", "pooling",
+           "batch_norm", "leaky_relu", "pad", "top_k", "softmax",
+           "log_softmax"]
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -76,7 +89,8 @@ ACTIVATIONS = {"gelu": gelu, "tanh": tanh, "relu": torch.relu,
                "mish": lambda x: x * torch.tanh(F.softplus(x))}
 
 
-def activation(data, act_type):
+@register_op("Activation", aliases=("activation",))
+def activation(data, act_type="relu", **_):
     """Apply a named activation (JAX counterpart: ``ops/nn.py:396-418``,
     every name of its ``_ACTS``)."""
     try:
@@ -87,18 +101,12 @@ def activation(data, act_type):
     return fn(data)
 
 
-def embedding(data, weight):
-    """Row lookup with indices clipped to ``[0, rows)`` (JAX counterpart:
-    ``ops/tensor.py:854``)."""
-    idx = data.to(torch.int64).clamp(0, weight.shape[0] - 1)
-    return F.embedding(idx, weight)
-
-
 _SELU = (1.6732632423543772, 1.0507009873554805)
 
 
+@register_op("LeakyReLU", aliases=("leaky_relu",))
 def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
-               lower_bound=0.125, upper_bound=0.334):
+               lower_bound=0.125, upper_bound=0.334, **_):
     """The leaky family (JAX counterpart: ``ops/nn.py:421-454``): ``prelu``
     takes a per-channel ``gamma`` on axis 1; ``rrelu`` is deterministic at
     the mean slope, as in the reference."""
@@ -126,12 +134,8 @@ def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
     raise ValueError(f"unknown act_type {act_type}")
 
 
-def flatten(data):
-    """All axes but the first collapsed (JAX counterpart: ``flatten``)."""
-    return data.reshape(data.shape[0], -1)
-
-
-def pad(data, mode="constant", pad_width=(), constant_value=0.0):
+@register_op("pad", aliases=("Pad",))
+def pad(data, mode="constant", pad_width=(), constant_value=0.0, **_):
     """MXNet's ``pad``: ``pad_width`` holds (before, after) per axis, from
     the first axis (JAX counterpart: ``ops/tensor.py:507``). ``edge`` and
     ``reflect`` pad the spatial axes only, as in MXNet."""
@@ -205,9 +209,10 @@ def _conv(data, weight, bias, stride, padding, dilation, transposed,
     return _Convolution.apply(data.to(dt), weight.to(dt), b, conf)
 
 
+@register_op("Convolution", aliases=("convolution",))
 def convolution(data, weight, bias=None, kernel=None, stride=None,
                 dilate=None, pad=None, num_filter=None, num_group=1,
-                no_bias=False, layout=None):
+                no_bias=False, layout=None, **_):
     """N-d convolution over NC(DHW) data with OI(DHW) weights, zero
     padding ``pad`` on both sides (JAX counterpart: ``ops/nn.py:90-122``)."""
     nd = data.dim() - 2
@@ -217,10 +222,11 @@ def convolution(data, weight, bias=None, kernel=None, stride=None,
                  False, zeros, num_group)
 
 
+@register_op("Deconvolution", aliases=("deconvolution",))
 def deconvolution(data, weight, bias=None, kernel=None, stride=None,
                   dilate=None, pad=None, adj=None, num_filter=None,
                   num_group=1, no_bias=False, target_shape=None,
-                  layout=None):
+                  layout=None, **_):
     """Transposed convolution, weights (in, out/groups, *k), the output
     ``(in - 1) * stride - 2 * pad + k + adj`` long (JAX counterpart:
     ``ops/nn.py:179-216``). As there, ``dilate`` is not applied."""
@@ -255,9 +261,10 @@ def _pool_padding(shape, kernel, stride, pad, convention):
     return pads
 
 
+@register_op("Pooling", aliases=("pooling",))
 def pooling(data, kernel=None, pool_type="max", global_pool=False,
             stride=None, pad=None, pooling_convention="valid",
-            count_include_pad=True, layout=None):
+            count_include_pad=True, layout=None, **_):
     """Max, average, sum or L2 pooling over NC(DHW) data (JAX counterpart:
     ``ops/nn.py:230-290``): max pads with ``-inf``; ``avg`` divides by the
     window size (``count_include_pad=True``) or by the real cells under
@@ -295,9 +302,10 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
 
 
 # -- BatchNorm -------------------------------------------------------------
+@register_op("BatchNorm", aliases=("batch_norm",))
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
-               output_mean_var=False, axis=1, training=False):
+               output_mean_var=False, axis=1, training=False, **_):
     """``(out, mean, var)`` (JAX counterpart: ``ops/nn.py:300-328``): the
     output normalised in float32 (float64 data: in float64) and cast back
     to ``data``'s dtype, by the
@@ -324,9 +332,401 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     return out, mean, var
 
 
-def top_k(x, k):
-    """The ``k`` largest along the last axis, ties to the lower index, as
-    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order on
-    ties): a stable descending sort. Returns ``(values, indices)``."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+_BITS = {torch.float64: torch.int64, torch.float32: torch.int32,
+         torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def _total_order_key(x):
+    """Integers ordered as ``x`` in XLA's total order of floats (that of
+    ``lax.top_k``): -NaN < -inf < ... < -0.0 < +0.0 < ... < inf < NaN."""
+    if not x.is_floating_point():
+        return x
+    b = x.view(_BITS[x.dtype])
+    mask = torch.iinfo(b.dtype).max
+    return torch.where(b < 0, b ^ mask, b)
+
+
+def top_k(x, k, largest=True):
+    """The ``k`` largest (``largest=False``: smallest) along the last axis
+    in ``jax.lax.top_k``'s order: XLA's total order of floats (-0.0 below
+    +0.0, NaN by its sign), equal keys to the lower index (``torch.topk``
+    promises no order on ties): a stable sort of the order's keys.
+    Returns ``(values, indices)``."""
+    idx = torch.sort(_total_order_key(x), dim=-1, descending=largest,
+                     stable=True).indices[..., :k]
+    return torch.take_along_dim(x, idx, dim=-1), idx
+
+
+# -- the rest of the JAX ops/nn.py, under the registry's names ---------------
+@register_op("FullyConnected", aliases=("fully_connected",))
+def FullyConnected(data, weight, bias=None, num_hidden=None, no_bias=False,
+                   flatten=True, **_):
+    """``data @ weight.T + bias`` (JAX counterpart: ``ops/nn.py:48``)."""
+    return fully_connected(data, weight, None if no_bias else bias,
+                           flatten=flatten)
+
+
+@register_op("LayerNorm", aliases=("layer_norm",))
+def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
+              **_):
+    """Layer normalisation over ``axis`` with float32 statistics; with
+    ``output_mean_var`` also the mean and variance (JAX counterpart:
+    ``ops/nn.py:331``)."""
+    axis = axis % data.dim()
+    if axis == data.dim() - 1 and not output_mean_var:
+        return layer_norm(data, gamma, beta, eps=eps)
+    x32 = data.float()
+    m = x32.mean(dim=axis, keepdim=True)
+    v = x32.var(dim=axis, unbiased=False, keepdim=True)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    out = ((x32 - m) * torch.rsqrt(v + eps)).to(data.dtype)
+    out = out * gamma.reshape(shape) + beta.reshape(shape)
+    if output_mean_var:
+        return out, m.squeeze(axis), v.squeeze(axis)
+    return out
+
+
+@register_op("GroupNorm")
+def GroupNorm(data, gamma, beta, num_groups=1, eps=1e-5, **_):
+    """Normalisation over each group of ``num_groups`` channel groups and
+    the spatial axes, in the input's dtype (JAX counterpart:
+    ``ops/nn.py:347``)."""
+    n, c = data.shape[0], data.shape[1]
+    rest = tuple(data.shape[2:])
+    x = data.reshape((n, num_groups, c // num_groups) + rest)
+    axes = tuple(range(2, x.dim()))
+    m = x.mean(dim=axes, keepdim=True)
+    v = x.var(dim=axes, unbiased=False, keepdim=True)
+    x = ((x - m) * torch.rsqrt(v + eps)).reshape(data.shape)
+    shape = (1, c) + (1,) * len(rest)
+    return x * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register_op("InstanceNorm")
+def InstanceNorm(data, gamma, beta, eps=1e-3, **_):
+    """Normalisation over the spatial axes of each sample and channel
+    (JAX counterpart: ``ops/nn.py:361``)."""
+    axes = tuple(range(2, data.dim()))
+    m = data.mean(dim=axes, keepdim=True)
+    v = data.var(dim=axes, unbiased=False, keepdim=True)
+    shape = (1, data.shape[1]) + (1,) * (data.dim() - 2)
+    return (data - m) * torch.rsqrt(v + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
+
+
+@register_op("L2Normalization")
+def L2Normalization(data, eps=1e-10, mode="instance", **_):
+    """``data`` over its L2 norm per sample (``instance``), per position
+    across channels (``channel``) or per channel (``spatial``)."""
+    if mode == "instance":
+        axes = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, data.dim()))
+    return data / torch.sqrt(data.square().sum(dim=axes, keepdim=True) + eps)
+
+
+@register_op("RMSNorm", aliases=("rms_norm",))
+def RMSNorm(data, gamma, axis=-1, eps=1e-6, **_):
+    """``data`` over its root mean square along ``axis`` (float32
+    statistics), times ``gamma`` (JAX counterpart: ``ops/nn.py:383``)."""
+    x32 = data.float()
+    v = x32.square().mean(dim=axis, keepdim=True)
+    return (x32 * torch.rsqrt(v + eps)).to(data.dtype) * gamma
+
+
+@register_op("LRN", aliases=("lrn",))
+def LRN(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, **_):
+    """Local response normalisation across channels of NCHW data:
+    ``x * (knorm + alpha / nsize * sum of x^2 over the window)^-beta``
+    (JAX counterpart: ``ops/nn.py:665``)."""
+    half = nsize // 2
+    sq = F.pad(data.float().square(),
+               (0, 0) * (data.dim() - 2) + (half, nsize - 1 - half))
+    local = sq.unfold(1, nsize, 1).sum(-1)
+    norm = torch.pow(knorm + (alpha / nsize) * local, -beta)
+    return (data.float() * norm).to(data.dtype)
+
+
+@register_op("gelu_tanh")
+def gelu_tanh(data, **_):
+    return F.gelu(data, approximate="tanh")
+
+
+@register_op("silu", aliases=("swish",))
+def silu(data, **_):
+    return data * torch.sigmoid(data)
+
+
+# -- the softmax family ----------------------------------------------------------
+def _length_mask(data, length, axis):
+    steps = torch.arange(data.shape[axis], device=data.device)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    lshape = list(data.shape)
+    lshape[axis] = 1
+    return steps.reshape(shape) < length.reshape(lshape).to(torch.int32)
+
+
+@register_op("softmax")
+def softmax(data, length=None, axis=-1, temperature=None, use_length=False,
+            dtype=None, **_):
+    """Softmax over ``axis`` of ``data / temperature``; with
+    ``use_length``, the positions at or past ``length`` along ``axis``
+    are masked out and give 0 (JAX counterpart: ``ops/nn.py:478``)."""
+    x = data / temperature if temperature not in (None, 1.0) else data
+    if use_length and length is not None:
+        mask = _length_mask(data, length, axis)
+        out = torch.softmax(x.masked_fill(~mask, -math.inf), dim=axis)
+        return out.masked_fill(~mask, 0.0)
+    return torch.softmax(x, dim=axis)
+
+
+@register_op("log_softmax")
+def log_softmax(data, axis=-1, temperature=None, **_):
+    x = data / temperature if temperature not in (None, 1.0) else data
+    return torch.log_softmax(x, dim=axis)
+
+
+@register_op("softmin")
+def softmin(data, axis=-1, **_):
+    return torch.softmax(-data, dim=axis)
+
+
+@register_op("SoftmaxActivation")
+def SoftmaxActivation(data, mode="instance", **_):
+    """Softmax over all axes but the first (``instance``) or over axis 1
+    at every position (``channel``)."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    flat = data.reshape(data.shape[0], -1)
+    return torch.softmax(flat, dim=-1).reshape(data.shape)
+
+
+@register_op("masked_softmax")
+def masked_softmax(data, mask=None, axis=-1, temperature=1.0, **_):
+    x = data / temperature
+    if mask is None:
+        return torch.softmax(x, dim=axis)
+    keep = mask != 0
+    out = torch.softmax(x.masked_fill(~keep, -math.inf), dim=axis)
+    return out.masked_fill(~keep, 0.0)
+
+
+def _one_hot_at(lab, k, axis, like):
+    """``one_hot(lab, k)`` with the class axis at ``axis`` of ``like``; an
+    out-of-range label gives zeros."""
+    shape = [1] * like.dim()
+    shape[axis] = k
+    classes = torch.arange(k, device=lab.device).reshape(shape)
+    return (lab.to(torch.int32).unsqueeze(axis) == classes).to(like.dtype)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; the backward is the fused cross-entropy gradient
+    ``(p - onehot(label)) * grad_scale``, which ignores the incoming
+    gradient unless ``out_grad`` (JAX counterpart: ``_bwd`` of
+    ``softmax_output``, ``ops/nn.py:546-562``)."""
+
+    @staticmethod
+    def forward(ctx, x, lab, conf):
+        axis = conf["axis"]
+        p = torch.softmax(x, dim=axis)
+        ctx.save_for_backward(p, lab)
+        ctx.conf = conf
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, lab = ctx.saved_tensors
+        c = ctx.conf
+        axis = c["axis"] % p.dim()
+        k = p.shape[axis]
+        oh = _one_hot_at(lab, k, axis, p)
+        if c["smooth_alpha"]:
+            oh = oh * (1.0 - c["smooth_alpha"]) + c["smooth_alpha"] / k
+        gx = p - oh
+        if c["use_ignore"]:
+            keep = lab != c["ignore_label"]
+            gx = gx * keep.to(p.dtype).unsqueeze(axis)
+            if c["normalization"] == "valid":
+                gx = gx / keep.sum().clamp_min(1).to(p.dtype)
+        if c["normalization"] == "batch":
+            gx = gx / p.shape[0]
+        if c["out_grad"]:
+            gx = gx * g
+        glab = torch.zeros_like(lab) if ctx.needs_input_grad[1] else None
+        return gx * c["grad_scale"], glab, None
+
+
+@register_op("SoftmaxOutput", aliases=("softmax_output",))
+def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1,
+                  multi_output=False, use_ignore=False, preserve_shape=False,
+                  normalization="null", out_grad=False, smooth_alpha=0.0,
+                  **_):
+    """Softmax whose gradient is the fused cross-entropy gradient against
+    ``label`` (JAX counterpart: ``ops/nn.py:529``)."""
+    conf = dict(axis=1 if multi_output else -1, grad_scale=grad_scale,
+                ignore_label=ignore_label, use_ignore=use_ignore,
+                normalization=normalization, out_grad=out_grad,
+                smooth_alpha=smooth_alpha)
+    return _SoftmaxOutput.apply(data, label, conf)
+
+
+@register_op("softmax_cross_entropy")
+def softmax_cross_entropy(data, label, **_):
+    logp = torch.log_softmax(data, dim=-1)
+    idx = label.to(torch.int32).to(torch.int64)[:, None]
+    return -torch.gather(logp, -1, idx).sum()
+
+
+@register_op("smooth_l1")
+def smooth_l1(data, scalar=1.0, **_):
+    """Huber-style smooth L1 with MXNet's ``scalar`` (JAX counterpart:
+    ``ops/nn.py:576``)."""
+    s2 = scalar * scalar
+    a = torch.abs(data)
+    return torch.where(a < 1.0 / s2, 0.5 * s2 * torch.square(data),
+                       a - 0.5 / s2)
+
+
+class _LossOutput(torch.autograd.Function):
+    """An output head: ``fwd(x)`` forward; the backward is
+    ``grad(pred, label)``, ignoring the incoming gradient (JAX
+    counterpart: ``_loss_output``, ``ops/nn.py:582-601``)."""
+
+    @staticmethod
+    def forward(ctx, x, lab, fwd, grad):
+        p = fwd(x)
+        ctx.save_for_backward(p, lab)
+        ctx.grad = grad
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, lab = ctx.saved_tensors
+        glab = torch.zeros_like(lab) if ctx.needs_input_grad[1] else None
+        return ctx.grad(p, lab.to(p.dtype)), glab, None, None
+
+
+def _per_example_outputs(label) -> float:
+    """Outputs per example: the regression heads scale their gradient by
+    ``grad_scale`` over it."""
+    return float(max(math.prod(int(d) for d in label.shape[1:]), 1))
+
+
+def _identity(x):
+    return x
+
+
+@register_op("LinearRegressionOutput", aliases=("linear_regression_output",))
+def LinearRegressionOutput(data, label, grad_scale=1.0, **_):
+    """Identity forward; gradient ``(pred - label) * grad_scale /
+    outputs per example``."""
+    s = grad_scale / _per_example_outputs(label)
+    return _LossOutput.apply(data, label, _identity,
+                             lambda p, lab: (p - lab) * s)
+
+
+@register_op("LogisticRegressionOutput",
+             aliases=("logistic_regression_output",))
+def LogisticRegressionOutput(data, label, grad_scale=1.0, **_):
+    """Sigmoid forward; gradient ``(sigmoid(x) - label) * grad_scale /
+    outputs per example``."""
+    s = grad_scale / _per_example_outputs(label)
+    return _LossOutput.apply(data, label, torch.sigmoid,
+                             lambda p, lab: (p - lab) * s)
+
+
+@register_op("MAERegressionOutput", aliases=("mae_regression_output",))
+def MAERegressionOutput(data, label, grad_scale=1.0, **_):
+    """Identity forward; gradient ``sign(pred - label) * grad_scale /
+    outputs per example``."""
+    s = grad_scale / _per_example_outputs(label)
+    return _LossOutput.apply(data, label, _identity,
+                             lambda p, lab: torch.sign(p - lab) * s)
+
+
+@register_op("SVMOutput", aliases=("svm_output",))
+def SVMOutput(data, label, margin=1.0, regularization_coefficient=1.0,
+              use_linear=False, **_):
+    """Identity forward over class scores; the gradient is the one-vs-all
+    hinge loss's, L2-SVM by default, L1-SVM with ``use_linear`` (JAX
+    counterpart: ``ops/nn.py:644``)."""
+    reg = regularization_coefficient
+
+    def grad(p, lab):
+        y = 2.0 * _one_hot_at(lab, p.shape[-1], p.dim() - 1, p) - 1.0
+        viol = margin - y * p
+        active = (viol > 0).to(p.dtype)
+        if use_linear:
+            return -reg * y * active
+        return -2.0 * reg * y * viol * active
+
+    return _LossOutput.apply(data, label, _identity, grad)
+
+
+# -- resampling ------------------------------------------------------------------
+def _resize_bilinear(data, size):
+    """Bilinear resize with half-pixel centres; shrinking widens the
+    kernel (antialiasing), as ``jax.image.resize(method="bilinear")``."""
+    shrink = size[0] < data.shape[2] or size[1] < data.shape[3]
+    return F.interpolate(data, size=size, mode="bilinear",
+                         align_corners=False, antialias=shrink)
+
+
+@register_op("UpSampling")
+def UpSampling(data, scale=1, sample_type="nearest", num_args=1, **_):
+    """NCHW data enlarged ``scale`` times: nearest (each pixel repeated) or
+    bilinear (JAX counterpart: ``ops/nn.py:716``)."""
+    n, c, h, w = data.shape
+    if sample_type == "nearest":
+        return data.repeat_interleave(scale, dim=2).repeat_interleave(
+            scale, dim=3)
+    return _resize_bilinear(data, (h * scale, w * scale))
+
+
+@register_op("contrib_BilinearResize2D", aliases=("bilinear_resize_2d",))
+def BilinearResize2D(data, height=None, width=None, scale_height=None,
+                     scale_width=None, **_):
+    n, c, h, w = data.shape
+    oh = height if height else int(h * scale_height)
+    ow = width if width else int(w * scale_width)
+    return _resize_bilinear(data, (oh, ow))
+
+
+def _as_2d(data, kernel, stride, dilate, pad):
+    nd = data.dim() - 2
+    if nd not in (1, 2):
+        raise ValueError(f"im2col/col2im take 1-D or 2-D windows here, got "
+                         f"{nd}-D")
+    conf = [_tup(kernel, nd), _tup(stride, nd), _tup(dilate, nd),
+            _tup(pad if pad is not None else 0, nd)]
+    if nd == 1:
+        conf = [(1,) + v if i != 3 else (0,) + v for i, v in enumerate(conf)]
+        data = data.unsqueeze(2)
+    return data, conf
+
+
+@register_op("im2col")
+def im2col(data, kernel=None, stride=None, dilate=None, pad=None, **_):
+    """Sliding-window patches ``(N, C * prod(kernel), windows)``,
+    channel-major (JAX counterpart: ``ops/nn.py:125``)."""
+    x, (k, s, d, p) = _as_2d(data, kernel, stride, dilate, pad)
+    return F.unfold(x, k, dilation=d, padding=p, stride=s)
+
+
+@register_op("col2im")
+def col2im(data, output_size=None, kernel=None, stride=None, dilate=None,
+           pad=None, **_):
+    """The transpose of :func:`im2col`: patches summed back into an image
+    of ``output_size`` (JAX counterpart: ``ops/nn.py:142``)."""
+    output_size = tuple(output_size)
+    n, ckk, _ = data.shape
+    fake = torch.empty((n, 1) + output_size, device="meta")
+    _, (k, s, d, p) = _as_2d(fake, kernel, stride, dilate, pad)
+    size = output_size if len(output_size) == 2 else (1,) + output_size
+    out = F.fold(data, size, k, dilation=d, padding=p, stride=s)
+    return out.reshape(out.shape[:2] + output_size)

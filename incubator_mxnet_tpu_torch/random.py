@@ -8,9 +8,10 @@ from ``n`` and ``i``; ``seed(n, ctx)`` seeds one device's stream. A stream
 is reseeded in place, so a CUDA graph that registered its generator (a
 hybridized block, :mod:`.ops.cuda.graphs`) draws the reseeded stream. The
 Gluon ``Dropout`` draws from its device's stream unless a trainer gave it
-its own generator (``nn.set_dropout_generator``), and the initializers draw
-from the CPU's (:mod:`..initializer`). Draws differ from the JAX package's
-(threefry there, Philox here).
+its own generator (``nn.set_dropout_generator``), the initializers draw
+from the CPU's (:mod:`..initializer`), and the samplers (``uniform``,
+``normal`` ... ``shuffle``, :mod:`.ndarray.random`) from their device's.
+Draws differ from the JAX package's (threefry there, Philox here).
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ import torch
 
 from .context import Context, as_context
 
-__all__ = ["seed", "generator", "uniform", "normal"]
+__all__ = ["seed", "generator", "uniform", "normal", "randn", "randint",
+           "exponential", "poisson", "gamma", "negative_binomial",
+           "generalized_negative_binomial", "multinomial", "shuffle"]
 
 _lock = threading.Lock()
 _root_seed = 0
@@ -65,17 +68,23 @@ def generator(ctx=None) -> torch.Generator:
     return g
 
 
-def uniform(low=0.0, high=1.0, shape=(1,), ctx=None, dtype="float32"):
-    """Samples of U(low, high) from ``ctx``'s stream."""
-    from .ndarray import empty
-    out = empty(shape, ctx=ctx, dtype=dtype)
-    out._data.uniform_(low, high, generator=generator(out.context))
-    return out
+def _delegate(name):
+    def fn(*args, **kwargs):
+        from .ndarray import random as _ndr
+        return getattr(_ndr, name)(*args, **kwargs)
+    fn.__name__ = name
+    fn.__doc__ = f"mx.random.{name}: see mx.nd.random.{name}."
+    return fn
 
 
-def normal(loc=0.0, scale=1.0, shape=(1,), ctx=None, dtype="float32"):
-    """Samples of N(loc, scale²) from ``ctx``'s stream."""
-    from .ndarray import empty
-    out = empty(shape, ctx=ctx, dtype=dtype)
-    out._data.normal_(loc, scale, generator=generator(out.context))
-    return out
+uniform = _delegate("uniform")
+normal = _delegate("normal")
+randn = _delegate("randn")
+randint = _delegate("randint")
+exponential = _delegate("exponential")
+poisson = _delegate("poisson")
+gamma = _delegate("gamma")
+negative_binomial = _delegate("negative_binomial")
+generalized_negative_binomial = _delegate("generalized_negative_binomial")
+multinomial = _delegate("multinomial")
+shuffle = _delegate("shuffle")

@@ -432,20 +432,55 @@ def test_initializers_on_conv_and_batchnorm_params():
 
 
 # -- the model zoo ------------------------------------------------------------
+#: XLA:CPU's cheapest compile: each reference runs once, so compiling it
+#: takes most of its time
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def _jax_predict(net, x):
+    """The JAX net's predict-mode logits, jitted with its weights as trace
+    proxies (one XLA program; eager JAX Gluon compiles each op)."""
+    from incubator_mxnet_tpu.gluon import _trace
+    from incubator_mxnet_tpu.gluon.block import _TRACING
+    params = list(net.collect_params().values())
+    vals = [p.data()._data for p in params]
+
+    def run(pvals, xin):
+        proxies = {id(p): jmx.nd.NDArray(v) for p, v in zip(params, pvals)}
+        _TRACING.flag = True
+        try:
+            with jmx.autograd.pause(train_mode=False), \
+                    _trace.TraceScope(proxies):
+                return net(jmx.nd.NDArray(xin))._data
+        finally:
+            _TRACING.flag = False
+    xj = jnp.asarray(x)
+    return onp.asarray(jax.jit(run).lower(vals, xj).compile(FAST_COMPILE)(
+        vals, xj).astype(jnp.float32))
+
+
 @pytest.fixture(scope="module")
-def resnets():
-    """The JAX resnet18_v1 and resnet50_v1 (10 classes), initialised from
-    one seed, with their logits on one 32x32 batch in float32."""
+def resnets(tmp_path_factory):
+    """The JAX resnet18_v1 and resnet50_v1 (10 classes) with the weights
+    of a seeded port net (Xavier, running statistics moved off 0 and 1 by
+    one training forward), loaded from its ``.params`` file, and their
+    logits on one 32x32 batch in float32 (jitted)."""
     x = _rand(onp.random.RandomState(14), 2, 3, 32, 32)
     out = {"x": x}
+    d = tmp_path_factory.mktemp("resnets")
     for name in ("resnet18_v1", "resnet50_v1"):
-        jmx.random.seed(0)
+        mx.random.seed(0)
+        with mx.cpu():
+            pnet = vision.get_model(name, classes=10)
+            pnet.initialize(mx.init.Xavier())
+            with autograd.train_mode():
+                pnet(nd.array(x * 0.5 + 0.3))
+            f = str(d / f"{name}.params")
+            pnet.save_parameters(f)
         net = jvision.get_model(name, classes=10)
-        net.initialize(jmx.init.Xavier())
-        # one training forward moves the running statistics off 0 and 1
-        with jmx.autograd.train_mode():
-            net(jmx.nd.array(x * 0.5 + 0.3))
-        out[name] = {"net": net, "want": net(jmx.nd.array(x)).asnumpy(),
+        net.load_parameters(f)
+        out[name] = {"net": net, "want": _jax_predict(net, x), "file": f,
                      "arrays": {k: p.data().asnumpy() for k, p in
                                 net.collect_params().items()}}
     return out
@@ -485,14 +520,9 @@ def test_resnet_forward_matches_jax(resnets, name, dtype):
                                     atol=1e-4)
         return
     jnet = jvision.get_model(name, classes=10)
-    jnet.initialize()
-    jnet(jmx.nd.array(x))
+    jnet.load_parameters(ref["file"])
     jnet.cast("bfloat16")
-    arrays = _suffixed(ref["net"], ref["arrays"])
-    for k, p in _by_suffix(jnet).items():
-        p.set_data(jmx.nd.array(arrays[k]).astype(p.dtype))
-    want = jnet(jmx.nd.array(x).astype("bfloat16")).asnumpy().astype(
-        "float32")
+    want = _jax_predict(jnet, jnp.asarray(x).astype(jnp.bfloat16))
     net.cast("bfloat16")
     kinds = {p.name.rsplit("_", 1)[-1]: p.dtype
              for p in net.collect_params().values()}
@@ -507,20 +537,20 @@ def test_resnet_forward_matches_jax(resnets, name, dtype):
     assert err <= 5e-2 * onp.abs(want).max(), err
 
 
-def test_model_zoo_names_and_v2():
+def test_model_zoo_names_and_v2(tmp_path):
     with pytest.raises(ValueError, match="resnet50_v1"):
-        vision.get_model("vgg16")
-    assert sorted(vision._MODELS) == sorted(
-        n for n in jvision._MODELS if n.startswith("resnet"))
+        vision.get_model("vgg99")
+    assert sorted(vision._MODELS) == sorted(jvision._MODELS)
     x = _rand(onp.random.RandomState(15), 1, 3, 32, 32)
-    jmx.random.seed(1)
-    jnet = jvision.resnet18_v2(classes=4, thumbnail=True)
-    jnet.initialize()
-    want = jnet(jmx.nd.array(x)).asnumpy()
+    mx.random.seed(1)
     net = vision.resnet18_v2(classes=4, thumbnail=True)
-    net.initialize()
+    net.initialize(mx.init.Xavier())
     net(nd.array(x))
-    _copy_params(jnet, net)
+    f = str(tmp_path / "v2.params")
+    net.save_parameters(f)
+    jnet = jvision.resnet18_v2(classes=4, thumbnail=True)
+    jnet.load_parameters(f)
+    want = _jax_predict(jnet, x)
     onp.testing.assert_allclose(net(nd.array(x)).asnumpy(), want, atol=1e-4)
 
 
