@@ -205,7 +205,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
 20. zoo: AlexNet, VGG-11, SqueezeNet 1.1, DenseNet-121 (224x224) and
     Inception v3 (299x299), 1000 classes: the hybridized forward against
     the eager one within 1e-5, and training steps at batch 8 with finite
-    losses, timed.
+    losses, timed;
+21. lm: an LSTM word language model (``models.word_language_model.
+    RNNModel``) at the widths of the reference's PTB "medium" recipe
+    (vocabulary 10,000, embedding and hidden 650, 2 layers, tied decoder,
+    dropout 0.5, bptt 35, batch 32; SGD lr 20 through ``gluon.Trainer``,
+    ``clip_global_norm(0.25)`` every step) on the example's synthetic
+    Markov corpus, float32, through the Gluon loop, eager and with the
+    LSTM layer hybridized (CUDA graphs) in turns, each one of the
+    example's epochs over the same 8 chunks (48 steps in all):
+    step ms (median over turns) and tokens/s, the loss falling (the last
+    turn's mean below the first's); one profiled step of each: idle share
+    and device ms by group (recurrent GEMMs, input and decoder GEMMs, LSTM
+    elementwise, the clip, the optimizer); one step hybridized = eager
+    within 1e-5 under deterministic algorithms; one step's gradients at
+    dropout 0 on the card against the CPU's float64 step (float64 within
+    1e-9, float32 within 1e-4 of each parameter's largest); torch's fused
+    LSTM (cuDNN) with the same weights at the same shape, forward and
+    backward, as a yardstick (the port never calls it);
+22. example gates: the JAX package's ``examples/word_language_model.py
+    --steps 40 --epochs 2`` (perplexity below 12) and ``examples/dcgan.py
+    --steps 300`` (moments within 0.3 and 0.4) as port functions on the
+    card; and (in phase 18's table) ``RNN`` (four modes, 2 layers,
+    bidirectional, T 35, N 32, hidden 650) and ``CTCLoss`` (both blank
+    conventions, with lengths) card = CPU with their gradients (1e-4);
+23. optimizers: each of NAG, RMSProp (plain, centered), AdaGrad,
+    AdaDelta, FTRL, Signum, LAMB, LARS, DCASGD, SGLD, Adamax, Nadam and
+    FTML on a small net: ``update_multi`` against per-parameter
+    ``update`` within 1e-6, and ``ShardedTrainer``'s fused step (one CUDA
+    graph) against its eager one within 1e-5 over 6 steps (SGLD with its
+    generator seeded alike). No attention kernel launches in 21-23.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -3278,7 +3307,7 @@ def phase_amp() -> dict:
 ND_TOL = {"elementwise": 1e-5, "special": 1e-4, "binary": 1e-5,
           "reduction": 1e-5, "linalg": 1e-4, "shape": 1e-5,
           "ordering": 0.0, "sequence": 1e-5, "nn": 1e-5, "output": 1e-5,
-          "resample": 1e-5, "vision": 1e-5}
+          "resample": 1e-5, "vision": 1e-5, "recurrent": 1e-4}
 ND_GRAD_TOL = 1e-5
 ND_DRAWS = 1_000_000
 ND_SE = 5.0
@@ -3570,6 +3599,30 @@ def _nd_cases(rng) -> list:
          ()),
         ("vision", "batch_take", [x, idx[:, 0]], {}, ()),
     ]
+    # the fused RNN at the LM's widths (T 35, N 32, hidden 650), 2 layers,
+    # bidirectional, every mode; CTC at a speech-like width (50 frames, 30
+    # classes, labels of 1-12 padded with -1), both blank conventions
+    from incubator_mxnet_tpu_torch.ops.nn import rnn_param_size
+    T, N, H = 35, 32, 650
+    seq = 0.5 * f(T, N, H)
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        size = rnn_param_size(mode, 2, H, H, True)
+        args = [seq, (0.03 * rng.randn(size)).astype("float32"),
+                0.5 * f(4, N, H)] + ([0.5 * f(4, N, H)]
+                                     if mode == "lstm" else [])
+        cases.append(("recurrent", "RNN", args,
+                      {"state_size": H, "num_layers": 2, "mode": mode,
+                       "bidirectional": True}, (0, 1, 2)))
+    Tc, Nc, Cc, Lc = 50, 32, 30, 12
+    ll = rng.randint(1, Lc + 1, Nc)
+    dl = rng.randint(2 * Lc + 2, Tc + 1, Nc).astype("float32")
+    for blank, lo, hi in (("first", 1, Cc), ("last", 0, Cc - 1)):
+        lab = rng.randint(lo, hi, (Nc, Lc)).astype("float32")
+        lab[onp.arange(Lc)[None, :] >= ll[:, None]] = -1
+        cases.append(("recurrent", "CTCLoss",
+                      [f(Tc, Nc, Cc), lab, dl, ll.astype("float32")],
+                      {"use_data_lengths": True, "use_label_lengths": True,
+                       "blank_label": blank}, (0,)))
     return cases
 
 
@@ -4120,6 +4173,620 @@ def phase_zoo(B: int = 8) -> dict:
     return res
 
 
+# -- gluon.rnn, the example loops and the optimizers ------------------------
+# The PTB "medium" recipe's widths (the reference's example/rnn/word_lm
+# and example/gluon/word_language_model: emsize = nhid = 650, 2 layers,
+# tied, dropout 0.5, bptt 35, batch 32, SGD lr 20, clip 0.25) at PTB's
+# vocabulary of 10,000, on the example's synthetic Markov corpus
+LM_CFG = dict(vocab=10000, emsize=650, nhid=650, nlayers=2, bptt=35,
+              batch_size=32, dropout=0.5, lr=20.0, clip=0.25)
+LM_TURNS = 3
+LM_TURN_STEPS = 8
+LM_WARM = 2            # a hybridized turn's first steps: eager, capture
+# hybridized vs eager LM step: losses and weights after one step within
+# 1e-5 of each tensor's largest value (deterministic algorithms)
+LM_GATE_RTOL = 1e-5
+# one full-width LM step's gradients (dropout 0) on the card against the
+# CPU's float64 step, each over its parameter's largest gradient: the
+# card's float64 step (the same function, float64 rounding apart) and its
+# float32 step
+LM_GRAD_F64_RTOL = 1e-9
+LM_GRAD_F32_RTOL = 1e-4
+LM_GROUPS = ("recurrent GEMMs", "input and decoder GEMMs",
+             "LSTM GEMMs, replayed", "decoder GEMMs", "LSTM elementwise",
+             "clip", "optimizer", "other", "unattributed")
+LM_EXAMPLE = dict(steps=40, epochs=2)
+LM_EXAMPLE_GATE = 12.0
+DCGAN_EXAMPLE = dict(steps=300)
+DCGAN_MEAN_GATE, DCGAN_STD_GATE = 0.3, 0.4
+OPT_CASES = (
+    ("nag", dict(learning_rate=0.05, momentum=0.9, wd=1e-3)),
+    ("rmsprop", dict(learning_rate=1e-3, wd=1e-3)),
+    ("rmsprop", dict(learning_rate=1e-3, centered=True, clip_weights=2.0)),
+    ("adagrad", dict(learning_rate=0.05, wd=1e-3)),
+    ("adadelta", dict(wd=1e-3)),
+    ("ftrl", dict(learning_rate=0.05, wd=1e-3)),
+    ("signum", dict(learning_rate=1e-3, wd=1e-3, wd_lh=1e-3)),
+    ("lamb", dict(learning_rate=1e-3, wd=1e-3)),
+    ("lars", dict(learning_rate=0.1, wd=1e-3)),
+    ("dcasgd", dict(learning_rate=0.05, momentum=0.9, wd=1e-3)),
+    ("sgld", dict(learning_rate=1e-3)),
+    ("adamax", dict(wd=1e-3)),
+    ("nadam", dict(wd=1e-3)),
+    ("ftml", dict(wd=1e-3)),
+)
+# update_multi against update per parameter on the card: one rule over
+# multi-tensor kernels either way
+OPT_MULTI_RTOL = 1e-6
+OPT_FUSED_RTOL = 1e-5
+OPT_SGLD_SEED = 11
+
+
+def _lm_model(ctx, dropout=LM_CFG["dropout"], seed: int = 0):
+    from incubator_mxnet_tpu_torch.models import word_language_model as wlm
+    mx.random.seed(seed)
+    c = LM_CFG
+    with ctx:
+        model = wlm.RNNModel(c["vocab"], c["emsize"], c["nhid"],
+                             c["nlayers"], dropout=dropout)
+        model.initialize(mx.init.Xavier(), ctx=ctx)
+    return model
+
+
+def _lm_corpus(steps: int):
+    """``steps`` chunks of the example's corpus at the LM's vocabulary, on
+    the card, as the example cuts an epoch: ``[(data (T, N) int32, target
+    (T*N,) float32)]``."""
+    from incubator_mxnet_tpu_torch.models import word_language_model as wlm
+    c = LM_CFG
+    T, B = c["bptt"], c["batch_size"]
+    corpus = wlm.batchify(wlm.make_corpus((steps * T + 1) * B + 1,
+                                          c["vocab"],
+                                          onp.random.RandomState(7)), B)
+    return [(nd.array(corpus[i * T:(i + 1) * T], ctx=mx.gpu(0),
+                      dtype="int32"),
+             nd.array(corpus[i * T + 1:(i + 1) * T + 1].reshape(-1)
+                      .astype("float32"), ctx=mx.gpu(0)))
+            for i in range(steps)]
+
+
+def lm_step(model, trainer, params, batch, states, loss_fn):
+    """The example's step: truncated BPTT, record, loss, backward,
+    ``clip_global_norm`` (one host read), ``trainer.step(1)``."""
+    from torch.profiler import record_function
+    data, target = batch
+    states = [s.detach() for s in states]
+    with autograd.record():
+        logits, states = model(data, states)
+        loss = loss_fn(logits.reshape((-1, LM_CFG["vocab"])), target).mean()
+    loss.backward()
+    with record_function("lm::clip"):
+        gluon.utils.clip_global_norm([p.grad() for p in params],
+                                     LM_CFG["clip"])
+    with record_function("lm::optimizer"):
+        trainer.step(1)
+    return loss, states
+
+
+def _is_gemm(name: str) -> bool:
+    low = name.lower()
+    return any(k in low for k in ("gemm", "xmma", "cutlass", "gemv"))
+
+
+def lm_device_groups(prof, rnn_range: str, replayed: bool) -> dict:
+    """Device ms of one LM step by :data:`LM_GROUPS`, each kernel placed by
+    the operator that launched it (a replayed graph's kernels by the
+    operator that replayed it). GEMMs under ``addmm`` (the recurrence's
+    one product per step, and its backward) are recurrent; GEMMs under the
+    LSTM layer's range are its hoisted input projections, or, when the
+    layer replays its graphs (``replayed``), all its products; other
+    GEMMs the decoder's. Other kernels under the layer's range (forward,
+    and through ``sequence_nr`` the backward of its operators) are its
+    elementwise work; then the ``lm::clip`` and ``lm::optimizer``
+    ranges."""
+    from torch.autograd import DeviceType
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def chain(e):
+        out = []
+        while e is not None:
+            out.append(e)
+            e = e.cpu_parent
+        return out
+
+    fwd = {}
+    for e in evs:
+        if e.sequence_nr >= 0 and "Backward" not in e.name \
+                and not e.name.startswith("autograd::"):
+            fwd.setdefault(e.sequence_nr, e)
+    groups = {g: 0.0 for g in LM_GROUPS}
+    for e in evs:
+        if not e.kernels:
+            continue
+        anc = chain(e)
+        names = [a.name for a in anc]
+        back = next((a for a in anc if "Backward" in a.name
+                     and a.sequence_nr >= 0), None)
+        src = fwd.get(back.sequence_nr) if back is not None else e
+        rnn = src is not None and any(a.name == rnn_range
+                                      for a in chain(src))
+        recur = any("addmm" in n.lower() for n in names)
+        for k in e.kernels:
+            if "lm::clip" in names:
+                g = "clip"
+            elif "lm::optimizer" in names:
+                g = "optimizer"
+            elif _is_gemm(k.name):
+                g = ("recurrent GEMMs" if recur else
+                     "LSTM GEMMs, replayed" if rnn and replayed else
+                     "decoder GEMMs" if replayed else
+                     "input and decoder GEMMs")
+            elif rnn:
+                g = "LSTM elementwise"
+            else:
+                g = "other"
+            groups[g] += k.duration / 1e3
+    return groups
+
+
+def _device_kernels(prof) -> dict:
+    """Device ms by kernel name: the card's kernels, copies and fills; not
+    its synchronisation events (a host wait) nor the device-side spans of
+    the ``lm::`` ranges (they cover the kernels)."""
+    from torch.autograd import DeviceType
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "sync" not in e.name.lower() \
+                and not e.name.startswith("lm::"):
+            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us() / 1e3)
+    return per_kernel
+
+
+def lm_profiled_step(model, trainer, params, batch, states, loss_fn,
+                     tag: str) -> dict:
+    """One LM step under ``torch.profiler``: wall ms, device ms, idle
+    share, and device ms by :data:`LM_GROUPS`."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    rng = {}
+
+    def pre(_blk, _args):
+        rng["r"] = record_function("lm::rnn")
+        rng["r"].__enter__()
+
+    def post(_blk, _args, _out):
+        rng.pop("r").__exit__(None, None, None)
+
+    h1 = model.rnn.register_forward_pre_hook(pre)
+    h2 = model.rnn.register_forward_hook(post)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lm_step(model, trainer, params, batch, states, loss_fn)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        h1.detach()
+        h2.detach()
+    per_kernel = _device_kernels(prof)
+    busy = sum(per_kernel.values())
+    groups = lm_device_groups(prof, "lm::rnn", tag == "hybrid")
+    groups["unattributed"] = max(busy - sum(groups.values()), 0.0)
+    res = {"wall_ms": wall, "device_ms": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / wall) if wall else 0.0,
+           "kernels": len(per_kernel), "ms_by_group": groups,
+           "top": [{"kernel": k[:90], "ms": t} for k, t in sorted(
+               per_kernel.items(), key=lambda r: -r[1])[:8]]}
+    print(f"lm {tag} profile: one step {wall:.3f} ms wall (profiled), "
+          f"device busy {busy:.3f} ms in {len(per_kernel)} kernels, idle "
+          f"share {res['device_idle_share']:.1%}; device ms by group: "
+          + ", ".join(f"{g} {t:.3f}" for g, t in groups.items() if t),
+          flush=True)
+    for t in res["top"]:
+        print(f"  {t['ms']:9.3f} ms  {t['kernel']}", flush=True)
+    return res
+
+
+def _lm_snapshot(params):
+    return [p.data()._data.detach().clone() for p in params]
+
+
+def _lm_restore(params, snap):
+    with torch.no_grad():
+        for p, v in zip(params, snap):
+            p.data()._data.copy_(v)
+
+
+def lm_hybrid_gate(model, trainer, params, batch, loss_fn) -> dict:
+    """One step eager and one step with the LSTM layer's graphs replayed,
+    from the same weights, states and dropout stream, under deterministic
+    algorithms: losses and the weights after the step within
+    ``LM_GATE_RTOL`` of each tensor's largest value."""
+    B = LM_CFG["batch_size"]
+    snap = _lm_snapshot(params)
+    states0 = [s.copy() for s in model.begin_state(B, ctx=mx.gpu(0))]
+    outs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("eager", "hybrid"):
+            model.rnn.hybridize(mode == "hybrid")
+            if mode == "hybrid":
+                for _ in range(LM_WARM):        # eager, then capture
+                    lm_step(model, trainer, params, batch, states0, loss_fn)
+                _lm_restore(params, snap)
+            mx.random.seed(5)
+            loss, _ = lm_step(model, trainer, params, batch, states0,
+                              loss_fn)
+            outs[mode] = (float(loss.asscalar()), _lm_snapshot(params))
+            _lm_restore(params, snap)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        model.rnn.hybridize(False)
+    (le, we), (lh, wh) = outs["eager"], outs["hybrid"]
+    loss_err = abs(le - lh) / max(abs(le), 1.0)
+    w_err = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+                for a, b in zip(we, wh))
+    print(f"lm hybrid gate: one step, hybridized vs eager (deterministic): "
+          f"loss {lh:.6f} vs {le:.6f} (rel {loss_err:.2e}), weights after "
+          f"the step {w_err:.2e} (tol {LM_GATE_RTOL})", flush=True)
+    check(loss_err <= LM_GATE_RTOL and w_err <= LM_GATE_RTOL,
+          f"lm: the hybridized step differs from the eager one: loss "
+          f"{loss_err}, weights {w_err}")
+    return {"loss_eager": le, "loss_hybrid": lh, "loss_rel_err": loss_err,
+            "weights_rel_err": w_err}
+
+
+def lm_grads_vs_cpu(model, batch) -> dict:
+    """One step of the LM at full width, dropout 0, from ``model``'s
+    weights and zero states: the gradients of every parameter on the card,
+    in float32 and in float64, against the CPU's float64 step, each error
+    max |a - b| over the parameter's largest gradient; the losses beside
+    them."""
+    c = LM_CFG
+    names = dict(model._collect_params_with_prefix())
+    data, target = (v.asnumpy() for v in batch)
+    runs = {}
+    for tag, ctx, dtype in (("card32", mx.gpu(0), "float32"),
+                            ("card64", mx.gpu(0), "float64"),
+                            ("cpu64", mx.cpu(), "float64")):
+        twin = _lm_model(ctx, dropout=0.0)
+        with torch.no_grad():
+            for k, p in twin._collect_params_with_prefix().items():
+                p.data()._data.copy_(names[k].data()._data)
+        if dtype != "float32":
+            twin.cast(dtype)
+        states = twin.begin_state(c["batch_size"], ctx=ctx, dtype=dtype)
+        with autograd.record():
+            logits, _ = twin(nd.array(data, ctx=ctx, dtype="int32"), states)
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+                logits.reshape((-1, c["vocab"])),
+                nd.array(target, ctx=ctx, dtype=dtype)).mean()
+        loss.backward()
+        runs[tag] = (float(loss.asscalar()), {
+            k: p.grad()._data.detach().double().cpu() for k, p in
+            twin._collect_params_with_prefix().items()})
+        del twin
+
+    def rel(a, b):
+        errs = {k: float((a[k] - b[k]).abs().max())
+                / max(float(b[k].abs().max()), 1e-30) for k in b}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+    want = runs["cpu64"][1]
+    e64, w64 = rel(runs["card64"][1], want)
+    e32, w32 = rel(runs["card32"][1], want)
+    losses = {k: v[0] for k, v in runs.items()}
+    print(f"lm gradients: one step at full width, dropout 0, "
+          f"{len(want)} gradients: float64 card vs CPU {e64:.2e} ({w64}), "
+          f"tol {LM_GRAD_F64_RTOL}; float32 card vs the CPU's float64 step "
+          f"{e32:.2e} ({w32}), tol {LM_GRAD_F32_RTOL}; losses {losses}",
+          flush=True)
+    check(e64 <= LM_GRAD_F64_RTOL, f"LM float64 gradients on the card "
+          f"differ from the CPU's: {e64} at {w64}")
+    check(e32 <= LM_GRAD_F32_RTOL, f"LM float32 gradients on the card are "
+          f"{e32} from the float64 step at {w32}")
+    check(abs(losses["card32"] - losses["cpu64"])
+          <= 1e-5 * abs(losses["cpu64"]), f"LM losses differ: {losses}")
+    return {"float64_rel_err": e64, "float64_worst_param": w64,
+            "float32_vs_float64": e32, "float32_worst_param": w32,
+            "losses": losses}
+
+
+def lm_torch_yardstick(model, batch) -> dict:
+    """Torch's fused LSTM (``torch.nn.LSTM``, cuDNN) with the LSTM layer's
+    weights, dropout 0, at the same input: forward plus backward by CUDA
+    events, beside the port's layer eager and hybridized (a yardstick; the
+    port never calls it). Outputs compared for sanity."""
+    c = LM_CFG
+    rnn = model.rnn
+    ref = torch.nn.LSTM(c["emsize"], c["nhid"], c["nlayers"]).cuda()
+    with torch.no_grad():
+        for i in range(c["nlayers"]):
+            for mine, theirs in (("i2h_weight", "weight_ih"),
+                                 ("h2h_weight", "weight_hh"),
+                                 ("i2h_bias", "bias_ih"),
+                                 ("h2h_bias", "bias_hh")):
+                getattr(ref, f"{theirs}_l{i}").copy_(
+                    getattr(rnn, f"l{i}_{mine}").data()._data)
+    x = model.encoder(batch[0])._data.detach().requires_grad_(True)
+    h = [s._data for s in model.begin_state(c["batch_size"],
+                                            ctx=mx.gpu(0))]
+    seed = torch.randn_like(x)
+
+    def torch_fb():
+        out, _ = ref(x, (h[0], h[1]))
+        out.backward(seed)
+
+    xa = nd.NDArray(x.detach())
+    xa.attach_grad()
+    sa = [nd.NDArray(t) for t in h]
+
+    def port_fb():
+        with autograd.record():
+            out, _ = rnn(xa, sa)
+        out.backward(nd.NDArray(seed))
+
+    with torch.no_grad():
+        want = ref(x, (h[0], h[1]))[0]
+        got = rnn(xa, sa)[0]._data
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    res = {"torch_lstm_ms": cuda_ms(torch_fb, target_ms=200.0),
+           "port_eager_ms": cuda_ms(port_fb, target_ms=200.0)}
+    rnn.hybridize(True)
+    port_fb()
+    port_fb()
+    res["port_hybrid_ms"] = cuda_ms(port_fb, target_ms=200.0)
+    rnn.hybridize(False)
+    res["torch_vs_port_rel_err"] = err
+    print(f"lm yardstick: LSTM layer forward+backward at (T {c['bptt']}, "
+          f"N {c['batch_size']}, {c['nhid']}), {c['nlayers']} layers: torch "
+          f"fused LSTM (cuDNN) {res['torch_lstm_ms']:.3f} ms, the port's "
+          f"layer eager {res['port_eager_ms']:.3f} ms, hybridized "
+          f"{res['port_hybrid_ms']:.3f} ms (CUDA events); outputs "
+          f"{err:.2e} apart", flush=True)
+    check(err < 1e-4, f"torch's LSTM and the port's differ by {err}")
+    return res
+
+
+def phase_lm() -> dict:
+    """The LM at the PTB medium recipe's widths through the Gluon loop:
+    eager and with the LSTM layer hybridized in turns, losses falling over
+    the run; a profiled step of each; hybridized = eager; one step's
+    gradients card = CPU; torch's fused LSTM as a yardstick."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = LM_CFG
+    ctx = mx.gpu(0)
+    model = _lm_model(ctx)
+    params = [p for p in model.collect_params().values()
+              if p.grad_req != "null"]
+    trainer = gluon.Trainer(model.collect_params(), "sgd",
+                            {"learning_rate": c["lr"]})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    steps = 2 * LM_TURNS * LM_TURN_STEPS
+    # each turn is one of the example's epochs over the same chunks: the
+    # states start at zero and the chunks come again (one pass over fresh
+    # chunks teaches a 10,000-word chain nothing in 48 steps)
+    batches = _lm_corpus(LM_TURN_STEPS)
+    tokens = c["bptt"] * c["batch_size"]
+    cuda_ops.reset_launches()
+    losses, times = [], {"eager": [], "hybrid": []}
+    for turn in range(LM_TURNS):
+        for mode in ("eager", "hybrid"):
+            model.rnn.hybridize(mode == "hybrid")
+            states = model.begin_state(c["batch_size"], ctx=ctx)
+            ms = []
+            for batch in batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                loss, states = lm_step(model, trainer, params, batch,
+                                       states, loss_fn)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                losses.append(loss.detach())
+            skip = LM_WARM if mode == "hybrid" else 1
+            times[mode].append(statistics.mean(ms[skip:]))
+    launches = cuda_ops.launch_counts()
+    losses = [float(v.asscalar()) for v in losses]
+    step_ms = {m: statistics.median(v) for m, v in times.items()}
+    head = statistics.mean(losses[:LM_TURN_STEPS])
+    tail = statistics.mean(losses[-LM_TURN_STEPS:])
+    res = {"config": dict(c), "steps": steps, "losses": losses,
+           "turn_ms": times, "step_ms": step_ms,
+           "tokens_per_s": {m: tokens / v * 1e3 for m, v in step_ms.items()},
+           "loss_head": head, "loss_tail": tail, "launches": launches}
+    print(f"lm (vocab {c['vocab']}, {c['emsize']}/{c['nhid']} x "
+          f"{c['nlayers']}, tied, bptt {c['bptt']}, batch "
+          f"{c['batch_size']}, dropout {c['dropout']}, SGD lr {c['lr']}, "
+          f"clip {c['clip']}): step ms median over {LM_TURNS} turns eager "
+          f"{step_ms['eager']:.3f} ({res['tokens_per_s']['eager']:,.0f} "
+          f"tokens/s), LSTM hybridized {step_ms['hybrid']:.3f} "
+          f"({res['tokens_per_s']['hybrid']:,.0f} tokens/s); turns "
+          f"{times}; loss over {steps} steps {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (first {LM_TURN_STEPS} mean {head:.4f}, last "
+          f"{tail:.4f})", flush=True)
+    check(all(onp.isfinite(losses)), f"lm: non-finite loss {losses}")
+    check(tail < head, f"lm: the loss did not fall ({head} -> {tail})")
+    check(not any(launches.values()), f"the LM launched attention kernels:"
+          f" {launches}")
+    res["profile"] = {}
+    for mode in ("eager", "hybrid"):
+        model.rnn.hybridize(mode == "hybrid")
+        for _ in range(LM_WARM):
+            _, states = lm_step(model, trainer, params, batches[-1], states,
+                                loss_fn)
+        prof = lm_profiled_step(model, trainer, params, batches[-1], states,
+                                loss_fn, mode)
+        # the device's share of the unprofiled step (the profiler slows the
+        # host, so its own step's idle share is larger)
+        prof["idle_share_of_timed_step"] = max(
+            0.0, 1.0 - prof["device_ms"] / step_ms[mode])
+        print(f"lm {mode}: device busy {prof['device_ms']:.3f} ms of the "
+              f"{step_ms[mode]:.3f} ms timed step: idle share "
+              f"{prof['idle_share_of_timed_step']:.1%}", flush=True)
+        res["profile"][mode] = prof
+    model.rnn.hybridize(False)
+    res["hybrid_gate"] = lm_hybrid_gate(model, trainer, params, batches[0],
+                                        loss_fn)
+    res["grads_vs_cpu"] = lm_grads_vs_cpu(model, batches[0])
+    res["yardstick"] = lm_torch_yardstick(model, batches[0])
+    res["seconds"] = time.perf_counter() - t0
+    print(f"lm: {res['seconds']:.1f} s", flush=True)
+    del model, trainer
+    return res
+
+
+def lm_example_gates() -> dict:
+    """The JAX package's two example tests on the card:
+    ``word_language_model.py --steps 40 --epochs 2`` (perplexity below
+    12) and ``dcgan.py --steps 300`` (the fake images' mean within 0.3
+    and deviation within 0.4 of the real ones')."""
+    from incubator_mxnet_tpu_torch.models import dcgan
+    from incubator_mxnet_tpu_torch.models import word_language_model as wlm
+    res = {}
+    for name, run in (
+            ("lm_example", lambda: wlm.lm_example(ctx=mx.gpu(0),
+                                                  **LM_EXAMPLE)),
+            ("dcgan_example", lambda: dcgan.dcgan_example(
+                ctx=mx.gpu(0), **DCGAN_EXAMPLE))):
+        gc.collect()
+        cuda_ops.reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        res[name] = {k: v for k, v in out.items() if k != "losses"}
+        res[name]["seconds"] = time.perf_counter() - t0
+        res[name]["launches"] = cuda_ops.launch_counts()
+        check(not any(res[name]["launches"].values()),
+              f"{name} launched attention kernels: "
+              f"{res[name]['launches']}")
+    lm, dc = res["lm_example"], res["dcgan_example"]
+    dc.pop("lossD"), dc.pop("lossG")
+    print(f"lm example gate {LM_EXAMPLE}: perplexity by epoch "
+          f"{lm['epoch_ppl']} (gate {LM_EXAMPLE_GATE}), "
+          f"{lm['seconds']:.1f} s", flush=True)
+    print(f"dcgan example gate {DCGAN_EXAMPLE}: fake mean "
+          f"{dc['fake_mean']:.4f} vs real {dc['real_mean']:.4f} (gate "
+          f"{DCGAN_MEAN_GATE}), std {dc['fake_std']:.4f} vs "
+          f"{dc['real_std']:.4f} (gate {DCGAN_STD_GATE}), "
+          f"{dc['seconds']:.1f} s", flush=True)
+    check(lm["ppl"] < LM_EXAMPLE_GATE, f"the LM example's perplexity "
+          f"{lm['ppl']} >= {LM_EXAMPLE_GATE}")
+    check(abs(dc["fake_mean"] - dc["real_mean"]) < DCGAN_MEAN_GATE
+          and abs(dc["fake_std"] - dc["real_std"]) < DCGAN_STD_GATE,
+          f"the DCGAN example's moments: {dc}")
+    return res
+
+
+def _opt_net(seed: int = 3):
+    net = gluon.nn.HybridSequential(prefix="optnet_")
+    with net.name_scope():
+        net.add(gluon.nn.Dense(256, activation="tanh", in_units=128))
+        net.add(gluon.nn.Dense(10, in_units=256))
+    mx.random.seed(seed)
+    net.initialize(ctx=mx.gpu(0))
+    return net
+
+
+def phase_optimizers(steps: int = 3) -> dict:
+    """Each of the thirteen optimizers (and RMSProp centered) on the
+    card: (a) ``update_multi`` over a small net's parameters against
+    ``update`` per parameter, ``steps`` updates from the same state,
+    within ``OPT_MULTI_RTOL``; (b) ``ShardedTrainer``'s fused step (a
+    CUDA graph, device ``lr``/``t``) against its eager step, ``steps``
+    steps, losses and weights within ``OPT_FUSED_RTOL`` (SGLD: both
+    with the generator seeded alike, by ``mx.random.seed`` before each
+    makes its state)."""
+    from incubator_mxnet_tpu_torch import optimizer as opt_mod
+    t0 = time.perf_counter()
+    rng = onp.random.RandomState(8)
+    batches = [(rng.randn(64, 128).astype("float32"),
+                rng.randint(0, 10, 64).astype("float32"))
+               for _ in range(steps)]
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    res = {}
+    cuda_ops.reset_launches()
+    for name, kw in OPT_CASES:
+        tag = name + ("_centered" if kw.get("centered") else "")
+        # (a) update_multi against update
+        ws = [p.data()._data for p in _opt_net().collect_params().values()]
+        a = [w.clone() for w in ws]
+        b = [w.clone() for w in ws]
+        oa, ob = opt_mod.create(name, **kw), opt_mod.create(name, **kw)
+        # SGLD seeds its generator from mx.random when it makes its state
+        mx.random.seed(OPT_SGLD_SEED)
+        sa = [oa.create_state_multi_precision(i, w) for i, w in enumerate(a)]
+        mx.random.seed(OPT_SGLD_SEED)
+        sb = [ob.create_state_multi_precision(i, w) for i, w in enumerate(b)]
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        for _ in range(steps):
+            gs = [torch.randn(w.shape, device="cuda", generator=gen)
+                  for w in ws]
+            oa.update_multi(list(range(len(a))), a, gs, sa)
+            for i in range(len(b)):
+                sb[i] = ob.update(i, b[i], gs[i], sb[i])
+        multi = max(float((x - y).detach().abs().max())
+                    / max(float(y.detach().abs().max()), 1e-30)
+                    for x, y in zip(a, b))
+        # (b) the fused step against the eager one
+        trainers = []
+        for fused in (True, False):
+            net = _opt_net()
+            trainers.append(parallel.ShardedTrainer(
+                net, lambda o, lab: ce(o, lab), name, dict(kw),
+                device="cuda", fused=fused))
+        lf, le = [], []
+        for k, (x, y) in enumerate(batches + batches):
+            for tr, out in zip(trainers, (lf, le)):
+                if k == 0:   # the first step makes SGLD's state
+                    mx.random.seed(OPT_SGLD_SEED)
+                out.append(float(tr.step(x, y)))
+        fw = dict(trainers[0]._block.named_parameters())
+        ew = dict(trainers[1]._block.named_parameters())
+        fused_err = max(float((fw[n] - ew[n]).detach().abs().max())
+                        / max(float(ew[n].detach().abs().max()), 1e-30)
+                        for n in ew)
+        loss_err = max(abs(p - q) / max(abs(q), 1.0)
+                       for p, q in zip(lf, le))
+        res[tag] = {"multi_vs_update": multi, "fused_vs_eager": fused_err,
+                    "loss_err": loss_err, "captures":
+                        trainers[0].captures,
+                    "last_path": trainers[0].last_path}
+        check(multi <= OPT_MULTI_RTOL, f"{tag}: update_multi differs from "
+              f"update by {multi}")
+        check(fused_err <= OPT_FUSED_RTOL and loss_err <= OPT_FUSED_RTOL,
+              f"{tag}: the fused step differs from the eager one: weights "
+              f"{fused_err}, losses {loss_err}")
+        check(trainers[0].captures == 1
+              and trainers[0].last_step_graphs == 1,
+              f"{tag}: the fused step did not replay one graph")
+    launches = cuda_ops.launch_counts()
+    check(not any(launches.values()), f"the optimizers launched attention "
+          f"kernels: {launches}")
+    secs = time.perf_counter() - t0
+    print(f"optimizers on the card ({len(res)} cases, {steps} updates, "
+          f"fused and eager {2 * steps} steps each): worst update_multi vs "
+          f"update {max(r['multi_vs_update'] for r in res.values()):.2e} "
+          f"(tol {OPT_MULTI_RTOL}), worst fused vs eager "
+          f"{max(r['fused_vs_eager'] for r in res.values()):.2e} (tol "
+          f"{OPT_FUSED_RTOL}); " + ", ".join(
+              f"{k} {r['multi_vs_update']:.1e}/{r['fused_vs_eager']:.1e}"
+              for k, r in res.items()) + f"; {secs:.1f} s", flush=True)
+    return {"cases": res, "launches": launches, "seconds": secs}
+
+
+def phase_gluon_rest() -> dict:
+    """Phases 21-23: the LM, the two example gates, the optimizers."""
+    t0 = time.perf_counter()
+    res = {"lm": phase_lm(), "examples": lm_example_gates(),
+           "optimizers": phase_optimizers()}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"gluon rest: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -4172,6 +4839,7 @@ def main(argv=None) -> int:
     nd_res = phase_nd_ops()
     mob_res = phase_mobilenet()
     zoo_res = phase_zoo()
+    rest = phase_gluon_rest()
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -4224,7 +4892,14 @@ def main(argv=None) -> int:
                                  "mobilenet": mob_res["launches"][name],
                                  "mobilenet_example": mob_res["example"][
                                      "launches"][name],
-                                 "zoo": zoo_res["launches"][name]},
+                                 "zoo": zoo_res["launches"][name],
+                                 "lm": rest["lm"]["launches"][name],
+                                 "lm_example": rest["examples"][
+                                     "lm_example"]["launches"][name],
+                                 "dcgan_example": rest["examples"][
+                                     "dcgan_example"]["launches"][name],
+                                 "optimizers": rest["optimizers"][
+                                     "launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -4247,7 +4922,7 @@ def main(argv=None) -> int:
                        "detection": det_res, "int8_serve": int8_res,
                        "amp": amp_res, "nd_ops": nd_res,
                        "mobilenet": mob_res, "zoo": zoo_res,
-                       "kernels": kernels},
+                       "gluon_rest": rest, "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

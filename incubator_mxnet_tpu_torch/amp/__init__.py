@@ -41,18 +41,21 @@ _STATE = {"initialized": False, "dtype": None, "patched": {}}
 
 def _cast_wrapper(fn, target_dtype: torch.dtype):
     """``fn`` with its float32 positional arguments (``NDArray`` or
-    tensor) cast to ``target_dtype`` first."""
+    tensor, or lists and tuples of them, as ``RNN``'s per-layer weights)
+    cast to ``target_dtype`` first."""
     name = "bfloat16" if target_dtype == torch.bfloat16 else "float16"
 
+    def cast(a):
+        if isinstance(a, NDArray) and a._data.dtype == torch.float32:
+            return a.astype(name)
+        if isinstance(a, torch.Tensor) and a.dtype == torch.float32:
+            return a.to(target_dtype)
+        if isinstance(a, (list, tuple)):
+            return type(a)(cast(x) for x in a)
+        return a
+
     def wrapped(*args, **kwargs):
-        cast_args = []
-        for a in args:
-            if isinstance(a, NDArray) and a._data.dtype == torch.float32:
-                a = a.astype(name)
-            elif isinstance(a, torch.Tensor) and a.dtype == torch.float32:
-                a = a.to(target_dtype)
-            cast_args.append(a)
-        return fn(*cast_args, **kwargs)
+        return fn(*[cast(a) for a in args], **kwargs)
     wrapped.__name__ = getattr(fn, "__name__", "amp_op")
     wrapped._amp_wrapped = fn
     return wrapped

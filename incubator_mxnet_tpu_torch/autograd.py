@@ -21,7 +21,7 @@ stale-gradient check reads the mark), as in the JAX ``_deposit``
 (``:235-251``). The first deposit copies the gradient into a buffer of
 the variable's own, so that a gradient a captured CUDA graph returns (a
 hybridized block, :mod:`..gluon.block`) is never aliased by ``.grad``.
-``grad(create_graph=True)`` waits for a later slice.
+``grad(create_graph=True)`` records the backward, for higher orders.
 
 The tape. The JAX package keeps one tape per thread: every op recorded
 under :func:`record` puts its outputs on it (``_record_node``, ``:138``),
@@ -59,16 +59,18 @@ class _State(threading.local):
 
 _STATE = _State()
 
-#: every variable a backward may deposit into: an object with
+#: every variable a backward may deposit into, by ``id``: an object with
 #: ``_autograd_leaf`` (its leaf tensor, or None while it has none),
-#: ``_autograd_req`` ('write' or 'add') and ``_fresh_grad``
-_VARIABLES = weakref.WeakSet()
+#: ``_autograd_req`` ('write' or 'add') and ``_fresh_grad``. Keyed by id,
+#: not a ``WeakSet``: a set compares an NDArray with ``==``, elementwise,
+#: when the same array is registered again (a second ``attach_grad``)
+_VARIABLES = weakref.WeakValueDictionary()
 _VARIABLES_LOCK = threading.Lock()
 
 
 def _register(var) -> None:
     with _VARIABLES_LOCK:
-        _VARIABLES.add(var)
+        _VARIABLES[id(var)] = var
 
 
 class _RecordingScope:
@@ -204,7 +206,7 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
 def _deposit_grads(heads, head_grads, retain_graph: bool) -> None:
     outs, seeds = _heads(heads, head_grads)
     with _VARIABLES_LOCK:
-        live = list(_VARIABLES)
+        live = list(_VARIABLES.values())
     variables, leaves, seen = [], [], set()
     for var in live:
         leaf = var._autograd_leaf
@@ -233,19 +235,29 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
          create_graph: bool = False, train_mode: bool = True):
     """The gradients of ``heads`` with respect to ``variables``, as new
     arrays; the variables' own gradients are left alone (JAX counterpart:
-    ``autograd.py:319``). A variable the heads do not reach gets zeros."""
-    from .ndarray import NDArray
-    if create_graph:
-        raise MXNetError("grad(create_graph=True) is not ported yet")
+    ``autograd.py:319``). A variable the heads do not reach gets zeros.
+    With ``create_graph`` the backward is itself recorded (torch's
+    ``create_graph=True``; ``retain_graph`` defaults to it), so the
+    gradients can be differentiated again (JAX counterpart:
+    ``_grad_create_graph``, ``:253``)."""
+    from .ndarray.ndarray import NDArray, _recorded
+    if retain_graph is None:
+        # as in the reference, retain_graph defaults to create_graph
+        retain_graph = create_graph
     leaves = [_tensor(v) for v in as_list(variables)]
     live = _live_heads(heads, head_grads)
     grads = [None] * len(leaves)
     if live:
         outs, seeds = _heads(*zip(*live))
-        grads = torch.autograd.grad(outs, leaves, seeds,
-                                    retain_graph=bool(retain_graph),
-                                    allow_unused=True)
+        with torch.set_grad_enabled(create_graph or torch.is_grad_enabled()):
+            grads = torch.autograd.grad(outs, leaves, seeds,
+                                        retain_graph=bool(retain_graph),
+                                        create_graph=create_graph,
+                                        allow_unused=True)
     if not retain_graph:
         _clear_tape()
-    return [NDArray(g if g is not None else torch.zeros_like(leaf))
-            for g, leaf in zip(grads, leaves)]
+    # with create_graph the gradients are recorded heads: a later
+    # backward() or grad() differentiates them again
+    return [(_recorded if create_graph else NDArray)(
+        g if g is not None else torch.zeros_like(leaf))
+        for g, leaf in zip(grads, leaves)]

@@ -45,11 +45,19 @@ compute on aliases of the parameters (the same storage, other autograd
 leaves), so they see every in-place update and share nothing of the
 autograd state of the eager path. Outputs are copies, safe to keep
 across calls. ``hybridize(False)`` and ``_clear_cached_op()`` drop the
-graphs. On CPU NDArrays, on tensors, or with nested arguments, the
-hybridized block runs its eager forward: the same function.
+graphs. Arguments and outputs may nest arrays in lists and tuples (an
+RNN layer's states), flattened for the graphs and rebuilt around them.
+On CPU NDArrays or on tensors the hybridized block runs its eager
+forward: the same function.
+
+``summary(*inputs)`` prints each block's output shape and parameter
+count (JAX counterpart: ``gluon/block.py:357``); ``save_params`` and
+``load_params`` are the deprecated names of ``save_parameters`` and
+``load_parameters`` (``:342-343``).
 """
 from __future__ import annotations
 
+import math
 import re
 import threading
 import warnings
@@ -58,6 +66,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .. import autograd
 from ..base import MXNetError
@@ -305,6 +314,39 @@ class Block(nn.Module):
             params[name]._load_init(data, ctx, cast_dtype=cast_dtype,
                                     dtype_source=dtype_source)
 
+    save_params = save_parameters
+    load_params = load_parameters
+
+    def summary(self, *inputs) -> None:
+        """Run a forward on ``inputs`` and print each block's type, name,
+        (first) output shape and parameter count (JAX counterpart:
+        ``gluon/block.py:357``)."""
+        rows, hooks = [], []
+
+        def hook(blk, _, out):
+            o = out[0] if isinstance(out, (list, tuple)) else out
+            n_param = sum(math.prod(p.shape) for p in blk.params.values()
+                          if p.shape and all(s > 0 for s in p.shape))
+            rows.append((type(blk).__name__, blk.name,
+                         tuple(getattr(o, "shape", ())), n_param))
+
+        for blk in self.modules():
+            if isinstance(blk, Block):
+                hooks.append(blk.register_forward_hook(hook))
+        try:
+            self(*inputs)
+        finally:
+            for h in hooks:
+                h.detach()
+        print(f"{'Layer (type)':<30}{'Output Shape':<24}{'Param #':<12}")
+        print("-" * 66)
+        total = 0
+        for tname, name, shape, n in rows:
+            print(f"{tname + ' (' + name + ')':<30}{str(shape):<24}{n:<12}")
+            total += n
+        print("-" * 66)
+        print(f"Total params (incl. shared): {total}")
+
 
 class HybridBlock(Block):
     """A Block whose forward is ``hybrid_forward(F, x, *args, **params)``
@@ -376,17 +418,17 @@ class HybridBlock(Block):
     def _cached_op(self, args) -> Optional["_CachedOp"]:
         """The cached op of this call's signature, or None when this call
         runs eagerly: the first of its signature, or one the graphs do not
-        take (CPU arrays, nested arguments)."""
-        skeleton, tensors = [], []
-        for a in args:
+        take (CPU arrays). Arguments may nest arrays in lists and tuples
+        (an RNN layer's states); the nesting is part of the signature."""
+        leaves, spec = _flatten(args)
+        skeleton, tensors = [str(spec)], []
+        for a in leaves:
             if isinstance(a, (NDArray, torch.Tensor)):
                 t = _unwrap(a)
                 if not t.is_cuda:
                     return None
                 tensors.append(t)
                 skeleton.append((tuple(t.shape), t.dtype, t.requires_grad))
-            elif isinstance(a, (list, tuple, dict)):
-                return None
             else:
                 skeleton.append(("static", repr(a)))
         params = self._params_for_graphs()
@@ -434,12 +476,12 @@ class _CachedOp:
         self.params: List[Parameter] = []
         self.static_in: List[torch.Tensor] = []
         self.static_out: List[torch.Tensor] = []
-        self.multi = False
+        self.out_spec = None         # the nesting of the outputs
         self.replays = 0             # forward replays, for backward's check
         self.storage: tuple = ()     # the parameters' data_ptr at capture
 
     def __call__(self, block: HybridBlock, args):
-        tensors = [_unwrap(a) for a in args
+        tensors = [_unwrap(a) for a in _flatten(args)[0]
                    if isinstance(a, (NDArray, torch.Tensor))]
         if self.fwd is None:
             self._capture(block, args, tensors)
@@ -449,8 +491,7 @@ class _CachedOp:
         else:
             self._replay_forward(tensors)
             outs = [o.clone() for o in self.static_out]
-        outs = [_wrap(o) for o in outs]
-        return tuple(outs) if self.multi else outs[0]
+        return tree_unflatten([_wrap(o) for o in outs], self.out_spec)
 
     def _replay_forward(self, tensors) -> None:
         with torch.no_grad():
@@ -475,10 +516,13 @@ class _CachedOp:
             Context.from_device(self.device)) for m in block.modules()
             if isinstance(m, Dropout)]
 
+        leaves, spec = _flatten(args)
+
         def forward():
             it = iter(self.static_in)
-            call_args = [next(it) if isinstance(a, (NDArray, torch.Tensor))
-                         else a for a in args]
+            call_args = tree_unflatten(
+                [next(it) if isinstance(a, (NDArray, torch.Tensor)) else a
+                 for a in leaves], spec)
             _ALIASES.map = {id(p): a for p, a in zip(self.params, aliases)}
             try:
                 with autograd.pause(train_mode=training), \
@@ -487,8 +531,8 @@ class _CachedOp:
                         F, *call_args, **block._fetch_params(call_args))
             finally:
                 _ALIASES.map = None
-            self.multi = isinstance(out, (tuple, list))
-            return list(out) if self.multi else [out]
+            outs, self.out_spec = tree_flatten(out)
+            return outs
 
         diff_in = [x for x in self.static_in + aliases if x.requires_grad]
 
@@ -562,3 +606,9 @@ class _CachedOpFunction(torch.autograd.Function):
 
 #: parameter id -> alias tensor, while a cached op captures
 _ALIASES = threading.local()
+
+
+def _flatten(args):
+    """The leaves of ``args`` (arrays, tensors and static values; lists
+    and tuples opened) and their nesting."""
+    return tree_flatten(list(args))

@@ -1,13 +1,15 @@
 """Experimental Gluon layers (JAX counterpart: ``gluon/contrib/nn.py``):
 ``Concurrent``/``HybridConcurrent`` (the same input to every branch, the
 outputs concatenated on an axis: the Inception block) and ``Identity``
-(the ``nn`` block). ``SparseEmbedding`` is not ported yet."""
+(the ``nn`` block), and ``SparseEmbedding``: ``nn.Embedding`` with
+the reference's call, its gradient dense, as in the JAX package
+(``:56``)."""
 from __future__ import annotations
 
 from ..block import HybridBlock
-from ...nn import Identity
+from ...nn import Embedding, Identity
 
-__all__ = ["Concurrent", "HybridConcurrent", "Identity"]
+__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding"]
 
 
 class HybridConcurrent(HybridBlock):
@@ -31,3 +33,14 @@ class HybridConcurrent(HybridBlock):
 
 class Concurrent(HybridConcurrent):
     """The imperative name of :class:`HybridConcurrent`."""
+
+
+class SparseEmbedding(Embedding):
+    """The reference's row-sparse-gradient embedding, dense underneath (JAX
+    counterpart: ``gluon/contrib/nn.py:56``)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(input_dim, output_dim, dtype=dtype,
+                         weight_initializer=weight_initializer,
+                         sparse_grad=False, **kwargs)

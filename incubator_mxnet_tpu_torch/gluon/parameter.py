@@ -4,8 +4,10 @@ Counterpart: the JAX package's ``gluon/parameter.py`` (``:29-509``): the
 prefix-named ``Parameter`` with ``grad_req``, deferred initialisation
 (``allow_deferred_init``; shape dims of 0 are unknown until the first
 forward), ``initialize``/``data``/``grad``/``set_data``/``zero_grad``/
-``cast``/``_load_init``, ``Constant``, ``ParameterDict`` (with
-``get_constant``) and ``DeferredInitializationError``.
+``cast``/``_load_init``/``list_data``/``list_grad``/``reset_ctx``
+(``var`` raises until ``mx.sym`` is ported), ``Constant``,
+``ParameterDict`` (with ``get_constant``) and
+``DeferredInitializationError``.
 
 Each ``Parameter`` owns one ``torch.nn.Parameter``, which the first block
 it is assigned to registers with torch: so ``Module.parameters()``,
@@ -243,6 +245,36 @@ class Parameter:
             self._var.grad = torch.zeros_like(self._var)
         return NDArray(self._var.grad)
 
+    def list_data(self) -> List[NDArray]:
+        """The data on each context: one here (JAX counterpart:
+        ``gluon/parameter.py:240``)."""
+        return [self.data()]
+
+    def list_grad(self) -> List[NDArray]:
+        """The gradient on each context: one here (JAX counterpart:
+        ``gluon/parameter.py:250``)."""
+        return [self.grad()]
+
+    def reset_ctx(self, ctx) -> None:
+        """Move the data (or the deferred initialisation) to ``ctx``,
+        keeping its value (JAX counterpart: ``gluon/parameter.py:301``)."""
+        ctx = _one_context(ctx)
+        if self._initialized:
+            self._init_impl(None, ctx, data=self._var.detach().clone())
+        elif self._deferred_init:
+            init, _, default_init, data = self._deferred_init
+            self._deferred_init = (init, ctx, default_init, data)
+        else:
+            raise ValueError(f"Cannot reset context for Parameter "
+                             f"'{self.name}' because it has not been "
+                             "initialized.")
+
+    def var(self):
+        """The symbol variable of this parameter (JAX counterpart:
+        ``gluon/parameter.py:328``): ``mx.sym`` is not ported yet."""
+        raise MXNetError("Parameter.var() needs mx.sym, which is not "
+                         "ported yet")
+
     def list_ctx(self) -> List[Context]:
         if self._initialized:
             return [self._ctx]
@@ -402,6 +434,24 @@ class ParameterDict:
     def zero_grad(self) -> None:
         for v in self.values():
             v.zero_grad()
+
+    def reset_ctx(self, ctx) -> None:
+        for v in self.values():
+            v.reset_ctx(ctx)
+
+    def list_ctx(self) -> List[Context]:
+        ctxs = []
+        for v in self.values():
+            for c in v.list_ctx():
+                if c not in ctxs:
+                    ctxs.append(c)
+        return ctxs
+
+    def setattr(self, name: str, value) -> None:
+        """Set attribute ``name`` of every parameter (``grad_req``,
+        ``lr_mult`` ...)."""
+        for v in self.values():
+            setattr(v, name, value)
 
     def save(self, filename: str, strip_prefix: str = "") -> None:
         from .. import ndarray as nd

@@ -1,11 +1,16 @@
 """Weight initializers, each drawing from an explicit ``torch.Generator``.
 
-Counterpart: the JAX package's ``initializer.py`` (``:29-188``): the
-registry and ``create``, the name dispatch of
+Counterpart: the JAX package's ``initializer.py`` (``:29-294``): the
+registry and ``create``, ``InitDesc``, the name dispatch of
 ``Initializer.__call__`` (``*weight`` -> ``_init_weight``, ``*bias`` ->
 ``_init_bias``, ``*gamma`` ones, ``*beta`` zeros, BatchNorm's
 ``*running_mean`` zeros and ``*running_var`` ones), and ``Zero``, ``One``,
-``Constant``, ``Uniform``, ``Normal`` and ``Xavier``. The random ones draw
+``Constant``, ``Uniform``, ``Normal``, ``Orthogonal``, ``Xavier``,
+``MSRAPrelu`` (alias ``he``), ``Bilinear``, ``LSTMBias``, ``Mixed`` (the
+first matching name pattern wins) and ``Load`` (by name from a dict or a
+``.params`` file, else ``default_init``). ``Orthogonal`` takes the QR
+factor of a normal draw in its taller orientation, so it fills any 2-D
+shape (the JAX one fills square ones). The random ones draw
 in float32 on the CPU from ``generator`` (default: the CPU stream of
 :mod:`..random`) and then copy into the parameter, so one seed gives the
 same weights whatever the parameter's dtype or device. Draws differ from
@@ -15,8 +20,10 @@ the JAX package's (another generator); parity tests copy weights across
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, Optional
 
+import numpy as onp
 import torch
 from torch import nn
 
@@ -24,8 +31,9 @@ from . import random as _random
 from .base import MXNetError
 from .context import cpu
 
-__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Xavier", "register", "create", "initialize"]
+__all__ = ["Initializer", "InitDesc", "Zero", "One", "Constant", "Uniform",
+           "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "Mixed", "Load", "register", "create", "initialize"]
 
 _registry: Dict[str, type] = {}
 
@@ -49,6 +57,17 @@ def create(init, **kwargs) -> "Initializer":
         raise MXNetError(f"initializer registry has no entry '{init}'. "
                          f"Known: {sorted(_registry)}")
     return klass(**kwargs)
+
+
+class InitDesc(str):
+    """A parameter's name carrying its init attributes (JAX counterpart:
+    ``initializer.py:37``)."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        obj = super().__new__(cls, name)
+        obj.attrs = attrs or {}
+        obj.global_init = global_init
+        return obj
 
 
 class Initializer:
@@ -188,7 +207,143 @@ class Xavier(_Random):
             self._draw(arr, lambda d, g: d.normal_(0.0, scale, generator=g))
 
 
-_ALIASES = {"zeros": "zero", "ones": "one", "glorot": "xavier"}
+@register
+class Orthogonal(_Random):
+    """``scale`` times an orthonormal matrix: the QR factor of a normal
+    draw, signs fixed by R's diagonal (JAX counterpart:
+    ``initializer.py:138``; ``rand_type`` is taken, the draw is normal, as
+    there)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform", generator=None):
+        super().__init__(generator, scale=scale, rand_type=rand_type)
+        self.scale = scale
+
+    def _init_weight(self, name, arr):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:])
+        a = torch.empty((nout, nin), dtype=torch.float32)
+        a.normal_(generator=self.generator or _random.generator(cpu()))
+        tall = nout >= nin
+        q, r = torch.linalg.qr(a if tall else a.t())
+        q = q * torch.sign(torch.diagonal(r))
+        q = q if tall else q.t()
+        arr.copy_((self.scale * q).reshape(arr.shape))
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He initialisation for PReLU units: Xavier normal with magnitude
+    ``2 / (1 + slope²)`` (JAX counterpart: ``initializer.py:187``)."""
+
+    def __init__(self, factor_type="avg", slope=0.25, generator=None):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
+                         generator=generator)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a deconvolution (JAX counterpart:
+    ``initializer.py:199``)."""
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        f = onp.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = onp.arange(math.prod(shape))
+        x, y = i % shape[3], (i // shape[3]) % shape[2]
+        weight = ((1 - onp.abs(x / f - c)) * (1 - onp.abs(y / f - c)))
+        arr.copy_(torch.from_numpy(
+            weight.astype(onp.float32).reshape(shape)))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros but the forget gate's quarter, ``forget_bias`` (JAX
+    counterpart: ``initializer.py:213``)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        n = arr.shape[0] // 4
+        arr.zero_()
+        arr[n:2 * n] = self.forget_bias
+
+    _init_bias = _init_weight
+    _init_default = _init_weight
+
+
+@register
+class Mixed(Initializer):
+    """The initializer of the first regular expression that matches the
+    parameter's name (JAX counterpart: ``initializer.py:231``)."""
+
+    def __init__(self, patterns, initializers):
+        super().__init__()
+        if len(patterns) != len(initializers):
+            raise ValueError("Mixed needs len(patterns) == len(initializers)")
+        self.map = [(re.compile(p), create(i)) for p, i in
+                    zip(patterns, initializers)]
+
+    def __call__(self, name, arr) -> None:
+        for pat, init in self.map:
+            if pat.match(str(name)):
+                init(name, arr)
+                return
+        raise ValueError(
+            f"Parameter {name!r} matches no pattern in Mixed; add a "
+            "catch-all '.*' entry as the reference requires")
+
+
+@register
+class Load(Initializer):
+    """Values by parameter name from a dict or a ``.params`` file (names
+    may carry ``arg:``/``aux:``), else ``default_init`` (JAX counterpart:
+    ``initializer.py:253``)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        super().__init__()
+        if isinstance(param, str):
+            from .ndarray import load
+            param = load(param)
+        if not isinstance(param, dict):
+            raise ValueError(
+                "Load needs a name->NDArray dict (or a .params file saved "
+                f"from one); got {type(param).__name__} — save with "
+                "nd.save(fname, {name: array, ...})")
+        self.param = {(k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                       else k): v for k, v in param.items()}
+        self.default_init = create(default_init) \
+            if default_init is not None else None
+        self.verbose = verbose
+
+    def __call__(self, name, arr) -> None:
+        name = str(name)
+        if name not in self.param:
+            if self.default_init is None:
+                raise ValueError(
+                    f"Parameter {name!r} missing from the loaded file and "
+                    "no default_init was given")
+            self.default_init(name, arr)
+            return
+        t, src = getattr(arr, "_data", arr), self.param[name]
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(
+                f"Parameter {name!r} has shape {tuple(t.shape)} but the "
+                f"loaded value has {tuple(src.shape)}")
+        src = getattr(src, "_data", src)
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(onp.asarray(src))
+        with torch.no_grad():
+            t.copy_(src)
+        if self.verbose:
+            print(f"Initialized {name} from the loaded file")
+
+
+_ALIASES = {"zeros": "zero", "ones": "one", "glorot": "xavier",
+            "he": "msraprelu"}
 
 
 def initialize(module: nn.Module,

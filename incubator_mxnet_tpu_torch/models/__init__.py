@@ -3,7 +3,8 @@ models, their serving specs, and the smoke instances of the quantizable
 serving families (:func:`hlo_smoke`, :func:`calib_args`,
 :func:`quantized_smoke`)."""
 from . import (  # noqa: F401
-    bert, image_classification, lenet, nmt, rcnn, ssd, transformer,
+    bert, dcgan, image_classification, lenet, nmt, rcnn, ssd, transformer,
+    word_language_model,
 )
 from .bert import (  # noqa: F401
     BERT_CONFIGS, BERTEncoder, BERTModel, bert_pretrain_loss, get_bert,
@@ -18,6 +19,7 @@ from .ssd import SSD, SSDTargetLoss, ssd_300  # noqa: F401
 from .transformer import (  # noqa: F401
     MultiHeadAttention, PositionwiseFFN, TransformerEncoderCell,
 )
+from .word_language_model import RNNModel  # noqa: F401
 import numpy as onp
 
 from ..gluon.block import HybridBlock

@@ -5,8 +5,8 @@ from .activations import (  # noqa: F401
     ELU, GELU, LeakyReLU, PReLU, SELU, SiLU, Swish, Activation,
 )
 from .basic_layers import (  # noqa: F401
-    BatchNorm, Dense, Dropout, Embedding, Flatten, HybridLambda,
-    HybridSequential, Identity, Lambda, LayerNorm, Sequential,
+    BatchNorm, Dense, Dropout, Embedding, Flatten, GroupNorm, HybridLambda,
+    HybridSequential, Identity, InstanceNorm, Lambda, LayerNorm, Sequential,
     SyncBatchNorm, set_dropout_generator,
 )
 from .conv_layers import *  # noqa: F401,F403

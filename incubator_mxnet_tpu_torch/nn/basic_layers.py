@@ -3,7 +3,8 @@
 Counterparts: the JAX package's ``gluon/nn/basic_layers.py``
 (``Sequential`` ``:24``, ``HybridSequential`` ``:55``, ``Dense`` ``:86``,
 ``Dropout`` ``:130``, ``BatchNorm`` ``:148``, ``SyncBatchNorm`` ``:215``,
-``LayerNorm`` ``:228``, ``Embedding`` ``:310``, ``Flatten`` ``:337``,
+``LayerNorm`` ``:228``, ``GroupNorm`` ``:258``, ``InstanceNorm``
+``:284``, ``Embedding`` ``:310``, ``Flatten`` ``:337``,
 ``Identity`` ``:347``, ``Lambda`` ``:354``, ``HybridLambda`` ``:368``).
 ``gluon.nn`` re-exports this module. Parameter names match the JAX ones
 (``weight``, ``bias``, ``gamma``, ``beta``, ``running_mean``,
@@ -26,7 +27,8 @@ from ..gluon.block import Block, HybridBlock
 from .activations import Activation
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "BatchNorm", "SyncBatchNorm", "LayerNorm", "Embedding", "Flatten",
+           "BatchNorm", "SyncBatchNorm", "LayerNorm", "GroupNorm",
+           "InstanceNorm", "Embedding", "Flatten",
            "Identity", "Lambda", "HybridLambda", "set_dropout_generator"]
 
 
@@ -254,12 +256,71 @@ class LayerNorm(HybridBlock):
         return F.LayerNorm(x, gamma, beta, eps=self._epsilon)
 
 
+class GroupNorm(HybridBlock):
+    """Group normalisation over ``num_groups`` channel groups and the
+    spatial axes (JAX counterpart: ``gluon/nn/basic_layers.py:258``)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        self.gamma.shape = (x.shape[1],)
+        self.beta.shape = (x.shape[1],)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
+
+
+class InstanceNorm(HybridBlock):
+    """Instance normalisation over each sample's and channel's spatial
+    axes (JAX counterpart: ``gluon/nn/basic_layers.py:284``; ``axis`` is
+    taken and the channels stay on axis 1, as there)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        self.gamma.shape = (x.shape[1],)
+        self.beta.shape = (x.shape[1],)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
 class Embedding(HybridBlock):
     """Row lookup into ``weight (input_dim, output_dim)``, ids clipped into
-    range (JAX counterpart: ``gluon/nn/basic_layers.py:310``)."""
+    range (JAX counterpart: ``gluon/nn/basic_layers.py:310``).
+    ``sparse_grad`` is taken; the gradient is dense, as there."""
 
     def __init__(self, input_dim: int, output_dim: int, dtype="float32",
-                 weight_initializer=None, **kwargs):
+                 weight_initializer=None, sparse_grad: bool = False,
+                 **kwargs):
         super().__init__(**kwargs)
         self._input_dim = input_dim
         self._output_dim = output_dim

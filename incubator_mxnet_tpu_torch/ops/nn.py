@@ -1,15 +1,16 @@
 """The neural-network ops, registered under MXNet's names.
 
-Counterpart: the JAX package's ``ops/nn.py`` (every op but ``RNN`` and
-``CTCLoss``): the layers' ops (``FullyConnected``, ``Convolution``,
-``Pooling``, ``BatchNorm``, ``LayerNorm`` ...), the other normalisations
-(``GroupNorm``, ``InstanceNorm``, ``L2Normalization``, ``RMSNorm``,
-``LRN``), the softmax family, the output heads (``SoftmaxOutput`` and the
-regression and SVM outputs, each a ``torch.autograd.Function`` whose
-backward is the reference's fused loss gradient, the incoming gradient
-ignored), ``UpSampling``, the bilinear resize and ``im2col``/``col2im``
-(1-D and 2-D windows). The registry (:mod:`.registry`) puts them in
-``mx.nd``; the layers call the plain functions (``fully_connected``,
+Counterpart: the JAX package's ``ops/nn.py``: the layers' ops
+(``FullyConnected``, ``Convolution``, ``Pooling``, ``BatchNorm``,
+``LayerNorm`` ...), the other normalisations (``GroupNorm``,
+``InstanceNorm``, ``L2Normalization``, ``RMSNorm``, ``LRN``), the softmax
+family, the output heads (``SoftmaxOutput`` and the regression and SVM
+outputs, each a ``torch.autograd.Function`` whose backward is the
+reference's fused loss gradient, the incoming gradient ignored),
+``UpSampling``, the bilinear resize, ``im2col``/``col2im`` (1-D and 2-D
+windows), the fused ``RNN`` op and ``CTCLoss`` (both loops over time, as
+the JAX package's ``lax.scan``). The registry (:mod:`.registry`) puts
+them in ``mx.nd``; the layers call the plain functions (``fully_connected``,
 ``layer_norm`` ...) directly. JAX
 promotes mixed dtypes where PyTorch's matmul refuses them, so the casts JAX
 makes implicitly are written out here. In a "bfloat16" BERT the LayerNorm
@@ -43,7 +44,8 @@ from .registry import register_op
 __all__ = ["fully_connected", "layer_norm", "gelu", "tanh", "activation",
            "ACTIVATIONS", "convolution", "deconvolution", "pooling",
            "batch_norm", "leaky_relu", "pad", "top_k", "softmax",
-           "log_softmax"]
+           "log_softmax", "rnn", "rnn_unpack_params", "rnn_param_size",
+           "ctc_loss"]
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -730,3 +732,191 @@ def col2im(data, output_size=None, kernel=None, stride=None, dilate=None,
     size = output_size if len(output_size) == 2 else (1,) + output_size
     out = F.fold(data, size, k, dilation=d, padding=p, stride=s)
     return out.reshape(out.shape[:2] + output_size)
+
+
+# -- the fused RNN op -------------------------------------------------------
+def _gates(mode: str) -> int:
+    return {"rnn_relu": 1, "rnn_tanh": 1, "gru": 3, "lstm": 4}[mode]
+
+
+def rnn_unpack_params(params, mode, num_layers, input_size, hidden,
+                      bidirectional):
+    """Views of MXNet's flat fused-RNN parameter vector: in cuDNN's order,
+    every ``Wx``, ``Wh`` per layer and direction, then every ``bx``,
+    ``bh`` (JAX counterpart: ``ops/nn.py:766``). Returns ``(ws, bs)``."""
+    ngates, dirs = _gates(mode), 2 if bidirectional else 1
+    shapes = []
+    for layer in range(num_layers):
+        isz = input_size if layer == 0 else hidden * dirs
+        shapes += [(ngates * hidden, isz), (ngates * hidden, hidden)] * dirs
+    ws, off = [], 0
+    for rows, cols in shapes:
+        ws.append(params[off:off + rows * cols].reshape(rows, cols))
+        off += rows * cols
+    bs = []
+    for _ in range(2 * num_layers * dirs):
+        bs.append(params[off:off + ngates * hidden])
+        off += ngates * hidden
+    return ws, bs
+
+
+def rnn_param_size(mode, num_layers, input_size, hidden, bidirectional):
+    """Length of the flat parameter vector (JAX counterpart:
+    ``ops/nn.py:795``)."""
+    ngates, dirs = _gates(mode), 2 if bidirectional else 1
+    size = 0
+    for layer in range(num_layers):
+        isz = input_size if layer == 0 else hidden * dirs
+        size += dirs * ngates * hidden * (isz + hidden + 2)
+    return size
+
+
+def _lstm_scan(gx, h, c, wh):
+    """The LSTM recurrence over precomputed input gates ``gx (T, N, 4H)``
+    (``x @ Wx.T + bx + bh``): per step one GEMM into the gates, then the
+    cell (JAX counterpart: ``_lstm_cell``, ``ops/nn.py:735``)."""
+    outs = []
+    for t in range(gx.shape[0]):
+        gates = torch.addmm(gx[t], h, wh.t())
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        outs.append(h)
+    return torch.stack(outs), h, c
+
+
+def _gru_scan(gx, h, wh, bh):
+    """The GRU recurrence over ``gx = x @ Wx.T + bx`` (JAX counterpart:
+    ``_gru_cell``, ``ops/nn.py:745``)."""
+    outs = []
+    for t in range(gx.shape[0]):
+        xr, xz, xn = gx[t].chunk(3, dim=-1)
+        hr, hz, hn = torch.addmm(bh, h, wh.t()).chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1 - z) * n + z * h
+        outs.append(h)
+    return torch.stack(outs), h
+
+
+def _rnn_scan(gx, h, wh, act):
+    """The Elman recurrence over ``gx = x @ Wx.T + bx + bh``."""
+    outs = []
+    for t in range(gx.shape[0]):
+        h = act(torch.addmm(gx[t], h, wh.t()))
+        outs.append(h)
+    return torch.stack(outs), h
+
+
+@register_op("RNN")
+def rnn(data, parameters, state, state_cell=None, state_size=None,
+        num_layers=1, mode="lstm", bidirectional=False, p=0.0,
+        state_outputs=False, projection_size=None, **_):
+    """The fused multi-layer, optionally bidirectional RNN over time-major
+    ``data (T, N, C)``; returns the output, or ``(out, h_n[, c_n])`` with
+    ``state_outputs`` (JAX counterpart: ``ops/nn.py:817``).
+
+    ``parameters`` is the flat cuDNN-ordered vector, or, as
+    ``gluon.rnn``'s layers pass their weights without joining them, a
+    list of ``(wx, wh, bx, bh)`` per layer and direction. Plain torch, as
+    the JAX package leaves it to ``lax.scan``: a loop over T per layer and
+    direction, each direction's input projection hoisted out of the loop
+    as one GEMM over every step. As in the JAX package, ``p`` is taken and
+    not applied, and ``projection_size``, the LSTM state clips and
+    ``use_sequence_length`` are ignored. The loop reads nothing back to
+    the host, so a CUDA graph can capture it."""
+    T, N, C = data.shape
+    hidden, dirs = state_size, 2 if bidirectional else 1
+    if isinstance(parameters, torch.Tensor):
+        ws, bs = rnn_unpack_params(parameters, mode, num_layers, C, hidden,
+                                   bidirectional)
+        parameters = [(ws[2 * k], ws[2 * k + 1], bs[2 * k], bs[2 * k + 1])
+                      for k in range(num_layers * dirs)]
+    act = torch.relu if mode == "rnn_relu" else torch.tanh
+    x, h_states, c_states = data, [], []
+    for layer in range(num_layers):
+        outs = []
+        for d in range(dirs):
+            k = layer * dirs + d
+            wx, wh, bx, bh = parameters[k]
+            seq = x if d == 0 else torch.flip(x, (0,))
+            if mode == "gru":
+                gx = torch.matmul(seq, wx.t()) + bx
+                out, hT = _gru_scan(gx, state[k], wh, bh)
+            else:
+                gx = torch.matmul(seq, wx.t()) + bx + bh
+                if mode == "lstm":
+                    out, hT, cT = _lstm_scan(gx, state[k], state_cell[k], wh)
+                    c_states.append(cT)
+                else:
+                    out, hT = _rnn_scan(gx, state[k], wh, act)
+            h_states.append(hT)
+            outs.append(out if d == 0 else torch.flip(out, (0,)))
+        x = torch.cat(outs, dim=-1) if dirs == 2 else outs[0]
+    if not state_outputs:
+        return x
+    outs = [x, torch.stack(h_states)]
+    if mode == "lstm":
+        outs.append(torch.stack(c_states))
+    return tuple(outs)
+
+
+# -- CTC loss ---------------------------------------------------------------
+_IMPOSSIBLE = -1e30
+
+
+@register_op("CTCLoss", aliases=("ctc_loss",))
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first", **_):
+    """Connectionist temporal classification loss of time-major
+    activations ``data (T, N, C)`` (before the softmax) and padded labels
+    ``label (N, L)``; returns each example's loss ``(N,)`` (JAX
+    counterpart: ``ops/nn.py:876``).
+
+    The JAX package's log-space alpha recursion, vectorised over N and
+    looped over T, with its conventions: "impossible" is ``-1e30`` (so an
+    infeasible label gives a loss near 1e30, where
+    ``torch.nn.functional.ctc_loss`` gives ``inf``); without label lengths
+    ``blank_label="first"`` counts the labels ``> 0`` and ``"last"`` the
+    labels ``>= 0``; padding of -1 is clamped to the blank."""
+    T, N, C = data.shape
+    logp = torch.log_softmax(data, dim=-1)
+    blank = 0 if blank_label == "first" else C - 1
+    L = label.shape[1]
+    lab = label.to(torch.int64)
+    if use_label_lengths and label_lengths is not None:
+        lab_len = label_lengths.to(torch.int64)
+    elif blank_label == "first":
+        lab_len = (lab > 0).sum(dim=1)
+    else:
+        lab_len = (lab >= 0).sum(dim=1)
+    lab = torch.where(lab >= 0, lab, blank)
+    if use_data_lengths and data_lengths is not None:
+        t_len = data_lengths.to(torch.int64)
+    else:
+        t_len = torch.full((N,), T, dtype=torch.int64, device=data.device)
+    S = 2 * L + 1
+    ext = torch.full((N, S), blank, dtype=torch.int64, device=data.device)
+    ext[:, 1::2] = lab
+    # log p of each extended label at every step: (T, N, S)
+    lp = logp.gather(2, ext.unsqueeze(0).expand(T, N, S))
+    imp = torch.full((N, 1), _IMPOSSIBLE, dtype=logp.dtype,
+                     device=data.device)
+    alpha = torch.cat([lp[0, :, :1],
+                       torch.where(lab_len[:, None] > 0, lp[0, :, 1:2], imp),
+                       imp.expand(N, S - 2)], dim=1)
+    allow_skip = torch.zeros((N, S), dtype=torch.bool, device=data.device)
+    allow_skip[:, 2:] = (ext[:, 2:] != blank) & (ext[:, 2:] != ext[:, :-2])
+    for t in range(1, T):
+        a1 = torch.cat([imp, alpha[:, :-1]], dim=1)
+        a2 = torch.cat([imp, imp, alpha[:, :-2]], dim=1)
+        a2 = torch.where(allow_skip, a2, imp)
+        new = torch.logaddexp(torch.logaddexp(alpha, a1), a2) + lp[t]
+        alpha = torch.where((t < t_len)[:, None], new, alpha)
+    end = 2 * lab_len
+    p1 = alpha.gather(1, end[:, None])[:, 0]
+    p2 = alpha.gather(1, (end - 1).clamp_min(0)[:, None])[:, 0]
+    p2 = torch.where(end - 1 >= 0, p2, imp[:, 0])
+    return -torch.logaddexp(p1, p2)

@@ -839,9 +839,10 @@ def sequence_mask(data, sequence_length=None, use_sequence_length=False,
     ``axis`` 0 (or 1), batch on the other."""
     if not use_sequence_length or sequence_length is None:
         return data
+    # a CPU scalar, passed by value: nothing is copied to the card, so a
+    # CUDA graph can capture the mask
     return torch.where(_steps_mask(data, sequence_length, axis), data,
-                       torch.as_tensor(value, dtype=data.dtype,
-                                       device=data.device))
+                       torch.tensor(value, dtype=data.dtype))
 
 
 @register_op("SequenceLast", aliases=("sequence_last",))

@@ -348,9 +348,10 @@ class ShardedTrainer:
         return loss.clone()
 
     def _generators(self) -> List[torch.Generator]:
-        """The generators the step draws from: the trainer's, and any other
-        a Dropout of the module was given."""
-        gens = [self.generator]
+        """The generators the step draws from: the trainer's, any other
+        a Dropout of the module was given, and the optimizer's (SGLD's
+        noise)."""
+        gens = [self.generator] + self._optimizer.generators()
         for m in self._block.modules():
             if isinstance(m, Dropout) and m.generator is not None:
                 gens.append(m.generator)

@@ -40,7 +40,6 @@ from incubator_mxnet_tpu_torch.ops.registry import OPS
 
 #: JAX ``mx.nd`` names a later slice brings -> the ROADMAP queue A item
 DEFERRED = {
-    "RNN": "A2 gluon.rnn", "CTCLoss": "A2 losses", "ctc_loss": "A2 losses",
     "Custom": "A7 operator.py CustomOp",
     "interleaved_matmul_selfatt_qk": "A7 ops/attention.py",
     "interleaved_matmul_selfatt_valatt": "A7 ops/attention.py",
@@ -774,9 +773,10 @@ def test_nn_and_vision_ops_match_jax():
 #: tests of the JAX package's ``tests/test_operator.py`` and
 #: ``tests/test_ndarray.py`` that run unchanged on the port (with ``mx``,
 #: ``nd`` and ``default_context`` swapped for the port's). Not taken:
-#: ``test_rnn_op_shapes`` (RNN: queue A item 2), ``test_getitem_is_copy``
-#: (the port's basic indexing returns views, as upstream MXNet),
-#: ``test_create_graph_*`` (higher-order autograd: queue A item 2),
+#: ``test_getitem_is_copy`` (the port's basic indexing returns views, as
+#: upstream MXNet), ``test_create_graph_*`` (they import the JAX package's
+#: ``autograd`` themselves; ``tests/test_torch_gluon_extra.py`` holds the
+#: port's against it),
 #: ``test_multi_output_ops_record_safe`` (records with the JAX autograd),
 #: ``test_im2col_col2im`` (the declarative schemas: string shapes and the
 #: refusal of unknown keywords), ``test_numeric_gradient_sweep`` (the JAX
@@ -787,6 +787,7 @@ REFERENCE_TESTS = {
         "test_unary_ops", "test_activation_ops", "test_reductions",
         "test_argmax_argmin", "test_dot", "test_batch_dot",
         "test_take_pick_gather", "test_one_hot_embedding",
+        "test_rnn_op_shapes",
         "test_embedding_onehot_grad_matches_scatter", "test_softmax_family",
         "test_topk_sort", "test_elementwise_broadcast_binary",
         "test_where_clip", "test_convolution_shapes_and_numerics",
