@@ -234,7 +234,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
     FTML on a small net: ``update_multi`` against per-parameter
     ``update`` within 1e-6, and ``ShardedTrainer``'s fused step (one CUDA
     graph) against its eager one within 1e-5 over 6 steps (SGLD with its
-    generator seeded alike). No attention kernel launches in 21-23.
+    generator seeded alike). No attention kernel launches in 21-23;
+24. fault: the slice's entry point (``models/bert_pretraining.py``'s
+    ``build``) at the bench's configuration (BERT-base, bf16 weights with
+    fp32 masters under AdamW, dropout 0.1, batch 8 x 512) through the fused
+    ``ShardedTrainer``, under ``torch.use_deterministic_algorithms`` for
+    (a) and (b): (a) run U takes 8 steps and saves after step 4 (timed,
+    with its bytes); run K saves after step 4 and dies by ``ChaosCrash`` at
+    ``checkpoint.arrays`` while saving after step 6, after which only step
+    4 is listed and it verifies; a new model and trainer restore it
+    (timed) and run steps 5-8: losses, parameters and optimizer states
+    bitwise equal to U's, 12 launches per kernel per step on the fused
+    path (checkpoints in a temporary directory, ``keep=2``, removed at the
+    end); (b) under ``StepGuard("skip_and_rollback")`` a step on a batch
+    whose MLM weights are NaN trips the guard and is rolled back bitwise
+    (parameters, states, ``num_update``) without a new capture, and the
+    next clean step equals a clean run's bitwise; ``nan_batch`` through
+    the chaos hook is reported (it poisons ``valid_length``, which masks
+    every key); ``StepGuard("halt")`` raises ``NonFiniteError``; (c)
+    printed, not gated: the fused step's ms unguarded, guarded with a
+    snapshot every step and every 100 steps, and under a ``Watchdog``, in
+    turns; (d) ``StackedTransformerEncoder`` at BERT-base widths (12
+    layers, 768, 3072, 12 heads, float32, batch 8 x 512): the card's
+    forward within 1e-4 of the CPU's (the first 2 rows, relative to the
+    largest output), and one ``ShardedTrainer`` step with a finite loss.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -251,14 +274,17 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from unittest import mock
 
 import numpy as onp
 import torch
 
 import incubator_mxnet_tpu_torch as mx
-from incubator_mxnet_tpu_torch import autograd, bench, gluon, models, nd
-from incubator_mxnet_tpu_torch import parallel, serve
+from incubator_mxnet_tpu_torch import autograd, bench, fault, gluon, models
+from incubator_mxnet_tpu_torch import nd, parallel, serve
+from incubator_mxnet_tpu_torch.fault import inject
+from incubator_mxnet_tpu_torch.models import bert_pretraining
 from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
 from incubator_mxnet_tpu_torch.ops.cuda import _build
 from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
@@ -4787,6 +4813,291 @@ def phase_gluon_rest() -> dict:
     return res
 
 
+# -- 24. fault ---------------------------------------------------------------
+
+#: the slice's entry point at the bench's configuration
+FAULT_ARGS = ["--model", "bert_12_768_12", "--seq-len", str(TRAIN_SHAPE[1]),
+              "--batch-size", str(TRAIN_SHAPE[0]), "--seed", "0"]
+FAULT_STEPS = 8         # run U's steps
+FAULT_SAVE_AT = 4       # the step every run saves after
+FAULT_CRASH_AT = 6      # run K dies saving after this step
+FAULT_TIMED = 10        # steps per timed turn in (c)
+FAULT_TURNS = 2
+#: the stacked encoder at BERT-base widths, float32
+ENC_CFG = dict(num_layers=12, units=768, hidden_size=3072, num_heads=12)
+ENC_RTOL = 1e-4         # card vs CPU, relative to the largest output
+ENC_CPU_ROWS = 2        # rows of the batch the CPU forward computes
+
+
+def _fault_build(**trainer_kw):
+    """The slice's entry point, ``bert_pretraining.build``, at the bench's
+    configuration: ``(trainer, batch placed on the card)``."""
+    args = bert_pretraining.parse_args(FAULT_ARGS)
+    _, tr, batch = bert_pretraining.build(args, device="cuda", **trainer_kw)
+    return tr, tr.place(*batch)
+
+
+def _state_of(tr) -> list:
+    """Device copies of every parameter and optimizer state."""
+    return [t.detach().clone() for t in list(tr._params)
+            + tr._state_tensors()]
+
+
+def _same(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def fault_kill_resume(root: str) -> dict:
+    """(a) Run U: ``FAULT_STEPS`` steps, saving after ``FAULT_SAVE_AT``
+    (timed, with its bytes). Run K: saves after ``FAULT_SAVE_AT``, dies by
+    ``ChaosCrash`` at ``checkpoint.arrays`` while saving after
+    ``FAULT_CRASH_AT``. A new model and trainer R restore (timed) and run
+    the remaining steps: losses, parameters and optimizer states bitwise
+    equal to U's, 12 launches per kernel per step, the fused path."""
+    u, placed = _fault_build()
+    ref, save = [], {}
+    for t in range(1, FAULT_STEPS + 1):
+        ref.append(float(u.step(*placed)))
+        if t == FAULT_SAVE_AT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = u.save_checkpoint(os.path.join(root, "u"), keep=2)
+            save["save_s"] = time.perf_counter() - t0
+            save["bytes"] = sum(os.path.getsize(os.path.join(path, f))
+                                for f in os.listdir(path))
+    want = _state_of(u)
+    del u
+    gc.collect()
+    k, placed = _fault_build()
+    kroot = os.path.join(root, "k")
+    for t in range(1, FAULT_CRASH_AT + 1):
+        k.step(*placed)
+        if t == FAULT_SAVE_AT:
+            k.save_checkpoint(kroot, keep=2)
+    crashed = False
+    with inject.chaos(seed=0, crash_sites=["checkpoint.arrays"]):
+        try:
+            k.save_checkpoint(kroot, keep=2)
+        except inject.ChaosCrash:
+            crashed = True
+    check(crashed, "run K's save did not die at checkpoint.arrays")
+    listed = fault.list_checkpoints(kroot)
+    check(listed == [FAULT_SAVE_AT], f"after the crash {kroot} lists "
+          f"{listed}, not [{FAULT_SAVE_AT}]")
+    fault.load_checkpoint(kroot, FAULT_SAVE_AT)       # verifies the CRCs
+    del k
+    gc.collect()
+    r, placed = _fault_build()
+    r.step(*placed)          # set-up, as the entry point's first step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # Gluon prefixes count up
+        restored = r.restore_checkpoint(kroot)
+    torch.cuda.synchronize()
+    save["restore_s"] = time.perf_counter() - t0
+    check(restored == r.num_update == FAULT_SAVE_AT,
+          f"restored step {restored}, num_update {r.num_update}")
+    cuda_ops.reset_launches()
+    got = [float(r.step(*placed))
+           for _ in range(FAULT_SAVE_AT, FAULT_STEPS)]
+    launches = cuda_ops.launch_counts()
+    n = FAULT_STEPS - FAULT_SAVE_AT
+    per_step = models.BERT_CONFIGS["bert_12_768_12"]["num_layers"]
+    same_state = _same(_state_of(r), want)
+    print(f"fault (a): run U losses {[round(x, 6) for x in ref]}; resumed "
+          f"steps {FAULT_SAVE_AT + 1}-{FAULT_STEPS} {got}: losses "
+          f"{'bitwise equal' if got == ref[FAULT_SAVE_AT:] else 'DIFFER'}, "
+          f"parameters and states {'bitwise equal' if same_state else 'DIFFER'}"
+          f"; launches {launches} over {n} steps, path {r.last_path}, "
+          f"captures {r.captures}; save {save['save_s']:.3f} s for "
+          f"{save['bytes']} bytes, restore {save['restore_s']:.3f} s",
+          flush=True)
+    check(got == ref[FAULT_SAVE_AT:], f"resumed losses {got} differ from "
+          f"the uninterrupted run's {ref[FAULT_SAVE_AT:]}")
+    check(same_state, "resumed parameters or optimizer states differ from "
+          "the uninterrupted run's")
+    for name, c in launches.items():
+        check(c == per_step * n, f"fault: {name} launched {c} times in {n} "
+              f"resumed steps of {per_step} attention calls")
+    check(r.last_path == "fused" and r.last_step_graphs == 1,
+          f"the resumed trainer's last step: {r.last_path}, "
+          f"{r.last_step_graphs} graphs")
+    return dict(save, losses=ref, resumed_losses=got, launches=launches,
+                captures=r.captures, last_path=r.last_path)
+
+
+def fault_guard() -> dict:
+    """(b) ``StepGuard("skip_and_rollback")`` on the fused step: a step on
+    a batch whose MLM weights are NaN (the loss and every gradient NaN)
+    trips it and is rolled back bitwise, without a new capture; the next
+    clean step equals a clean run's bitwise. ``nan_batch`` through the
+    chaos hook (it poisons ``valid_length``, BERT's only float data
+    argument) is reported; ``halt`` raises ``NonFiniteError``."""
+    guard = fault.StepGuard("skip_and_rollback")
+    g, placed = _fault_build(guard=guard)
+    c, _ = _fault_build()
+    bad = list(placed)
+    bad[5] = torch.full_like(placed[5], float("nan"))    # mlm_weights
+    for tr in (g, c):
+        tr.step(*placed)
+        tr.step(*placed)
+    before, t_before, captures = _state_of(g), g.num_update, g.captures
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g.step(*bad)
+    rolled = _same(_state_of(g), before) and g.num_update == t_before
+    lg, lc = float(g.step(*placed)), float(c.step(*placed))
+    same_next = lg == lc and _same(_state_of(g), _state_of(c))
+    with inject.chaos(seed=0, nan_prob=1.0) as monkey, \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g.step(*placed)
+    nan_batch_tripped = guard.tripped > 1
+    g._guard = fault.StepGuard("halt")
+    try:
+        g.step(*bad)
+        halted = False
+    except fault.NonFiniteError:
+        halted = True
+    res = {"tripped": guard.tripped, "skipped": guard.skipped,
+           "history": [list(h) for h in guard.history],
+           "rolled_back_bitwise": rolled, "next_step_bitwise": same_next,
+           "captures": g.captures, "halt_raised": halted,
+           "nan_batch_fired": monkey.log[0] == ("nan_batch", True),
+           "nan_batch_tripped": nan_batch_tripped}
+    print(f"fault (b): guard {res}", flush=True)
+    check(guard.skipped == 1 and rolled, "the poisoned step was not "
+          "rolled back bitwise")
+    check(same_next, f"the step after the rollback ({lg}) differs from a "
+          f"clean run's ({lc})")
+    check(g.captures == captures == 1, f"captures {captures} -> "
+          f"{g.captures}: the rollback recaptured the fused step")
+    check(halted, "StepGuard('halt') did not raise NonFiniteError")
+    return res
+
+
+def fault_costs() -> dict:
+    """(c) The fused step's ms (host clock around ``FAULT_TIMED``
+    synchronised steps, in turns) unguarded, guarded with a snapshot every
+    step and every 100 steps, and under an adaptive ``Watchdog``."""
+    tr, placed = _fault_build()
+    for _ in range(2):                       # eager run, capture
+        tr.step(*placed)
+    configs = (("unguarded", lambda: (None, None)),
+               ("guard_snapshot_every_1",
+                lambda: (fault.StepGuard("skip_and_rollback"), None)),
+               ("guard_snapshot_every_100",
+                lambda: (fault.StepGuard("skip_and_rollback",
+                                         snapshot_every=100), None)),
+               ("watchdog", lambda: (None, fault.Watchdog())))
+    runs = {name: [] for name, _ in configs}
+    for _ in range(FAULT_TURNS):
+        for name, make in configs:
+            tr._guard, tr._watchdog = make()
+            runs[name].append(synced_ms(lambda: tr.step(*placed),
+                                        FAULT_TIMED)[0])
+    res = {name: {"runs_ms": ms, "ms": min(ms)} for name, ms in runs.items()}
+    # one profiled step of each: where a snapshot's time goes (the
+    # multi-tensor copies on the device, the host's launches after the
+    # guard's read, when the device waits)
+    for name, guard in (("unguarded", None), ("guard_snapshot_every_1",
+                        fault.StepGuard("skip_and_rollback"))):
+        tr._guard = guard
+        tr.step(*placed)
+        wall, per_kernel = device_split(lambda: tr.step(*placed))
+        busy = sum(per_kernel.values())
+        copies = sum(t for k, t in per_kernel.items() if "CopyFunctor" in k)
+        res[name]["profile"] = {"wall_ms": wall, "device_ms": busy,
+                                "idle_share": max(0.0, 1 - busy / wall),
+                                "snapshot_copy_ms": copies}
+    tr._guard = tr._watchdog = None
+    res["captures"] = tr.captures
+    card = card_line()
+    print("fault (c): fused step ms " + ", ".join(
+        f"{k} {v['ms']:.3f} (runs {[round(x, 3) for x in v['runs_ms']]})"
+        for k, v in res.items() if k != "captures") + f" on {card}",
+        flush=True)
+    for name in ("unguarded", "guard_snapshot_every_1"):
+        prof = res[name]["profile"]
+        print(f"fault (c): one profiled {name} step: wall "
+              f"{prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms"
+              f", idle {prof['idle_share']:.1%}, multi-tensor copies "
+              f"{prof['snapshot_copy_ms']:.3f} ms", flush=True)
+    check(tr.captures == 1, f"the timed trainer captured {tr.captures} "
+          "graphs")
+    return res
+
+
+def fault_encoder() -> dict:
+    """(d) ``StackedTransformerEncoder`` at BERT-base widths, float32,
+    batch ``TRAIN_SHAPE``: the card's forward against the CPU's on the
+    first ``ENC_CPU_ROWS`` rows (rows are independent) within ``ENC_RTOL``
+    of the largest output, and one ``ShardedTrainer`` step with a finite
+    loss."""
+    B, L = TRAIN_SHAPE
+    nets = []
+    for dev in ("cuda", "cpu"):
+        net = models.StackedTransformerEncoder(**ENC_CFG)
+        net.initialize(ctx=mx.Context.from_device(torch.device(dev)))
+        nets.append(net)
+    for name, p in nets[0]._reg_params.items():     # the same weights
+        nets[1]._reg_params[name].set_data(p.data()._data.cpu())
+    x = torch.from_numpy(onp.random.RandomState(0).randn(
+        B, L, ENC_CFG["units"]).astype("float32"))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out = nets[0](x.cuda())
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        ref = nets[1](x[:ENC_CPU_ROWS])
+    err = ((out[:ENC_CPU_ROWS].cpu() - ref).abs().max()
+           / ref.abs().max()).item()
+    tr = parallel.ShardedTrainer(nets[0],
+                                 lambda o, y: ((o - y) ** 2).mean(-1),
+                                 "adamw", {"learning_rate": 1e-4},
+                                 device="cuda")
+    loss = float(tr.step(x.cuda(), torch.zeros_like(x).cuda()))
+    print(f"fault (d): stacked encoder {ENC_CFG}, batch {B} x {L}: card vs "
+          f"CPU rel err {err:.2e} (first forward {card_ms:.1f} ms), one "
+          f"{tr.last_path} ShardedTrainer step loss {loss:.6f}", flush=True)
+    check(err <= ENC_RTOL, f"stacked encoder: card vs CPU {err:.2e} > "
+          f"{ENC_RTOL}")
+    check(onp.isfinite(loss), f"stacked encoder step loss {loss}")
+    return {"rel_err": err, "first_forward_ms": card_ms, "loss": loss}
+
+
+def phase_fault() -> dict:
+    """24. fault (the module docstring): (a) and (b) under
+    ``torch.use_deterministic_algorithms``, in a temporary directory
+    removed at the end; then (c) and (d)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = {"card": card_line()}
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            res["resume"] = fault_kill_resume(root)
+        gc.collect()
+        res["guard"] = fault_guard()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["costs"] = fault_costs()
+    gc.collect()
+    res["encoder"] = fault_encoder()
+    res["launches"] = res["resume"]["launches"]
+    res["seconds"] = time.perf_counter() - t0
+    print(f"fault: phase {res['seconds']:.1f} s on {res['card']}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -4840,6 +5151,7 @@ def main(argv=None) -> int:
     mob_res = phase_mobilenet()
     zoo_res = phase_zoo()
     rest = phase_gluon_rest()
+    fault_res = phase_fault()
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -4899,7 +5211,8 @@ def main(argv=None) -> int:
                                  "dcgan_example": rest["examples"][
                                      "dcgan_example"]["launches"][name],
                                  "optimizers": rest["optimizers"][
-                                     "launches"][name]},
+                                     "launches"][name],
+                                 "fault": fault_res["launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -4922,7 +5235,8 @@ def main(argv=None) -> int:
                        "detection": det_res, "int8_serve": int8_res,
                        "amp": amp_res, "nd_ops": nd_res,
                        "mobilenet": mob_res, "zoo": zoo_res,
-                       "gluon_rest": rest, "kernels": kernels},
+                       "gluon_rest": rest, "fault": fault_res,
+                       "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -43,7 +43,11 @@ and the ``interleaved_matmul_*`` ops, in one registry
 (``ops/registry.py``; ``ops/tensor.py``, ``ops/nn.py``, ``ops/vision.py``)
 that ``mx.nd``, ``F`` and ``amp.init`` read, the samplers of
 ``mx.nd.random``, ``mx.waitall``, and the whole vision model zoo
-(MobileNet, AlexNet, VGG, SqueezeNet, DenseNet, Inception, ResNet).
+(MobileNet, AlexNet, VGG, SqueezeNet, DenseNet, Inception, ResNet);
+and fault tolerance: ``mx.fault`` (checkpoints in the JAX package's
+layout, ``StepGuard``, ``Watchdog``, retry, seeded chaos), resumable
+``ShardedTrainer`` and ``gluon.Trainer``, and ``ShardedTrainer``'s guarded
+fused step.
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
@@ -52,7 +56,7 @@ from .context import (  # noqa: F401
 from . import (  # noqa: F401
     autograd, engine, random, ndarray, initializer, gluon, ops, nn, models, serve,
     convert, optimizer, parallel, lr_scheduler, metric, io, contrib, image,
-    amp, quantization,
+    amp, quantization, fault, lockcheck,
 )
 
 from .engine import waitall  # noqa: F401
@@ -64,4 +68,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "resolve_device", "waitall", "engine", "autograd", "random", "ndarray",
            "nd", "initializer", "init", "gluon", "ops", "nn", "models",
            "serve", "convert", "optimizer", "parallel", "lr_scheduler",
-           "metric", "io", "contrib", "image", "amp", "quantization"]
+           "metric", "io", "contrib", "image", "amp", "quantization",
+           "fault", "lockcheck"]

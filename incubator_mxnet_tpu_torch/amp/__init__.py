@@ -107,18 +107,20 @@ class LossScaler:
     """Dynamic loss scaling (JAX counterpart: ``amp/__init__.py:81``;
     reference ``amp/loss_scaler.py``), for float16: the scale halves on an
     overflow step (not below 1) and doubles after ``scale_window`` clean
-    steps. The overflow check is one fused finite check over every
-    gradient and one host read."""
+    steps. The overflow check is ``fault.all_finite`` over every gradient:
+    one fused check and one host read. An optional ``fault.StepGuard``
+    escalates: an overflow step goes to ``guard.decide``, a clean one to
+    ``guard.good_step``, so ``halt`` (or the guard's ``max_consecutive``)
+    turns a diverging float16 run into an error instead of a silent
+    collapse of the scale."""
 
     def __init__(self, init_scale: float = 2 ** 16, scale_factor: float = 2.0,
                  scale_window: int = 2000, guard=None):
-        if guard is not None:
-            raise MXNetError("LossScaler(guard=) needs fault.StepGuard, "
-                             "which is not ported yet")
         self.loss_scale = init_scale
         self._scale_factor = scale_factor
         self._scale_window = scale_window
         self._unskipped = 0
+        self._guard = guard
         #: total overflow (skipped-update) steps
         self.overflows = 0
         #: steps observed (one update_scale per training step)
@@ -127,16 +129,12 @@ class LossScaler:
     def has_overflow(self, params) -> bool:
         """Does any gradient of ``params`` (Gluon Parameters) hold a NaN or
         an infinity?"""
+        from ..fault.guards import all_finite
         grads = [p._var.grad for p in params
                  if p._initialized and p._var.grad is not None]
         if not grads:
             return False
-        found = torch.zeros(1, dtype=torch.float32, device=grads[0].device)
-        # torch's fused finite check over a list; at scale 1 it leaves the
-        # gradients as they are
-        torch._amp_foreach_non_finite_check_and_unscale_(
-            grads, found, torch.ones(1, device=found.device))
-        return bool(found.item())
+        return not all_finite(grads)
 
     def update_scale(self, overflow: bool) -> None:
         self.steps += 1
@@ -144,8 +142,17 @@ class LossScaler:
             self.overflows += 1
             self.loss_scale = max(1.0, self.loss_scale / self._scale_factor)
             self._unskipped = 0
+            if self._guard is not None:
+                # halt, or max_consecutive, raise NonFiniteError; skipping
+                # the update is the scaler's own behaviour
+                self._guard.decide(
+                    self.steps, "loss-scale overflow",
+                    detail=f"overflow #{self.overflows}, scale now "
+                           f"{self.loss_scale:g}")
         else:
             self._unskipped += 1
+            if self._guard is not None:
+                self._guard.good_step()
             if self._unskipped >= self._scale_window:
                 self.loss_scale *= self._scale_factor
                 self._unskipped = 0

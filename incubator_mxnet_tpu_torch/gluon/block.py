@@ -277,11 +277,16 @@ class Block(nn.Module):
                 continue
             seen.add(id(param))
             arg_dict[name] = param.data()
-        if not all(bool(torch.isfinite(a._data).all())
-                   for a in arg_dict.values() if a._data.is_floating_point()):
+        # non-finite weights save "successfully" and break every restore:
+        # say so now, with one fused check and one host read (JAX
+        # counterpart: ``gluon/block.py:298-311``); a diverged model may
+        # still be saved for a post-mortem
+        from ..fault.guards import all_finite
+        if not all_finite(list(arg_dict.values())):
             warnings.warn(f"save_parameters({filename!r}): parameters "
                           "contain non-finite values; the saved file will "
-                          "restore a broken model")
+                          "restore a broken model (a fault.StepGuard on the "
+                          "trainer catches this at the offending step)")
         F.save(filename, arg_dict)
 
     def load_parameters(self, filename: str, ctx=None,

@@ -21,7 +21,11 @@ and update counts resolved in index order as that loop resolves them.
 as :data:`~..ndarray.serialization.BFLOAT16`, as ``.params`` files carry
 them; loading restores ``num_update`` and the states, and the update
 counts of each index start again from ``begin_num_update``, as they do in
-the JAX package.
+the JAX package. ``save_checkpoint``/``restore_checkpoint`` write and read
+``mx.fault`` checkpoint directories in the JAX package's layout
+(``:256-310``): parameters, states and the update count; a restore writes
+each parameter in place, because a hybridized block's graphs read its
+storage.
 """
 from __future__ import annotations
 
@@ -29,12 +33,9 @@ import os
 import pickle
 from typing import Dict, List, Optional
 
-import numpy as onp
-import torch
-
 from .. import optimizer as opt_mod
 from ..base import MXNetError
-from ..ndarray.serialization import BFLOAT16
+from ..ndarray.serialization import from_host, to_host
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -148,7 +149,7 @@ class Trainer:
         package's format (atomic: a crash mid-write never clobbers an
         existing file)."""
         blob = {"num_update": self._optimizer.num_update,
-                "states": {i: tuple(_host(s) for s in st)
+                "states": {i: tuple(to_host(s) for s in st)
                            for i, st in self._states.items()}}
         tmp = f"{fname}.tmp-{os.getpid()}"
         try:
@@ -173,24 +174,71 @@ class Trainer:
             blob = pickle.load(f)
         self._optimizer.num_update = blob["num_update"]
         self._states = {
-            i: tuple(_device(s, self._params[i]._var.device) for s in st)
+            i: tuple(from_host(s, self._params[i]._var.device) for s in st)
             for i, st in blob["states"].items()}
 
 
-def _host(t: torch.Tensor) -> onp.ndarray:
-    """A state as a numpy array; bfloat16 as :data:`BFLOAT16`."""
-    t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(BFLOAT16).copy()
-    return t.numpy().copy()
+    def save_checkpoint(self, root: str, keep: Optional[int] = 3) -> str:
+        """One atomic checkpoint directory under ``root``: parameters,
+        optimizer states and the update count, under the update count;
+        prunes to the newest ``keep`` (JAX counterpart:
+        ``gluon/trainer.py:256``)."""
+        from ..fault import checkpoint as ckpt
+        arrays = {}
+        for i, p in enumerate(self._params):
+            if not p._initialized:
+                raise MXNetError(
+                    f"parameter {p.name!r} is uninitialized; initialize "
+                    "before save_checkpoint")
+            arrays[f"param:{i:04d}"] = to_host(p._var)
+            for j, s in enumerate(self._states.get(i, ())):
+                arrays[f"opt:{i:04d}:{j}"] = to_host(s)
+        meta = {
+            "trainer": "Trainer", "format": 1,
+            "num_update": self._optimizer.num_update,
+            "param_names": [p.name for p in self._params],
+            "opt_state_sizes": [len(self._states.get(i, ()))
+                                for i in range(len(self._params))],
+        }
+        return ckpt.save_checkpoint(root, arrays, meta,
+                                    step=self._optimizer.num_update,
+                                    keep=keep)
 
-
-def _device(a: onp.ndarray, device: torch.device) -> torch.Tensor:
-    """A state read from a ``.states`` file on ``device``: bfloat16 as
-    either package writes it (:data:`BFLOAT16`, or the JAX package's
-    numpy ``bfloat16``, 2 bytes wide)."""
-    a = onp.asarray(a)
-    if a.dtype == BFLOAT16 or a.dtype.name == "bfloat16":
-        bits = onp.ascontiguousarray(a).view("<i2")
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(onp.array(a)).to(device)
+    def restore_checkpoint(self, root: str, step: Optional[int] = None
+                           ) -> int:
+        """Restore parameters (in place), optimizer states and the update
+        count from the newest verified checkpoint under ``root`` (or
+        ``step``), written by either package (JAX counterpart:
+        ``gluon/trainer.py:282``). As there, each index's own update count
+        is left as it is."""
+        from ..fault import checkpoint as ckpt
+        if step is None:
+            arrays, meta, step = ckpt.load_latest(root)
+        else:
+            arrays, meta, step = ckpt.load_checkpoint(root, step)
+        if meta.get("trainer") != "Trainer" or meta.get("format") != 1:
+            raise MXNetError(
+                f"checkpoint step {step} was not written by "
+                "gluon.Trainer.save_checkpoint")
+        if len(meta.get("param_names", [])) != len(self._params):
+            raise MXNetError(
+                "checkpoint parameter count does not match this Trainer: "
+                f"saved {len(meta.get('param_names', []))}, "
+                f"live {len(self._params)}")
+        sizes = meta["opt_state_sizes"]
+        for i, p in enumerate(self._params):
+            v = arrays[f"param:{i:04d}"]
+            if tuple(v.shape) != tuple(p.shape):
+                raise MXNetError(
+                    f"checkpoint array for parameter {p.name!r} is shape "
+                    f"{tuple(v.shape)}, live parameter is {tuple(p.shape)}")
+            dev = p._var.device
+            p.set_data(from_host(v, dev))
+            if sizes[i]:
+                self._states[i] = tuple(
+                    from_host(arrays[f"opt:{i:04d}:{j}"], dev)
+                    for j in range(sizes[i]))
+            else:
+                self._states.pop(i, None)
+        self._optimizer.num_update = int(meta["num_update"])
+        return step

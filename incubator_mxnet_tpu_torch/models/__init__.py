@@ -3,8 +3,8 @@ models, their serving specs, and the smoke instances of the quantizable
 serving families (:func:`hlo_smoke`, :func:`calib_args`,
 :func:`quantized_smoke`)."""
 from . import (  # noqa: F401
-    bert, dcgan, image_classification, lenet, nmt, rcnn, ssd, transformer,
-    word_language_model,
+    bert, bert_pretraining, dcgan, image_classification, lenet, nmt, rcnn,
+    ssd, transformer, word_language_model,
 )
 from .bert import (  # noqa: F401
     BERT_CONFIGS, BERTEncoder, BERTModel, bert_pretrain_loss, get_bert,
@@ -17,7 +17,8 @@ from .nmt import (  # noqa: F401
 from .rcnn import FasterRCNN, FasterRCNNTargetLoss, RPN  # noqa: F401
 from .ssd import SSD, SSDTargetLoss, ssd_300  # noqa: F401
 from .transformer import (  # noqa: F401
-    MultiHeadAttention, PositionwiseFFN, TransformerEncoderCell,
+    MultiHeadAttention, PositionwiseFFN, StackedTransformerEncoder,
+    TransformerEncoderCell,
 )
 from .word_language_model import RNNModel  # noqa: F401
 import numpy as onp
@@ -51,6 +52,12 @@ SERVE_SPECS = {
         "output_axes": [{0: "batch"}],
         "pad_values": [0],
     },
+    # StackedTransformerEncoder(x), served unmasked
+    "transformer_encoder": {
+        "input_axes": [{0: "batch", 1: "seq"}],
+        "output_axes": [{0: "batch", 1: "seq"}],
+        "pad_values": [0],
+    },
     # NMTModel.encode(src_ids, src_len): the beam-search entry's encoder
     # (_NMTEncodeEntry)
     "nmt_encoder": {
@@ -63,7 +70,8 @@ SERVE_SPECS = {
 
 #: Families whose smoke model holds quantizable layers (``nn.Dense`` /
 #: ``nn.Conv2D`` children the int8 pass swaps) (JAX counterpart:
-#: ``models/__init__.py:78``)
+#: ``models/__init__.py:78``); ``transformer_encoder`` has none (its
+#: stacked parameters are no Dense children)
 QUANT_FAMILIES = ("bert", "bert_encoder", "lenet", "nmt_encoder")
 
 
@@ -138,6 +146,12 @@ def hlo_smoke(family: str, batch: int = None, seq: int = None,
         net.initialize(ctx=ctx)
         args = [onp.zeros((B, 1, 28, 28), "float32")]
         table = serve.BucketTable({"batch": batch_lad})
+    elif family == "transformer_encoder":
+        net = StackedTransformerEncoder(num_layers=2, units=32,
+                                        hidden_size=64, num_heads=2)
+        net.initialize(ctx=ctx)
+        args = [onp.zeros((B, L, 32), "float32")]
+        table = serve.BucketTable({"batch": batch_lad, "seq": seq_lad})
     elif family == "nmt_encoder":
         net = _NMTEncodeEntry()
         net.initialize(ctx=ctx)

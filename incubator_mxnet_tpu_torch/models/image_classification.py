@@ -8,9 +8,10 @@ A model of the vision zoo by name (``thumbnail`` below 64 pixels),
 on a synthetic labeled set (class prototypes plus noise, ``RandomState(0)``;
 the iterator shuffles with numpy's global stream, as in the JAX package).
 ``amp=True`` (``--amp``) calls ``amp.init()`` first: bfloat16 mixed
-precision with float32 weights. ``--rec`` (``ImageRecordIter``) and
-``--ckpt-dir`` (``fault/`` checkpoints) raise until those modules are
-ported. Run on the card::
+precision with float32 weights. ``--ckpt-dir`` saves a ``fault``
+checkpoint of the trainer after every epoch, as the JAX example does
+(``:91-92``); ``--rec`` (``ImageRecordIter``) raises until the data slice.
+Run on the card::
 
     python3 -m incubator_mxnet_tpu_torch.models.image_classification \\
         --model resnet18_v1 --epochs 3 --amp
@@ -62,9 +63,6 @@ def image_classification_example(model: str = "resnet18_v1",
     if rec is not None:
         raise MXNetError("--rec needs ImageRecordIter and recordio, which "
                          "are not ported yet")
-    if ckpt_dir is not None:
-        raise MXNetError("--ckpt-dir needs fault/ checkpoints, which are "
-                         "not ported yet")
     ctx = ctx or current_context()
     random.seed(seed if seed is not None
                 else int(os.environ.get("MXNET_TEST_SEED", "42")))
@@ -98,6 +96,8 @@ def image_classification_example(model: str = "resnet18_v1",
                 trainer.step(batch_size)
                 acc_metric.update(batch.label[0], out)
                 losses.append(loss._data.detach().mean())
+            if ckpt_dir:
+                trainer.save_checkpoint(ckpt_dir)
             accs.append(acc_metric.get()[1])
             secs.append(time.perf_counter() - t0)
     return {"losses": [float(v) for v in losses], "accuracy": accs[-1],
@@ -120,7 +120,7 @@ def main(argv=None) -> float:
     ap.add_argument("--amp", action="store_true", help="bf16 mixed precision")
     ap.add_argument("--kvstore", default="device")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="fault/ checkpoint directory (not ported yet)")
+                    help="mx.fault checkpoint directory, saved every epoch")
     ap.add_argument("--seed", type=int, default=None,
                     help="RNG seed; default: MXNET_TEST_SEED or 42")
     args = ap.parse_args(argv)

@@ -11,15 +11,19 @@ bottom-right aligned, as in the JAX package). Children and prefixes are the
 JAX ones (attribute ``attention`` with prefix ``attn_``, ``qkv_``,
 ``query_``, ``kv_``, ``ffn1_`` ...), so structural and prefix parameter
 names match the JAX package's. The cell's LayerNorms are given their width,
-so a model initialises without a forward. ``StackedTransformerEncoder``
-comes with a later slice.
+so a model initialises without a forward. :class:`StackedTransformerEncoder`
+(``:154-285``) keeps every layer's parameters in one tensor per kind, with
+a leading layer axis.
 """
 from __future__ import annotations
+
+import torch
 
 from ..gluon.block import HybridBlock
 from ..nn import Dense, Dropout, LayerNorm
 
-__all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell"]
+__all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
+           "StackedTransformerEncoder"]
 
 
 class MultiHeadAttention(HybridBlock):
@@ -139,3 +143,98 @@ class TransformerEncoderCell(HybridBlock):
     def hybrid_forward(self, F, x, mask=None):
         x = self.ln1(x + self.attention(x, None, mask))
         return self.ln2(x + self.ffn(x))
+
+
+class StackedTransformerEncoder(HybridBlock):
+    """Post-LN transformer encoder whose parameters carry a leading
+    ``(num_layers,)`` axis (JAX counterpart: ``models/transformer.py:154``,
+    under the same names: ``qkv_weight`` (N, 3C, C), ``proj_weight``,
+    ``ffn1_weight`` (N, H, C), ``ffn2_weight``, their biases, and
+    ``ln1_gamma``/``ln1_beta``/``ln2_gamma``/``ln2_beta``).
+
+    ``forward(x)`` on (B, L, C) runs the layers in a loop, where the JAX
+    block scans over the layer axis. Each layer is the JAX block's layer as
+    written: plain scores in float32 over all keys (no mask), softmax,
+    exact GELU, post-LN with epsilon ``layer_norm_eps``. The JAX package
+    computes it outside the flash kernels, so it is plain torch products
+    here. The JAX block's pipeline schedule (a mesh with a ``pp`` axis,
+    ``n_micro`` microbatches) comes with the multi-GPU slice; on one card
+    the stack runs whole, as the JAX block does without ``pp``."""
+
+    _KINDS = ("qkv_w", "qkv_b", "proj_w", "proj_b", "ffn1_w", "ffn1_b",
+              "ffn2_w", "ffn2_b", "ln1_g", "ln1_b", "ln2_g", "ln2_b")
+
+    def __init__(self, num_layers: int, units: int, hidden_size: int,
+                 num_heads: int, layer_norm_eps: float = 1e-12,
+                 n_micro: int = 4, dtype="float32", **kwargs):
+        super().__init__(**kwargs)
+        if units % num_heads:
+            raise ValueError(f"units {units} not divisible by heads "
+                             f"{num_heads}")
+        self._N = num_layers
+        self._units = units
+        self._hidden = hidden_size
+        self._heads = num_heads
+        self._eps = layer_norm_eps
+        self._n_micro = n_micro
+        N, C, H = num_layers, units, hidden_size
+        with self.name_scope():
+            get = self.params.get
+            self.qkv_w = get("qkv_weight", shape=(N, 3 * C, C),
+                             init="xavier", dtype=dtype)
+            self.qkv_b = get("qkv_bias", shape=(N, 3 * C), init="zeros",
+                             dtype=dtype)
+            self.proj_w = get("proj_weight", shape=(N, C, C), init="xavier",
+                              dtype=dtype)
+            self.proj_b = get("proj_bias", shape=(N, C), init="zeros",
+                              dtype=dtype)
+            self.ffn1_w = get("ffn1_weight", shape=(N, H, C), init="xavier",
+                              dtype=dtype)
+            self.ffn1_b = get("ffn1_bias", shape=(N, H), init="zeros",
+                              dtype=dtype)
+            self.ffn2_w = get("ffn2_weight", shape=(N, C, H), init="xavier",
+                              dtype=dtype)
+            self.ffn2_b = get("ffn2_bias", shape=(N, C), init="zeros",
+                              dtype=dtype)
+            self.ln1_g = get("ln1_gamma", shape=(N, C), init="ones",
+                             dtype=dtype)
+            self.ln1_b = get("ln1_beta", shape=(N, C), init="zeros",
+                             dtype=dtype)
+            self.ln2_g = get("ln2_gamma", shape=(N, C), init="ones",
+                             dtype=dtype)
+            self.ln2_b = get("ln2_beta", shape=(N, C), init="zeros",
+                             dtype=dtype)
+
+    def _ln(self, v, g, b):
+        mu = v.mean(-1, keepdim=True)
+        var = ((v - mu) ** 2).mean(-1, keepdim=True)
+        return (v - mu) * torch.rsqrt(var + self._eps) * g + b
+
+    def _layer(self, p, x):
+        """One layer on (B, L, C) (JAX counterpart: ``_layer``,
+        ``:211-236``)."""
+        C, Hd = self._units, self._heads
+        D = C // Hd
+        B, L, _ = x.shape
+
+        def heads(t):
+            return t.reshape(B, L, Hd, D).transpose(1, 2)
+
+        qkv = torch.matmul(x, p["qkv_w"].t()) + p["qkv_b"]
+        q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+            * (D ** -0.5)
+        a = torch.softmax(s, dim=-1).to(x.dtype)
+        o = torch.matmul(a, v).transpose(1, 2).reshape(B, L, C)
+        o = torch.matmul(o, p["proj_w"].t()) + p["proj_b"]
+        x = self._ln(x + o, p["ln1_g"], p["ln1_b"])
+        h = torch.nn.functional.gelu(
+            torch.matmul(x, p["ffn1_w"].t()) + p["ffn1_b"],
+            approximate="none")
+        f = torch.matmul(h, p["ffn2_w"].t()) + p["ffn2_b"]
+        return self._ln(x + f, p["ln2_g"], p["ln2_b"])
+
+    def hybrid_forward(self, F, x, **kw):
+        for i in range(self._N):
+            x = self._layer({n: kw[n][i] for n in self._KINDS}, x)
+        return x

@@ -11,7 +11,8 @@ truncated BPTT (the states carried between chunks, detached),
 does not fall, on the example's synthetic corpus: a Markov chain that
 steps ``(3 * cur + 7) % vocab`` with probability 0.9, else uniformly
 (perplexity floor ~2.1 at vocab 50; PTB is not in the repo and is not
-fetched). ``--ckpt-dir`` raises until ``fault/`` is ported. Run on the
+fetched). ``--ckpt-dir`` saves a ``fault`` checkpoint of the trainer
+after every epoch, as the JAX example does (``:142-143``). Run on the
 card::
 
     python3 -m incubator_mxnet_tpu_torch.models.word_language_model \\
@@ -26,7 +27,6 @@ from typing import Optional
 
 import numpy as onp
 
-from ..base import MXNetError
 from ..gluon.block import Block
 
 __all__ = ["RNNModel", "make_corpus", "batchify", "lm_example", "main"]
@@ -97,9 +97,6 @@ def lm_example(vocab: int = 50, emsize: int = 64, nhid: int = 64,
     from .. import ndarray as nd
     from ..context import current_context
 
-    if ckpt_dir is not None:
-        raise MXNetError("--ckpt-dir needs fault/ checkpoints, which are "
-                         "not ported yet")
     ctx = ctx or current_context()
     random.seed(seed if seed is not None
                 else int(os.environ.get("MXNET_TEST_SEED", "42")))
@@ -141,6 +138,8 @@ def lm_example(vocab: int = 50, emsize: int = 64, nhid: int = 64,
                 total_tok += data.shape[0] * data.shape[1]
             ppl = math.exp(total_nll / total_tok)
             epoch_ppl.append(ppl)
+            if ckpt_dir:
+                trainer.save_checkpoint(ckpt_dir)
             if ppl > prev_ppl:            # anneal the rate on a plateau
                 trainer.set_learning_rate(trainer.learning_rate / 4.0)
             prev_ppl = ppl
@@ -166,7 +165,7 @@ def main(argv=None) -> float:
     ap.add_argument("--dropout", type=float, default=0.1)
     ap.add_argument("--no-tied", action="store_true")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="fault/ checkpoint directory (not ported yet)")
+                    help="mx.fault checkpoint directory, saved every epoch")
     ap.add_argument("--seed", type=int, default=None,
                     help="RNG seed; default: MXNET_TEST_SEED or 42")
     args = ap.parse_args(argv)

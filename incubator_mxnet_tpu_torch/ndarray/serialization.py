@@ -32,11 +32,12 @@ import struct
 from typing import List, Sequence
 
 import numpy as onp
+import torch
 
 from ..base import MXNetError
 
 __all__ = ["dmlc_save", "dmlc_load", "DMLC_LIST_MAGIC", "NotDmlcFile",
-           "BFLOAT16"]
+           "BFLOAT16", "to_host", "from_host"]
 
 
 class NotDmlcFile(MXNetError):
@@ -59,6 +60,26 @@ _DTYPE_TO_FLAG = {v: k for k, v in _FLAG_TO_DTYPE.items()}
 
 #: the numpy stand-in for bfloat16: the raw 16 bits of each value
 BFLOAT16 = onp.dtype([("bfloat16", "<u2")])
+
+
+def to_host(t) -> onp.ndarray:
+    """A tensor as a numpy array (a copy on the host); bfloat16 as
+    :data:`BFLOAT16`."""
+    t = t.detach().to("cpu", copy=True).contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BFLOAT16)
+    return t.numpy()
+
+
+def from_host(a, device) -> "torch.Tensor":
+    """A numpy array as a tensor on ``device``: bfloat16 as either package
+    writes it (:data:`BFLOAT16`, or the JAX package's numpy ``bfloat16``,
+    2 bytes wide)."""
+    a = onp.asarray(a)
+    if a.dtype == BFLOAT16 or a.dtype.name == "bfloat16":
+        bits = onp.ascontiguousarray(a).view("<i2")
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(onp.array(a)).to(device)
 
 
 def _dtype_name(arr: onp.ndarray) -> str:
@@ -84,7 +105,13 @@ def _write_ndarray(f, arr: onp.ndarray) -> None:
     f.write(struct.pack(f"<{arr.ndim}q", *arr.shape))
     f.write(struct.pack("<ii", 1, 0))                   # Context: cpu(0)
     f.write(struct.pack("<i", _DTYPE_TO_FLAG[name]))
-    f.write(arr.tobytes())
+    f.write(byte_view(arr))
+
+
+def byte_view(arr: onp.ndarray) -> onp.ndarray:
+    """The bytes of a C-contiguous array, as a flat uint8 view (no copy):
+    what ``f.write`` and ``zlib.crc32`` take."""
+    return arr.reshape(-1).view(onp.uint8)
 
 
 def _read_exact(f, n: int) -> bytes:
@@ -145,7 +172,10 @@ def dmlc_save(fname: str, arrays: Sequence[onp.ndarray],
 
     Atomic: the bytes go to a temporary file beside the target, which
     replaces it only after a flush and fsync, so a crash never leaves a
-    truncated file where a good one stood."""
+    truncated file where a good one stood. The chaos site ``nd.save``
+    (``fault.inject``) dies with the temporary file half written (JAX
+    counterpart: ``ndarray/serialization.py:171-194``)."""
+    from ..fault import inject
     tmp = f"{fname}.tmp-{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
@@ -153,6 +183,7 @@ def dmlc_save(fname: str, arrays: Sequence[onp.ndarray],
             f.write(struct.pack("<Q", len(arrays)))
             for a in arrays:
                 _write_ndarray(f, a)
+            inject.crash("nd.save")
             f.write(struct.pack("<Q", len(names)))
             for s in names:
                 b = s.encode("utf-8")

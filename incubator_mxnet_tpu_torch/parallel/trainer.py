@@ -9,8 +9,8 @@ optimizer update, on an fp32 master copy where the weight is
 float16/bfloat16 and ``multi_precision`` is set (``:471-481``); the learning
 rate is the optimizer's before the step and its schedule position is the
 step count less one (``:425-448``, ``:611-633``). The mesh, sharding,
-ZeRO-1, the kvstore fallback, guard policies, numerics, autotune and
-checkpoints come with later slices.
+ZeRO-1, the kvstore fallback, numerics and autotune come with later
+slices.
 
 Every parameter of the module goes through the optimizer, as in the JAX
 trainer (its ``_params`` is the whole ``collect_params()``, ``:216-218``):
@@ -47,11 +47,43 @@ Two paths, as in the JAX package (``fused=``, ``:127-135``):
 The CPU tests run the fused function without capture
 (``_fused_step(..., capture=False)``). The port's parameters are the
 module's own, updated in place, so :meth:`ShardedTrainer.sync_to_block`
-has nothing to do. No step waits for the card: the loss, the gradient norm
-and the finite verdict stay on the device until a caller reads them.
+has nothing to do. No unguarded step waits for the card: the loss, the
+gradient norm and the finite verdict stay on the device until a caller
+reads them.
+
+Fault tolerance (``mx.fault``; JAX counterpart ``:733-796``, ``:953-1065``,
+``:1172-1285``):
+
+- ``guard=`` (a :class:`~..fault.StepGuard`): before a step, when the
+  snapshot is ``snapshot_every`` steps old (or missing), the parameters,
+  the optimizer states and the generators' states are copied into buffers
+  made once (multi-tensor copies, outside any graph); after the step the
+  loss, the gradient norm and the in-graph finite verdict are read in one
+  host read, and a step the guard rejects under ``skip_and_rollback`` is
+  undone by copying the snapshot back. The guard reads the same path's
+  verdict: it never moves a step from the fused path to the eager one.
+  Unguarded steps read nothing.
+- ``watchdog=`` (a :class:`~..fault.Watchdog`) arms its deadline around
+  each step, the guard's read included.
+- chaos hooks (``fault.inject``): ``note_step``, ``nan_batch`` /
+  ``grad_blowup`` / ``activation_drift`` on the batch as given,
+  ``maybe_delay("slow_step")`` and ``maybe_leak("trainer.step")``.
+- :meth:`ShardedTrainer.save_checkpoint` / :meth:`restore_checkpoint`: the
+  JAX trainer's array names (``param:0000``, ``opt:0000:0``) and meta, so
+  checkpoints move between the packages; the generators' states travel as
+  ``rng:torch:<k>`` (the JAX package's threefry key, ``rng:base_key``,
+  has no counterpart here and is not carried over).
+
+Restore and rollback write into the live tensors (``copy_``), never
+rebinding them: the captured graph updates the very parameters and
+states it was captured over, and a parameter's new storage would only
+make the next step capture again. A generator registered with a graph
+draws, at the next replay, from the state it was last set to.
 """
 from __future__ import annotations
 
+import contextlib
+import warnings
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as onp
@@ -60,8 +92,12 @@ from torch import nn
 
 from .. import autograd
 from .. import optimizer as opt_mod
-from ..base import MXNetError
+from ..base import MXNetError, dtype_name
 from ..context import resolve_device
+from ..fault import checkpoint as ckpt
+from ..fault import inject
+from ..fault.checkpoint import array_dtype as _name
+from ..ndarray.serialization import from_host, to_host
 from ..nn import Dropout, set_dropout_generator
 from ..ops.cuda import graphs
 from ..ops.optimizer_ops import sum_sq_total
@@ -132,13 +168,15 @@ class ShardedTrainer:
     module draws from one generator on that device, seeded with ``seed``.
     ``fused`` picks the path (module docstring): ``None`` is the fused step
     on the card unless ``MXTPU_FUSED_STEP=0``, the eager one on the CPU.
+    ``guard`` (a ``fault.StepGuard``) and ``watchdog`` (a
+    ``fault.Watchdog``) are optional (module docstring).
     """
 
     def __init__(self, block: nn.Module, loss_fn: Callable, optimizer,
                  optimizer_params: Optional[dict] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  n_labels: int = 1, seed: int = 0,
-                 fused: Optional[bool] = None):
+                 fused: Optional[bool] = None, guard=None, watchdog=None):
         self._device = resolve_device(device)
         if fused is None:
             fused = (getenv("MXTPU_FUSED_STEP") == "1"
@@ -159,7 +197,14 @@ class ShardedTrainer:
         self._states: Optional[list] = None
         self._mp: Optional[List[bool]] = None
         self._t = 0
-        self._last = None            # (grad norm, finite) on the device
+        self._last = None            # (loss, grad norm, finite), device
+        self._last_host = None       # the same read by a guarded step
+        self._guard = guard
+        self._watchdog = watchdog
+        #: the rollback snapshot: buffers made once, refreshed in place
+        self._snapshot: Optional[dict] = None
+        #: the meta of the last restored checkpoint
+        self.last_restore_meta: Optional[dict] = None
         #: the schedule is evaluated inside the fused step (``:435``)
         self._lr_fold = False
         self._steps: Dict[tuple, _FusedStep] = {}
@@ -184,21 +229,42 @@ class ShardedTrainer:
         return self._t
 
     @property
+    def guard(self):
+        return self._guard
+
+    @property
+    def watchdog(self):
+        return self._watchdog
+
+    def _last_value(self, k: int):
+        if self._last_host is not None:
+            return self._last_host[k]
+        return None if self._last is None else self._last[k].item()
+
+    @property
+    def last_loss(self) -> Optional[float]:
+        """The last step's mean loss (unguarded, reading it waits for the
+        card; a guarded step has read it already)."""
+        return self._last_value(0)
+
+    @property
     def last_grad_norm(self) -> Optional[float]:
-        """The last step's global gradient norm, accumulated in fp32
-        (reading it waits for the card)."""
-        return None if self._last is None else float(self._last[0])
+        """The last step's global gradient norm, accumulated in fp32."""
+        return self._last_value(1)
 
     @property
     def last_finite(self) -> Optional[bool]:
         """Were the last step's loss and gradient norm finite?"""
-        return None if self._last is None else bool(self._last[1])
+        v = self._last_value(2)
+        return None if v is None else bool(v)
 
     def _init_state(self, data=None) -> None:
-        """Parameters in sorted-name order (the JAX trainer's order), their
-        names for the optimizer's ``idx2name`` (a Gluon block's prefix
-        names, else torch's), their optimizer states, and which of them
-        update through an fp32 master (``_mp``).
+        """Parameters in the JAX trainer's order (``:217-218``): a Gluon
+        block's sorted by their ``collect_params()`` names, a plain
+        module's by torch's names; those names for the optimizer's
+        ``idx2name``, the optimizer states, and which parameters update
+        through an fp32 master (``_mp``). Checkpoints key arrays by this
+        position, so it is the JAX trainer's.
 
         First, as the JAX trainer does (``:206-214``), one forward on the
         data arguments ``data`` in train mode, without gradients: it
@@ -211,15 +277,21 @@ class ShardedTrainer:
             with torch.no_grad(), autograd.train_mode():
                 self._block(*data)
         opt = self._optimizer
-        named = sorted(self._block.named_parameters())
+        if hasattr(self._block, "collect_params"):
+            named, seen = [], set()
+            for name, p in sorted(self._block.collect_params().items()):
+                if id(p._var) not in seen:
+                    seen.add(id(p._var))
+                    named.append((name, p._var))
+            # torch parameters of plain modules inside it, after them
+            named += [(name, p) for name, p in
+                      sorted(self._block.named_parameters())
+                      if id(p) not in seen]
+        else:
+            named = sorted(self._block.named_parameters())
         self._params = [p for _, p in named]
         self._indices = list(range(len(self._params)))
-        prefix = {}
-        if hasattr(self._block, "collect_params"):
-            prefix = {id(p._var): name for name, p in
-                      self._block.collect_params().items()}
-        opt.idx2name = {i: prefix.get(id(p), name)
-                        for i, (name, p) in enumerate(named)}
+        opt.idx2name = {i: name for i, (name, _) in enumerate(named)}
         self._states = [opt.create_state_multi_precision(i, p.detach())
                         for i, p in enumerate(self._params)]
         #: which parameters update through an fp32 master
@@ -259,12 +331,27 @@ class ShardedTrainer:
         n_data = len(batch) - self._n_labels
         if n_data < 1:
             raise MXNetError("step() needs at least one data argument")
+        inject.note_step(self._t + 1)
+        if inject.active() is not None:
+            batch = self._chaos_batch(batch, n_data)
         vals = self.place(*batch)
         if self._params is None:
             self._init_state(vals[:n_data])
-        if self._fused:
-            return self._fused_step(vals, capture=True)
-        return self._eager_step(vals)
+        if self._guard is not None:
+            self._maybe_snapshot()
+        wd = self._watchdog
+        with wd.watch(step=self._t + 1, block=self) if wd is not None \
+                else contextlib.nullcontext():
+            inject.maybe_delay("slow_step")
+            inject.maybe_leak("trainer.step", self._device)
+            if self._fused:
+                loss = self._fused_step(vals, capture=True)
+            else:
+                loss = self._eager_step(vals)
+            self._last_host = None
+            if self._guard is not None:
+                self._apply_guard()
+        return loss
 
     def _eager_step(self, vals) -> torch.Tensor:
         """The step in PyTorch's own way, each parameter updated by
@@ -295,14 +382,19 @@ class ShardedTrainer:
                     master, rest = opt.step(s[0], g.float(), s[1:], lr_i,
                                             wd_i, t)
                     p.copy_(master)
-                    self._states[i] = (master,) + tuple(rest)
+                    new = (master,) + tuple(rest)
                 else:
                     new_w, rest = opt.step(p, g.to(p.dtype), s, lr_i, wd_i,
                                            t)
                     p.copy_(new_w)
-                    self._states[i] = tuple(rest)
+                    new = tuple(rest)
+                # states are written in place, as the fused step writes
+                # them: each lives as long as the trainer (restore and
+                # rollback copy into it)
+                for dst, src in zip(s, new):
+                    dst.copy_(src)
         opt.num_update = self._t
-        self._last = (gnorm, finite)
+        self._last = (loss.detach(), gnorm, finite)
         self.last_path, self.last_step_graphs = "eager", 0
         return loss.detach()
 
@@ -342,10 +434,11 @@ class ShardedTrainer:
             for p, g in zip(self._params, grads):
                 p.grad = g
         self._optimizer.num_update = self._t
-        self._last = (gnorm, finite)
-        self.last_path = "fused"
         # the graph rewrites its loss buffer on the next replay
-        return loss.clone()
+        loss = loss.clone()
+        self._last = (loss, gnorm, finite)
+        self.last_path = "fused"
+        return loss
 
     def _generators(self) -> List[torch.Generator]:
         """The generators the step draws from: the trainer's, any other
@@ -359,3 +452,225 @@ class ShardedTrainer:
 
     def sync_to_block(self) -> None:
         """Nothing to write back: the parameters are the module's own."""
+
+    # ------------------------------------------------------------------
+    # fault tolerance (``mx.fault``)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _chaos_batch(batch, n_data: int):
+        """Chaos hook (JAX counterpart: ``:953-980``): when the monkey draws
+        ``nan_batch``, the first float data argument becomes NaNs; the
+        ``grad_blowup`` / ``activation_drift`` ramps scale the float data
+        arguments instead. Numpy arrays and tensors alike, each where it
+        lies."""
+        scale = (inject.scale_ramp("grad_blowup")
+                 * inject.scale_ramp("activation_drift"))
+        nan = inject.should("nan_batch")
+        if not nan and scale == 1.0:
+            return batch
+        out = list(batch)
+        poisoned = False
+        for i in range(n_data):
+            a = out[i]
+            if isinstance(a, torch.Tensor):
+                if not a.is_floating_point():
+                    continue
+            else:
+                a = onp.asarray(a)
+                if a.dtype.kind != "f":
+                    continue
+            if nan and not poisoned:
+                out[i] = inject.poison(a)
+                poisoned = True
+            elif scale != 1.0:
+                out[i] = (a * scale).astype(a.dtype, copy=False) \
+                    if isinstance(a, onp.ndarray) else a * scale
+        return tuple(out)
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """Every optimizer state tensor, in index order."""
+        return [s for st in self._states for s in st
+                if isinstance(s, torch.Tensor)]
+
+    def _live_by_dtype(self) -> Dict[torch.dtype, List[torch.Tensor]]:
+        """The parameters and optimizer states grouped by dtype: one
+        multi-tensor copy per group (a list of mixed dtypes takes one
+        copy kernel per tensor)."""
+        groups: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for t in [p.detach() for p in self._params] + self._state_tensors():
+            groups.setdefault(t.dtype, []).append(t)
+        return groups
+
+    def _maybe_snapshot(self) -> None:
+        """Refresh the rollback snapshot when it is ``snapshot_every``
+        steps old or missing (JAX counterpart: ``:982-991``): multi-tensor
+        copies of the parameters and states into buffers made on the first
+        snapshot, and the generators' states (so a retried step draws the
+        rolled-back step's dropout masks, as the JAX step's key is a
+        function of ``t``)."""
+        snap = self._snapshot
+        if snap is not None \
+                and self._t - snap["t"] < self._guard.snapshot_every:
+            return
+        live = self._live_by_dtype()
+        if snap is None:
+            snap = self._snapshot = {"buffers": {
+                dt: [torch.empty_like(t) for t in ts]
+                for dt, ts in live.items()}}
+        with torch.no_grad():
+            for dt, ts in live.items():
+                torch._foreach_copy_(snap["buffers"][dt], ts)
+        snap["generators"] = [g.get_state() for g in self._generators()]
+        snap["t"] = self._t
+        snap["num_update"] = self._optimizer.num_update
+
+    def _apply_guard(self) -> None:
+        """Read the step's loss, gradient norm and finite verdict in one
+        host read and apply the guard, rolling the step back when it says
+        so (JAX counterpart: ``:993-1065``)."""
+        g = self._guard
+        loss, gnorm, finite = self._last
+        lf, gn, ok = torch.stack([loss.float().reshape(()), gnorm.float(),
+                                  finite.float()]).tolist()
+        self._last_host = (lf, gn, bool(ok))
+        reason = g.is_bad(bool(ok), gn)
+        if reason is None:
+            g.good_step()
+        elif g.decide(self._t, reason, detail=f"loss={lf:g}, "
+                      f"grad_norm={gn:g}") == "rollback":
+            self._rollback()
+
+    def _rollback(self) -> None:
+        """Copy the snapshot back into the live parameters, states and
+        generators; the step count goes back with them."""
+        snap = self._snapshot
+        with torch.no_grad():
+            for dt, ts in self._live_by_dtype().items():
+                torch._foreach_copy_(ts, snap["buffers"][dt])
+        for gen, state in zip(self._generators(), snap["generators"]):
+            gen.set_state(state)
+        self._t = snap["t"]
+        self._optimizer.num_update = snap["num_update"]
+
+    _CKPT_FORMAT = 1
+
+    def save_checkpoint(self, root: str, keep: Optional[int] = 3,
+                        data_state: Optional[dict] = None) -> str:
+        """Write one atomic checkpoint directory under ``root`` (JAX
+        counterpart: ``:1172-1221``): the parameters (``param:<i>``), the
+        optimizer states (``opt:<i>:<j>``), the generators' states
+        (``rng:torch:<k>``), the step count and the learning rate, under
+        the step count; retention keeps the newest ``keep``.
+        ``data_state`` rides in the meta. Returns the directory."""
+        if self._params is None:
+            raise MXNetError("nothing to checkpoint: run step() at least "
+                             "once so the parameter state exists")
+        opt = self._optimizer
+        arrays: Dict[str, onp.ndarray] = {}
+        for i, p in enumerate(self._params):
+            arrays[f"param:{i:04d}"] = to_host(p)
+            for j, s in enumerate(self._states[i]):
+                arrays[f"opt:{i:04d}:{j}"] = to_host(s)
+        gens = self._generators()
+        for k, gen in enumerate(gens):
+            arrays[f"rng:torch:{k}"] = gen.get_state().numpy().copy()
+        meta = {
+            "trainer": "ShardedTrainer", "format": self._CKPT_FORMAT,
+            "t": self._t, "num_update": opt.num_update,
+            "lr": float(opt.learning_rate), "zero1": False,
+            "optimizer": type(opt).__name__, "rng_impl": "torch",
+            "param_names": [opt.idx2name[i]
+                            for i in range(len(self._params))],
+            "opt_state_sizes": [len(s) for s in self._states],
+        }
+        if data_state is not None:
+            meta["data_state"] = dict(data_state)
+        return ckpt.save_checkpoint(root, arrays, meta, step=self._t,
+                                    keep=keep)
+
+    def restore_checkpoint(self, root: str,
+                           step: Optional[int] = None) -> int:
+        """Restore the newest verified checkpoint under ``root`` (or
+        ``step``), written by either package (JAX counterpart:
+        ``:1223-1285``), into the live parameters, states and generators,
+        in place. The trainer must have its state (one ``step()``), as in
+        the JAX package. Returns the restored step."""
+        if self._params is None:
+            raise MXNetError("call step() once before restore_checkpoint "
+                             "so the parameter set exists")
+        if step is None:
+            arrays, meta, step = ckpt.load_latest(root)
+        else:
+            arrays, meta, step = ckpt.load_checkpoint(root, step)
+        if meta.get("trainer") != "ShardedTrainer" \
+                or meta.get("format") != self._CKPT_FORMAT:
+            raise MXNetError(
+                f"checkpoint step {step} was not written by "
+                f"ShardedTrainer.save_checkpoint (meta: {meta.get('trainer')!r}"
+                f" format {meta.get('format')!r})")
+        opt = self._optimizer
+        names = [opt.idx2name[i] for i in range(len(self._params))]
+        saved_names = meta.get("param_names", [])
+        if len(saved_names) != len(names):
+            raise MXNetError(
+                "checkpoint parameter set does not match this block: "
+                f"saved {len(saved_names)} parameters, live {len(names)}")
+        if saved_names != names:
+            # Gluon prefixes count up within a process: shapes and dtypes
+            # below are the binding contract
+            warnings.warn(f"checkpoint parameter names differ from the live "
+                          f"block ({saved_names[:2]}... vs {names[:2]}...); "
+                          "restoring by position")
+        sizes = meta.get("opt_state_sizes", [])
+        dev = self._device
+        staged = []
+        for i, p in enumerate(self._params):
+            try:
+                v = arrays[f"param:{i:04d}"]
+                st = [arrays[f"opt:{i:04d}:{j}"] for j in range(sizes[i])]
+            except (KeyError, IndexError) as e:
+                raise MXNetError(f"checkpoint step {step} is missing "
+                                 f"array {e}") from e
+            if tuple(v.shape) != tuple(p.shape) \
+                    or _name(v) != dtype_name(p.dtype):
+                raise MXNetError(
+                    f"checkpoint array for parameter {names[i]!r} is "
+                    f"{_name(v)}{tuple(v.shape)}, live parameter is "
+                    f"{dtype_name(p.dtype)}{tuple(p.shape)}")
+            live = self._states[i]
+            if len(st) != len(live) or any(
+                    tuple(a.shape) != tuple(s.shape)
+                    or _name(a) != dtype_name(s.dtype)
+                    for a, s in zip(st, live)):
+                raise MXNetError(
+                    f"checkpoint optimizer state of parameter {names[i]!r} "
+                    f"({[(_name(a), a.shape) for a in st]}) does not match "
+                    f"this optimizer's ({[(dtype_name(s.dtype), tuple(s.shape)) for s in live]})")
+            staged.append((v, st))
+        with torch.no_grad():
+            for (v, st), p, live in zip(staged, self._params, self._states):
+                p.copy_(from_host(v, dev))
+                for a, s in zip(st, live):
+                    s.copy_(from_host(a, dev))
+        gens = self._generators()
+        if "rng:torch:0" in arrays:
+            saved = sorted(k for k in arrays if k.startswith("rng:torch:"))
+            if len(saved) != len(gens):
+                raise MXNetError(
+                    f"checkpoint step {step} holds {len(saved)} generator "
+                    f"states, this trainer draws from {len(gens)}")
+            for k, gen in enumerate(gens):
+                gen.set_state(torch.from_numpy(
+                    onp.ascontiguousarray(arrays[f"rng:torch:{k}"])))
+        elif "rng:base_key" in arrays:
+            warnings.warn(f"checkpoint step {step} carries the JAX package's "
+                          "threefry key (rng:base_key); torch generators "
+                          "draw other streams, so it is not carried over "
+                          "and dropout masks start from this trainer's own "
+                          "generator state")
+        self._t = int(meta["t"])
+        opt.num_update = int(meta["num_update"])
+        self._snapshot = None
+        self.last_restore_meta = dict(meta)
+        return step
+

@@ -24,8 +24,9 @@ loudly; a full queue raises :class:`~..batcher.QueueFullError`. ``qos`` is
 any object with ``try_take(tenant, tokens) -> bool``, consulted before a
 request queues (the JAX ``router.TokenRateBudget`` comes with
 ``router.py``); a refusal raises :class:`ShedError`. The telemetry events
-and spans, and the ``decode_replica_death`` chaos path, wait for the
-``telemetry/`` and ``fault/`` ports.
+and spans wait for the ``telemetry/`` port, and the ``decode_replica_death``
+chaos path for ``serve/replica.py``'s ``ReplicaUnavailable`` (the rest of
+serving).
 """
 from __future__ import annotations
 

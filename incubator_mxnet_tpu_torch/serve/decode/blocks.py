@@ -1,8 +1,8 @@
 """Paged KV-cache block pool: fixed-size cache pages per engine.
 
 Counterpart: the JAX package's ``serve/decode/blocks.py``, whole but for
-its telemetry gauges and its ``fault.inject`` hook (both wait for those
-subsystems). The decode step's self-attention cache is one preallocated
+its telemetry gauges (they wait for the telemetry subsystem); the
+``decode_block_exhaustion`` chaos site is the JAX one. The decode step's self-attention cache is one preallocated
 pool of pages (``(num_blocks, layers, block_size, units)`` K and V
 tensors owned by :class:`~.engine.DecodeEngine`); this module is the
 allocator over it. A sequence owns a block table (a row of page ids), so
@@ -105,6 +105,7 @@ class BlockPool:
     def alloc_sequence(self, seq_id: str) -> List[int]:
         """Admit ``seq_id``: its seat and first page; returns its (one-page)
         block table."""
+        self._chaos(seq_id)
         with self._lock:
             if seq_id in self._tables:
                 raise MXNetError(f"sequence {seq_id!r} already admitted")
@@ -122,6 +123,7 @@ class BlockPool:
     def append_token(self, seq_id: str):
         """Advance ``seq_id`` one token, taking a fresh page at a block
         boundary; returns ``(page_id, slot, table)``."""
+        self._chaos(seq_id)
         with self._lock:
             if seq_id not in self._tables:
                 raise MXNetError(f"sequence {seq_id!r} not admitted")
@@ -184,3 +186,13 @@ class BlockPool:
         in_use = (self.num_blocks - 1) - len(self._free)
         if in_use > self.peak_in_use:
             self.peak_in_use = in_use
+
+    @staticmethod
+    def _chaos(seq_id: str) -> None:
+        """The ``decode_block_exhaustion`` chaos site (JAX counterpart:
+        ``serve/decode/blocks.py:219-225``): a seeded allocation refusal,
+        which the batcher requeues or sheds, never truncates."""
+        from ...fault import inject
+        if inject.should("decode_block_exhaustion"):
+            raise CacheExhausted(
+                f"chaos: seeded cache-block exhaustion for {seq_id!r}")

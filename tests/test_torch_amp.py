@@ -40,6 +40,7 @@ import torch
 
 import incubator_mxnet_tpu as jmx
 from incubator_mxnet_tpu import amp as jamp
+from incubator_mxnet_tpu import fault as jfault
 from incubator_mxnet_tpu import gluon as jgluon
 from incubator_mxnet_tpu import models as jmodels
 from incubator_mxnet_tpu import ndarray as jnd
@@ -48,8 +49,8 @@ from incubator_mxnet_tpu.gluon.block import _TRACING
 from incubator_mxnet_tpu.gluon.model_zoo import vision as jvision
 
 import incubator_mxnet_tpu_torch as mx
-from incubator_mxnet_tpu_torch import (amp, autograd, gluon, models, nd,
-                                       parallel)
+from incubator_mxnet_tpu_torch import (amp, autograd, fault, gluon, models,
+                                       nd, parallel)
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 from incubator_mxnet_tpu_torch.models import image_classification
 
@@ -266,7 +267,9 @@ def test_loss_scaler_matches_jax():
     """``LossScaler`` in both packages: the overflow check on finite and on
     non-finite gradients, and one sequence of overflow and clean steps
     (halving, the floor at 1, doubling after the window) leaving the same
-    scale, counts and window position; ``guard=`` is not ported."""
+    scale, counts and window position; with ``guard=`` a ``halt`` guard
+    raises at an overflow step in both (the guard's other policies are
+    held against the JAX scaler in ``tests/test_torch_fault.py``)."""
     scalers = [jamp.LossScaler(init_scale=8.0, scale_window=3),
                amp.LossScaler(init_scale=8.0, scale_window=3)]
     seq = [True, False, False, False, True, True, True, True, False] \
@@ -288,8 +291,12 @@ def test_loss_scaler_matches_jax():
             verdicts.append(s.has_overflow(
                 list(net.collect_params().values())))
         assert verdicts[0] == verdicts[1] == (not onp.isfinite(x).all())
-    with pytest.raises(mx.MXNetError, match="StepGuard"):
-        amp.LossScaler(guard=object())
+    for pkg_fault, scaler_cls in ((jfault, jamp.LossScaler),
+                                  (fault, amp.LossScaler)):
+        s = scaler_cls(guard=pkg_fault.StepGuard("halt"))
+        s.update_scale(False)
+        with pytest.raises(pkg_fault.NonFiniteError, match="overflow"):
+            s.update_scale(True)
 
 
 def _scaled_backward(pkg, mod, net, tr, x):
@@ -362,7 +369,7 @@ def test_example_loop_matches_jax_first_losses(monkeypatch, tmp_path):
     steps of one epoch, shuffled by numpy's global stream seeded alike):
     every step's loss within 1e-3 relative and the epoch accuracy within
     1%;
-    ``--rec`` and ``--ckpt-dir`` raise."""
+    ``--rec`` raises (``--ckpt-dir`` saves: ``tests/test_torch_stacked_encoder.py``)."""
     classes = 4
     pnet = _tiny(gluon, classes)
     pnet.initialize(mx.init.Xavier(magnitude=2.0))
@@ -394,9 +401,8 @@ def test_example_loop_matches_jax_first_losses(monkeypatch, tmp_path):
     # a prediction whose two best logits are within bf16 rounding may
     # differ: at most 1% of the 512 images
     assert abs(out["accuracy"] - jacc) <= 0.01, (out["accuracy"], jacc)
-    for bad in (dict(rec="train.rec"), dict(ckpt_dir="ckpt")):
-        with pytest.raises(mx.MXNetError, match="not ported"):
-            image_classification.image_classification_example(**bad)
+    with pytest.raises(mx.MXNetError, match="not ported"):
+        image_classification.image_classification_example(rec="train.rec")
 
 
 def test_amp_fused_step_function_matches_eager():

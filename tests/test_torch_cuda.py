@@ -20,7 +20,9 @@ step against the same step run eagerly; int8 and mixed precision: the
 int8 ops on the card (``torch._int_mm``) bitwise against their plain
 versions (padded row counts, ragged inner sizes), calibration of a
 hybridized net, and the fused step under ``amp.init("bfloat16")`` against
-the eager one.
+the eager one; fault tolerance: a checkpoint restored in place into a
+trainer whose step is captured, and a guarded step rolled back in place,
+each resuming bitwise without a new capture.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -957,3 +959,81 @@ def test_amp_fused_step_matches_eager_on_card(deterministic):
     torch.testing.assert_close(lf, le, rtol=1e-5, atol=0)
     _close_params(fused, eager)
     assert all(p.grad.dtype == torch.float32 for p in fused.parameters())
+
+
+def _state_of(tr):
+    return [t.detach().clone() for t in list(tr._params)
+            + tr._state_tensors()]
+
+
+def _ptrs(tr):
+    return [t.data_ptr() for t in list(tr._params) + tr._state_tensors()]
+
+
+@pytest.mark.cuda
+def test_fused_restore_in_place_resumes_bitwise_on_card(deterministic,
+                                                        tmp_path):
+    """A trainer whose fused step is already captured restores a
+    checkpoint in place (the same storage, no new capture) and, its
+    generator set back, replays the uninterrupted run's steps bitwise:
+    bfloat16 weights with fp32 masters, dropout 0.1."""
+    _card()
+    import warnings
+    from incubator_mxnet_tpu_torch import bench
+    batch = bench.make_batch(2, 64, vocab=100)
+    opt = {"learning_rate": 1e-3, "multi_precision": True}
+    u = _trainer(_bert(dropout=0.1, dtype="bfloat16"), None, "adamw", opt)
+    ref = []
+    for t in range(6):
+        ref.append(float(u.step(*batch)))
+        if t == 2:
+            u.save_checkpoint(str(tmp_path), keep=1)
+    r = _trainer(_bert(dropout=0.1, dtype="bfloat16", seed=5), None,
+                 "adamw", opt)
+    for _ in range(3):
+        r.step(*batch)                  # eager run, capture, replay
+    assert r.captures == 1
+    ptrs = _ptrs(r)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert r.restore_checkpoint(str(tmp_path)) == 3
+    assert _ptrs(r) == ptrs
+    got = [float(r.step(*batch)) for _ in range(3)]
+    assert got == ref[3:]
+    assert r.captures == 1 and r.last_step_graphs == 1
+    for a, b in zip(_state_of(u), _state_of(r)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_rollback_in_place_on_card(deterministic):
+    """``StepGuard("skip_and_rollback")`` over a captured fused step: a
+    poisoned step (NaN MLM weights) is rolled back into the same storage
+    bitwise, with no new capture, and the next clean step equals a clean
+    twin's bitwise (dropout 0.1: the generator is rolled back too)."""
+    _card()
+    import warnings
+    from incubator_mxnet_tpu_torch import bench, fault
+    batch = bench.make_batch(2, 64, vocab=100)
+    guard = fault.StepGuard("skip_and_rollback")
+    g = _trainer(_bert(dropout=0.1), None)
+    g._guard = guard
+    c = _trainer(_bert(dropout=0.1), None)
+    placed = g.place(*batch)
+    for tr in (g, c):
+        for _ in range(3):
+            tr.step(*placed)
+    bad = list(placed)
+    bad[5] = torch.full_like(placed[5], float("nan"))
+    before, ptrs = _state_of(g), _ptrs(g)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g.step(*bad)
+    assert guard.tripped == guard.skipped == 1 and g.num_update == 3
+    assert _ptrs(g) == ptrs and g.captures == 1
+    for a, b in zip(before, _state_of(g)):
+        assert torch.equal(a, b)
+    assert float(g.step(*placed)) == float(c.step(*placed))
+    for a, b in zip(_state_of(c), _state_of(g)):
+        assert torch.equal(a, b)
+    assert g.captures == 1 and g.last_step_graphs == 1

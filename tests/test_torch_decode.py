@@ -14,9 +14,10 @@ with occupancy, membership churn leaving tokens unchanged, queue
 back-pressure, a QoS refusal, ``stop`` draining; greedy tokens equal to
 ``beam_search(K=1)``'s and to the JAX engine's on the same weights; a
 prefill row equal to the JAX engine's; ``block_bytes`` against the JAX
-function. The chaos, QoS router and TCP ``generate`` cases of
-``tests/test_decode.py`` wait for ``fault/``, ``router.py`` and
-``server.py``. The set-up is shared with ``tests/test_torch_nmt.py``
+function. The chaos case of cache-block exhaustion is
+``tests/test_torch_stacked_encoder.py``'s; replica death, the QoS router
+and TCP ``generate`` cases of ``tests/test_decode.py`` wait for
+``replica.py``, ``router.py`` and ``server.py``. The set-up is shared with ``tests/test_torch_nmt.py``
 (``tests/test_torch_nmt_common.py``).
 """
 import numpy as onp
