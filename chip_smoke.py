@@ -257,7 +257,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
     turns; (d) ``StackedTransformerEncoder`` at BERT-base widths (12
     layers, 768, 3072, 12 heads, float32, batch 8 x 512): the card's
     forward within 1e-4 of the CPU's (the first 2 rows, relative to the
-    largest output), and one ``ShardedTrainer`` step with a finite loss.
+    largest output), and one ``ShardedTrainer`` step with a finite loss;
+25. data: workers and prefetch sized to the cores and ``/dev/shm``
+    (printed first); (a) 2,048 seeded 256x256x3 uint8 images packed raw
+    by ``recordio.MXIndexedRecordIO`` and ``pack`` (1,000 classes) ->
+    ``gluon.data.RecordFileDataset`` -> ``transform`` (header and pixels)
+    -> ``transform_first(Compose([RandomResizedCrop(224),
+    RandomFlipLeftRight(), ToTensor(), Normalize]))`` -> ``DataLoader``
+    (batch 32, shuffled, forked workers over shared memory, pinned) ->
+    ``io.PrefetchIter(place=trainer.place)`` -> the fused ResNet-50 v1
+    step of the bench's ``resnet`` workload (bf16, batch 32, 224): losses
+    finite, one capture, the fused path, no worker died; (b) the same with
+    a center crop, twice under deterministic algorithms, placed through
+    ``PrefetchIter`` while the step runs and on the main thread: the
+    step's static input buffers after every load and the losses bitwise
+    equal; (c) 4,096 token sequences of lengths 64-512 through
+    ``FixedBucketSampler`` (batch 8, keys 128/256/512, shuffled), a
+    ``DataLoader`` padding each batch to its bucket and ``PrefetchIter``
+    into BERT-base (the bench's trainer: bf16, AdamW with fp32 masters,
+    dropout 0.1): 3 captures, each at its bucket's second step, 12
+    launches per kernel per step; a run saved at step 6 with
+    ``data_state`` and resumed by a new loader, iterator, model and
+    trainer (``restore_checkpoint``, ``restore_shard``) gives steps 7-12's
+    losses and batches bitwise, no sample replayed; (d) printed, not
+    gated: the pipeline alone in images/s (0, 4 and 8 workers, shared
+    memory and pipe), one batch's H2D pageable and pinned, the ResNet-50
+    step fed by the pipeline against a placed batch, the consumer's wait
+    p50/p95, the idle share of 6 profiled steps, BERT step ms per bucket;
+    (e) when ``cv2`` imports, 512 JPEGs packed by the port's ``im2rec``
+    (short side 256) and read by ``ImageRecordIter`` (random crop,
+    mirror, mean/std): images/s; no ``/dev/shm/mxtpu_dl_*`` segment of the
+    phase's workers is left.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -265,7 +295,9 @@ The last three lines are the ``kernels`` JSON line, the card's
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
+import glob
 import json
 import os
 import statistics
@@ -282,7 +314,7 @@ import torch
 
 import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch import autograd, bench, fault, gluon, models
-from incubator_mxnet_tpu_torch import nd, parallel, serve
+from incubator_mxnet_tpu_torch import nd, parallel, recordio, serve
 from incubator_mxnet_tpu_torch.fault import inject
 from incubator_mxnet_tpu_torch.models import bert_pretraining
 from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
@@ -5098,6 +5130,477 @@ def phase_fault() -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# 25. data: a .rec file through gluon.data into the fused ResNet-50 step, a
+# length-bucketed loader into the fused BERT-base step, and their resume
+# ---------------------------------------------------------------------------
+
+# (a)-(b): ImageNet-shaped records, the training crop of the bench's
+# resnet workload
+DATA_IMAGES, DATA_SIDE, DATA_CLASSES = 2048, 256, 1000
+DATA_CROP, DATA_BATCH = 224, 32
+DATA_MEAN, DATA_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+DATA_STEPS = 24          # (a): eager, capture, replays; then the timed
+DATA_TIMED = 8           # (a): replays timed fed by the pipeline, and not
+DATA_PROFILED = 6        # (a): steps fed by the pipeline under the profiler
+DATA_RATE_BATCHES = 16   # (d): batches timed per pipeline configuration
+DATA_GATE_STEPS = 8      # (b): steps of each run
+# (c): bench.py's default workload at batch 8 over three buckets
+TEXT_SEQS, TEXT_KEYS, TEXT_BATCH, TEXT_LOW = 4096, (128, 256, 512), 8, 64
+TEXT_STEPS, TEXT_SAVE_AT, TEXT_TIMED = 12, 6, 36
+TEXT_SEED = 7            # numpy's stream before each pass's order is drawn
+JPEG_IMAGES, JPEG_SHORT = 512, 256   # (e)
+
+
+def _data_record(raw: bytes) -> tuple:
+    """One record of the phase's pack: ``(HWC uint8 image, label)``."""
+    header, payload = recordio.unpack(raw)
+    img = onp.frombuffer(payload, onp.uint8).reshape(DATA_SIDE, DATA_SIDE, 3)
+    return img, onp.float32(header.label)
+
+
+def data_pack(root: str) -> str:
+    """``DATA_IMAGES`` seeded 256x256x3 uint8 images, raw pixels, labels
+    from 1,000 classes, through ``recordio.MXIndexedRecordIO`` and
+    ``pack``; returns the ``.rec`` path."""
+    rec = os.path.join(root, "images.rec")
+    w = recordio.MXIndexedRecordIO(os.path.join(root, "images.idx"), rec, "w")
+    rng = onp.random.RandomState(0)
+    labels = rng.randint(0, DATA_CLASSES, DATA_IMAGES)
+    for i in range(DATA_IMAGES):
+        img = rng.randint(0, 256, (DATA_SIDE, DATA_SIDE, 3), dtype=onp.uint8)
+        w.write_idx(i, recordio.pack(
+            recordio.IRHeader(0, float(labels[i]), i, 0), img.tobytes()))
+    w.close()
+    return rec
+
+
+def data_loader(rec: str, train: bool, workers: int, prefetch=None,
+                pin: bool = True, shuffle: bool = True):
+    """``RecordFileDataset`` -> records -> the training transforms
+    (``train``: random resized crop and flip; else the center crop) ->
+    ``DataLoader`` of full batches."""
+    T = gluon.data.vision.transforms
+    aug = [T.RandomResizedCrop(DATA_CROP), T.RandomFlipLeftRight()] if train \
+        else [T.CenterCrop(DATA_CROP)]
+    ds = gluon.data.RecordFileDataset(rec).transform(_data_record)
+    ds = ds.transform_first(T.Compose(
+        aug + [T.ToTensor(), T.Normalize(DATA_MEAN, DATA_STD)]))
+    return gluon.data.DataLoader(
+        ds, batch_size=DATA_BATCH, shuffle=shuffle, num_workers=workers,
+        last_batch="discard", pin_memory=pin, prefetch=prefetch, timeout=60)
+
+
+def _vision_place(tr):
+    """``trainer.place`` and the cast of the images to the net's
+    bfloat16 (on the iterator's stream when it runs there)."""
+    def place(b):
+        x, y = tr.place(*b)
+        return x.to(torch.bfloat16), y
+    return place
+
+
+def data_pipeline_rates(rec: str, worker_counts, prefetch) -> dict:
+    """(d) The pipeline alone (decode, augment, batch, transport; host
+    batches) in images/s for each worker count, shared memory on and
+    off, in its steady state: ``prefetch + 1`` batches first (those the
+    workers build at once while the first is awaited), then
+    ``DATA_RATE_BATCHES`` timed."""
+    res = {}
+    with mx.cpu():
+        for w in worker_counts:
+            for shm in (("1", "0") if w else ("1",)):
+                with mock.patch.dict(os.environ,
+                                     {"MXTPU_DATALOADER_SHM": shm}):
+                    loader = data_loader(rec, True, w, prefetch, pin=False)
+                    onp.random.seed(0)
+                    it = iter(loader)
+                    for _ in range(prefetch + 1):
+                        next(it)
+                    t0 = time.perf_counter()
+                    for _ in range(DATA_RATE_BATCHES):
+                        next(it)
+                    dt = time.perf_counter() - t0
+                    del it
+                    loader.close()
+                key = f"workers_{w}" + ("" if not w else
+                                        "_shm" if shm == "1" else "_pipe")
+                res[key] = DATA_BATCH * DATA_RATE_BATCHES / dt
+                print(f"data (d): pipeline alone, {key}: {res[key]:.1f} "
+                      f"images/s", flush=True)
+    return res
+
+
+def data_h2d() -> dict:
+    """(d) One float32 ResNet-50 batch host to device: pageable and
+    pinned (CUDA events)."""
+    x = onp.random.RandomState(0).rand(DATA_BATCH, 3, DATA_CROP,
+                                       DATA_CROP).astype("float32")
+    t = torch.from_numpy(x)
+    pinned = t.pin_memory()
+    res = {"bytes": x.nbytes,
+           "pageable_ms": cuda_ms(lambda: t.to("cuda"), 100.0),
+           "pinned_ms": cuda_ms(lambda: pinned.to("cuda", non_blocking=True),
+                                100.0)}
+    print(f"data (d): H2D of one batch ({x.nbytes} bytes): pageable "
+          f"{res['pageable_ms']:.3f} ms, pinned {res['pinned_ms']:.3f} ms",
+          flush=True)
+    return res
+
+
+def data_vision(rec: str, workers: int, prefetch: int, pids: list) -> dict:
+    """(a) The vision path: the training pipeline through
+    ``PrefetchIter(place=trainer.place)`` into the fused ResNet-50 step
+    (the bench's ``resnet`` trainer); (d) its step fed through the
+    pipeline against fed one batch already placed, the consumer's wait
+    per batch, and the device's idle share over a profiled stretch."""
+    tr, _, info = bench.build_resnet("cuda")
+    loader = data_loader(rec, True, workers, prefetch)
+    pids += [p.pid for p in loader._procs]
+    onp.random.seed(0)
+    it = mx.io.PrefetchIter(loader, place=_vision_place(tr))
+    losses, waits = [], []
+
+    def fed_step():
+        t0 = time.perf_counter()
+        batch = next(it)
+        waits.append((time.perf_counter() - t0) * 1e3)
+        losses.append(tr.step(*batch))
+        return batch
+
+    for _ in range(DATA_STEPS - DATA_TIMED):
+        fed_step()
+    # the steady state: the step waits on the pipeline, nothing queued
+    fed_ms, _ = synced_ms(fed_step, DATA_TIMED)
+    wall, per_kernel = device_split(
+        lambda: [fed_step() for _ in range(DATA_PROFILED)])
+    busy = sum(per_kernel.values())
+    batch = fed_step()
+    placed_ms, _ = synced_ms(lambda: tr.step(*batch), DATA_TIMED)
+    alive = all(p.exitcode is None for p in loader._procs)
+    it.close()
+    loader.close()
+    losses = [float(x) for x in losses]
+    steady = sorted(waits[2:])
+    res = {"losses": losses, "captures": tr.captures,
+           "last_path": tr.last_path, "workers": workers,
+           "prefetch": prefetch, "step_ms_fed": fed_ms,
+           "step_ms_placed": placed_ms,
+           "wait_ms_p50": steady[len(steady) // 2],
+           "wait_ms_p95": steady[min(len(steady) - 1,
+                                     int(0.95 * len(steady)))],
+           "profile_wall_ms": wall, "profile_device_ms": busy,
+           "idle_share": max(0.0, 1.0 - busy / wall),
+           "workers_alive": alive}
+    print(f"data (a): resnet50_v1 bf16 fused from the .rec pipeline "
+          f"({workers} workers, prefetch {prefetch}): losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, {tr.captures} capture(s), "
+          f"path {tr.last_path}; step {fed_ms:.3f} ms fed by the pipeline "
+          f"= {DATA_BATCH / fed_ms * 1e3:.1f} imgs/s against {placed_ms:.3f} "
+          f"ms on a placed batch; consumer wait p50 "
+          f"{res['wait_ms_p50']:.3f} ms, p95 {res['wait_ms_p95']:.3f} ms; "
+          f"{DATA_PROFILED} profiled steps: wall {wall:.3f} ms, device "
+          f"{busy:.3f} ms, idle {res['idle_share']:.1%} on {card_line()}", flush=True)
+    check(all(onp.isfinite(losses)), f"data (a): non-finite loss {losses}")
+    check(tr.last_path == "fused" and tr.captures == 1,
+          f"data (a): path {tr.last_path}, {tr.captures} captures")
+    check(alive, "data (a): a DataLoader worker died")
+    return res
+
+
+def data_overlap_gate(rec: str, workers: int, prefetch: int,
+                      pids: list) -> dict:
+    """(b) The deterministic pipeline (center crop) twice, under
+    ``torch.use_deterministic_algorithms``: run P places through
+    ``PrefetchIter`` while the fused step runs, run S places on the main
+    thread. Every batch the step received (its static input buffers after
+    each ``load``, copied on the device and read after the loop) and every
+    loss: bitwise equal."""
+    runs = {}
+    for mode in ("prefetch", "sync"):
+        tr, _, _ = bench.build_resnet("cuda")
+        loader = data_loader(rec, False, workers, prefetch)
+        pids += [p.pid for p in loader._procs]
+        place = _vision_place(tr)
+        onp.random.seed(1)
+        if mode == "prefetch":
+            it = mx.io.PrefetchIter(loader, place=place)
+        else:
+            it = iter(loader)
+        losses, seen = [], []
+        for _ in range(DATA_GATE_STEPS):
+            b = next(it)
+            losses.append(tr.step(*(b if mode == "prefetch" else place(b))))
+            entry = next(iter(tr._steps.values()))
+            seen.append([t.clone() for t in entry.inputs])
+        torch.cuda.synchronize()
+        if mode == "prefetch":
+            it.close()
+        else:
+            del it
+        loader.close()
+        runs[mode] = ([float(x) for x in losses], seen, tr.captures)
+        del tr
+        gc.collect()
+    (lp, sp, cp), (ls, ss, cs) = runs["prefetch"], runs["sync"]
+    same_batches = all(torch.equal(a, b) for xa, xb in zip(sp, ss)
+                       for a, b in zip(xa, xb))
+    res = {"losses_prefetch": lp, "losses_sync": ls,
+           "batches_bitwise": same_batches, "losses_bitwise": lp == ls,
+           "captures": [cp, cs]}
+    print(f"data (b): {DATA_GATE_STEPS} steps placed under overlap vs on "
+          f"the main thread: batches "
+          f"{'bitwise equal' if same_batches else 'DIFFER'}, losses "
+          f"{'bitwise equal' if lp == ls else 'DIFFER'} ({lp[-1]:.6f})",
+          flush=True)
+    check(same_batches, "data (b): a batch the step received under "
+          "overlap differs from the synchronously placed one")
+    check(lp == ls, f"data (b): losses differ: {lp} vs {ls}")
+    return res
+
+
+def text_loader(workers: int = 2):
+    """The bucketed corpus (``bucket_lengths``: lengths 64-512, each
+    bucket a whole number of batches) through ``FixedBucketSampler``
+    (shuffled) and a ``DataLoader`` padding each batch to its bucket."""
+    lengths = bert_pretraining.bucket_lengths(TEXT_SEQS, TEXT_KEYS,
+                                              TEXT_BATCH, TEXT_LOW, seed=0)
+    corpus = bert_pretraining.SyntheticCorpus(lengths, bench.VOCAB,
+                                              TEXT_KEYS[-1], seed=1)
+    sampler = gluon.data.FixedBucketSampler(
+        lengths, TEXT_BATCH, bucket_keys=list(TEXT_KEYS), shuffle=True)
+    loader = gluon.data.DataLoader(
+        corpus, batch_sampler=sampler,
+        batchify_fn=bert_pretraining.BucketBatchify(TEXT_KEYS),
+        num_workers=workers, pin_memory=True, timeout=60)
+    return loader, corpus
+
+
+def _text_run(steps: int, pids: list, root=None, save_at=None,
+              restore=False, timed: int = 0) -> dict:
+    """One BERT-base run fed by the bucketed loader through
+    ``PrefetchIter``: every step's loss, bucket, captures after it and
+    batch (device copies of the first ``steps``), CUDA-event ms per step
+    of ``timed`` more steps. ``save_at``: save after that step with
+    ``data_state``; ``restore``: a set-up step, ``restore_checkpoint`` and
+    ``restore_shard`` first."""
+    tr, _, _ = bench.build("cuda")
+    loader, corpus = text_loader()
+    pids += [p.pid for p in loader._procs]
+    first = 0
+    if restore:
+        setup = bert_pretraining.BucketBatchify(TEXT_KEYS)(
+            [corpus[i] for i in range(TEXT_BATCH)])
+        tr.step(*tr.place(*setup))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # Gluon prefixes count up
+            first = tr.restore_checkpoint(root)
+    onp.random.seed(TEXT_SEED)
+    it = mx.io.PrefetchIter(loader, place=lambda b: tr.place(*b))
+    if restore:
+        onp.random.seed(TEXT_SEED)
+        it.restore_shard(tr.last_restore_meta["data_state"])
+    cuda_ops.reset_launches()
+    out = {"losses": [], "keys": [], "captures": [], "batches": [],
+           "step_ms": []}
+    for t in range(first + 1, steps + timed + 1):
+        batch = next(it)
+        if t > steps:
+            if t == steps + 1:
+                torch.use_deterministic_algorithms(False)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+        out["losses"].append(tr.step(*batch))
+        out["keys"].append(int(batch[0].shape[1]))
+        out["captures"].append(tr.captures)
+        if t > steps:
+            e1.record()
+            out["step_ms"].append((e0, e1))
+        else:
+            out["batches"].append([b.clone() for b in batch])
+        if t == save_at:
+            torch.cuda.synchronize()
+            tr.save_checkpoint(root, keep=1, data_state=it.shard_state())
+            break
+    torch.cuda.synchronize()
+    out["launches"] = cuda_ops.launch_counts()
+    out["losses"] = [float(x) for x in out["losses"]]
+    out["step_ms"] = [a.elapsed_time(b) for a, b in out["step_ms"]]
+    out["last_path"] = tr.last_path
+    it.close()
+    loader.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def data_text(root: str, pids: list) -> dict:
+    """(c) Run U: ``TEXT_STEPS`` steps under deterministic algorithms, then
+    ``TEXT_TIMED`` timed ones (step ms per bucket): 3 captures, each at
+    its bucket's second step (the first runs eagerly), none after; 12
+    launches per kernel per step. Run K saves at ``TEXT_SAVE_AT`` with
+    ``data_state``; a new loader, iterator, model and trainer restore and
+    run the remaining steps: losses and batches bitwise equal to U's, no
+    sample replayed or dropped."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        u = _text_run(TEXT_STEPS, pids, timed=TEXT_TIMED)
+        torch.use_deterministic_algorithms(True)
+        k = _text_run(TEXT_STEPS, pids, root=root, save_at=TEXT_SAVE_AT)
+        r = _text_run(TEXT_STEPS, pids, root=root, restore=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    n = len(u["losses"])
+    per_step = models.BERT_CONFIGS["bert_12_768_12"]["num_layers"]
+    seen, capture_at = {}, []
+    prev = 0
+    for key, cap in zip(u["keys"], u["captures"]):
+        seen[key] = seen.get(key, 0) + 1
+        if cap != prev:
+            capture_at.append((key, seen[key]))
+        prev = cap
+    by_bucket = {}
+    for key, ms in zip(u["keys"][TEXT_STEPS:], u["step_ms"]):
+        by_bucket.setdefault(key, []).append(ms)
+    step_ms = {k: statistics.median(v) for k, v in sorted(by_bucket.items())}
+    same_losses = r["losses"] == u["losses"][TEXT_SAVE_AT:TEXT_STEPS]
+    same_batches = len(r["batches"]) == TEXT_STEPS - TEXT_SAVE_AT and all(
+        torch.equal(a, b) for xa, xb in zip(r["batches"],
+                                            u["batches"][TEXT_SAVE_AT:])
+        for a, b in zip(xa, xb))
+    ids = [tuple(b[0][row].tolist()) for b in k["batches"] + r["batches"]
+           for row in range(TEXT_BATCH)]
+    res = {"losses": u["losses"], "keys": u["keys"],
+           "captures": u["captures"][-1], "capture_at": capture_at,
+           "launches": u["launches"], "step_ms_by_bucket": step_ms,
+           "resumed_losses": r["losses"], "losses_bitwise": same_losses,
+           "batches_bitwise": same_batches,
+           "samples_distinct": len(set(ids)) == len(ids)}
+    print(f"data (c): BERT-base bf16 from the bucketed loader, {n} steps, "
+          f"buckets {dict(collections.Counter(u['keys']))}: captures "
+          f"{u['captures'][-1]} at (bucket, its step) {capture_at}; "
+          f"launches {u['launches']}; step ms by bucket (CUDA events, "
+          f"median) {({k: round(v, 3) for k, v in step_ms.items()})}; "
+          f"resumed steps {TEXT_SAVE_AT + 1}-{TEXT_STEPS} losses "
+          f"{'bitwise equal' if same_losses else 'DIFFER'}, batches "
+          f"{'bitwise equal' if same_batches else 'DIFFER'}, "
+          f"{len(ids)} samples distinct {res['samples_distinct']} on "
+          f"{card_line()}", flush=True)
+    check(all(onp.isfinite(u["losses"])), "data (c): non-finite loss")
+    check(u["captures"][-1] == len(TEXT_KEYS) and set(seen) == set(TEXT_KEYS)
+          and all(c == 2 for _, c in capture_at),
+          f"data (c): captures {u['captures'][-1]} at {capture_at}, "
+          f"buckets seen {seen}")
+    for name, c in u["launches"].items():
+        check(c == per_step * n, f"data (c): {name} launched {c} times in "
+              f"{n} steps of {per_step} attention calls")
+    check(u["last_path"] == "fused", f"data (c): path {u['last_path']}")
+    check(same_losses, f"data (c): resumed losses {r['losses']} differ "
+          f"from the uninterrupted run's")
+    check(same_batches, "data (c): resumed batches differ")
+    check(res["samples_distinct"], "data (c): a sample was replayed")
+    return res
+
+
+def data_jpeg(root: str, threads: int) -> dict:
+    """(e) ``JPEG_IMAGES`` JPEGs packed by the port's ``im2rec`` (short
+    side 256), read by ``ImageRecordIter`` with random crop and mirror,
+    mean and std on ``threads`` threads: images/s. Needs ``cv2``."""
+    try:
+        import cv2
+    except ImportError as e:
+        print(f"data (e): not run: cv2 does not import ({e})", flush=True)
+        return {"ran": False, "reason": str(e)}
+    from incubator_mxnet_tpu_torch.tools import im2rec
+    folder = os.path.join(root, "jpeg")
+    rng = onp.random.RandomState(3)
+    yy, xx = onp.mgrid[0:300, 0:400]
+    for i in range(JPEG_IMAGES):
+        d = os.path.join(folder, f"class{i % 8}")
+        os.makedirs(d, exist_ok=True)
+        base = ((yy * (i % 7 + 1) + xx * (i % 5 + 1)) % 256)[..., None]
+        img = onp.clip(base + rng.randint(0, 40, (300, 400, 3)), 0,
+                       255).astype(onp.uint8)
+        cv2.imwrite(os.path.join(d, f"{i}.jpg"), img)
+    prefix = os.path.join(root, "jpeg_pack")
+    t0 = time.perf_counter()
+    im2rec.main(["--list", prefix, folder])
+    im2rec.main([prefix, folder, "--resize", str(JPEG_SHORT)])
+    pack_s = time.perf_counter() - t0
+    it = mx.io.ImageRecordIter(
+        path_imgrec=prefix + ".rec", data_shape=(3, DATA_CROP, DATA_CROP),
+        batch_size=DATA_BATCH, rand_crop=True, rand_mirror=True,
+        mean_r=123.68, mean_g=116.78, mean_b=103.94, std_r=58.4,
+        std_g=57.12, std_b=57.38, preprocess_threads=threads, shuffle=True)
+    next(it)
+    t0 = time.perf_counter()
+    n = 0
+    for b in it:
+        n += b.data[0].shape[0]
+    torch.cuda.synchronize()
+    rate = n / (time.perf_counter() - t0)
+    print(f"data (e): cv2 {cv2.__version__}: im2rec packed {JPEG_IMAGES} "
+          f"JPEGs in {pack_s:.2f} s; ImageRecordIter ({threads} threads, "
+          f"224 crops) {rate:.1f} images/s", flush=True)
+    return {"ran": True, "cv2": cv2.__version__, "pack_s": pack_s,
+            "images_per_s": rate, "threads": threads}
+
+
+def phase_data() -> dict:
+    """25. data (the module docstring): in a temporary directory removed
+    at the end. Workers and prefetch are sized to the cores and to
+    ``/dev/shm`` (half of its free bytes at most in flight)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    st = os.statvfs("/dev/shm")
+    shm_free = st.f_frsize * st.f_bavail
+    cores = os.cpu_count() or 2
+    workers = max(1, min(6, cores - 2))
+    batch_bytes = DATA_BATCH * 3 * DATA_CROP * DATA_CROP * 4
+    prefetch = max(1, min(2 * workers, shm_free // 2 // batch_bytes))
+    res = {"card": card_line(), "dev_shm_bytes": st.f_frsize * st.f_blocks,
+           "dev_shm_free": shm_free, "cpu_count": cores,
+           "workers": workers, "prefetch": prefetch}
+    print(f"data: /dev/shm {res['dev_shm_bytes']} bytes ({shm_free} free), "
+          f"{cores} cores: {workers} workers, prefetch {prefetch} batches "
+          f"of {batch_bytes} bytes", flush=True)
+    pids: list = []
+    with tempfile.TemporaryDirectory() as root:
+        t1 = time.perf_counter()
+        rec = data_pack(root)
+        res["pack_s"] = time.perf_counter() - t1
+        res["rec_bytes"] = os.path.getsize(rec)
+        print(f"data: packed {DATA_IMAGES} images, {res['rec_bytes']} "
+              f"bytes, in {res['pack_s']:.2f} s", flush=True)
+        res["pipeline"] = data_pipeline_rates(
+            rec, sorted({0, min(4, cores), min(8, cores)}), prefetch)
+        res["h2d"] = data_h2d()
+        res["vision"] = data_vision(rec, workers, prefetch, pids)
+        gc.collect()
+        torch.use_deterministic_algorithms(True)
+        try:
+            res["overlap"] = data_overlap_gate(rec, workers, prefetch, pids)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["text"] = data_text(os.path.join(root, "ckpt"), pids)
+        res["jpeg"] = data_jpeg(root, workers)
+    left = [p for pid in pids
+            for p in glob.glob(f"/dev/shm/mxtpu_dl_{pid}_*")]
+    res["segments_left"] = len(left)
+    res["launches"] = res["text"]["launches"]
+    res["seconds"] = time.perf_counter() - t0
+    print(f"data: phase {res['seconds']:.1f} s, {len(left)} shared-memory "
+          f"segments left on {res['card']}", flush=True)
+    check(not left, f"data: segments left in /dev/shm: {left[:4]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -5152,6 +5655,7 @@ def main(argv=None) -> int:
     zoo_res = phase_zoo()
     rest = phase_gluon_rest()
     fault_res = phase_fault()
+    data_res = phase_data()
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -5212,7 +5716,8 @@ def main(argv=None) -> int:
                                      "dcgan_example"]["launches"][name],
                                  "optimizers": rest["optimizers"][
                                      "launches"][name],
-                                 "fault": fault_res["launches"][name]},
+                                 "fault": fault_res["launches"][name],
+                                 "data": data_res["launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -5236,6 +5741,7 @@ def main(argv=None) -> int:
                        "amp": amp_res, "nd_ops": nd_res,
                        "mobilenet": mob_res, "zoo": zoo_res,
                        "gluon_rest": rest, "fault": fault_res,
+                       "data": data_res,
                        "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))

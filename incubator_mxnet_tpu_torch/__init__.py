@@ -47,7 +47,11 @@ that ``mx.nd``, ``F`` and ``amp.init`` read, the samplers of
 and fault tolerance: ``mx.fault`` (checkpoints in the JAX package's
 layout, ``StepGuard``, ``Watchdog``, retry, seeded chaos), resumable
 ``ShardedTrainer`` and ``gluon.Trainer``, and ``ShardedTrainer``'s guarded
-fused step.
+fused step; and data: ``recordio`` and ``native`` (the C++ shim built
+with ``g++`` at first use), the rest of ``mx.io`` (``ImageRecordIter``,
+``PrefetchIter`` placing batches on a stream of its own), ``gluon.data``
+(datasets, samplers, transforms, the multi-worker ``DataLoader`` over
+shared memory) and ``tools.im2rec``.
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
@@ -56,7 +60,7 @@ from .context import (  # noqa: F401
 from . import (  # noqa: F401
     autograd, engine, random, ndarray, initializer, gluon, ops, nn, models, serve,
     convert, optimizer, parallel, lr_scheduler, metric, io, contrib, image,
-    amp, quantization, fault, lockcheck,
+    amp, quantization, fault, lockcheck, native, recordio,
 )
 
 from .engine import waitall  # noqa: F401
@@ -69,4 +73,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "nd", "initializer", "init", "gluon", "ops", "nn", "models",
            "serve", "convert", "optimizer", "parallel", "lr_scheduler",
            "metric", "io", "contrib", "image", "amp", "quantization",
-           "fault", "lockcheck"]
+           "fault", "lockcheck", "native", "recordio"]

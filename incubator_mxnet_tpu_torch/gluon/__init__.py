@@ -1,6 +1,6 @@
 """Gluon of the port (JAX counterpart: ``gluon/``): ``Parameter``,
 ``ParameterDict``, ``Block``, ``HybridBlock``, ``Trainer``, ``nn``,
-``loss``, ``rnn``, ``utils``, ``model_zoo`` and ``contrib``."""
+``loss``, ``rnn``, ``utils``, ``model_zoo``, ``contrib`` and ``data``."""
 from .parameter import (  # noqa: F401
     Constant, DeferredInitializationError, Parameter, ParameterDict,
 )
@@ -12,7 +12,8 @@ from . import rnn  # noqa: F401
 from . import utils  # noqa: F401
 from . import model_zoo  # noqa: F401
 from . import contrib  # noqa: F401
+from . import data  # noqa: F401
 
 __all__ = ["Constant", "DeferredInitializationError", "Parameter",
            "ParameterDict", "Block", "HybridBlock", "Trainer", "loss", "nn",
-           "rnn", "utils", "model_zoo", "contrib"]
+           "rnn", "utils", "model_zoo", "contrib", "data"]

@@ -5,8 +5,9 @@ Counterpart: the JAX package's ``image/__init__.py`` (reference:
 numpy and OpenCV work, drawing from Python's ``random`` as the reference
 does; ``cv2`` is imported at first use. Each image is an NDArray on the
 CPU while it is augmented; a batch lands on the current context (the card
-unless a ``with mx.cpu():`` says otherwise). ``path_imgrec`` (RecordIO)
-raises until ``recordio`` is ported.
+unless a ``with mx.cpu():`` says otherwise). ``ImageIter`` and
+``ImageDetIter`` read an ``imglist`` or an im2rec ``.rec`` file
+(``path_imgrec``, through ``recordio``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as onp
 
+from .. import recordio
 from ..base import MXNetError
 from ..context import cpu
 from ..ndarray import NDArray
@@ -36,11 +38,6 @@ def _cv2():
 def array(a) -> NDArray:
     """One image (or label) as an NDArray on the CPU."""
     return _array(a, ctx=cpu())
-
-
-def _no_recordio():
-    return MXNetError("path_imgrec needs mx.recordio, which the port does "
-                      "not have yet; pass imglist")
 
 
 def imdecode(buf, flag: int = 1, to_rgb: bool = True) -> NDArray:
@@ -243,9 +240,10 @@ def CreateAugmenter(data_shape: Tuple[int, int, int], resize: int = 0,
 
 
 class ImageIter:
-    """Image iterator over an ``imglist`` of ``(label, path)`` (reference:
-    python/mxnet/image/image.py ImageIter); ``path_imgrec`` raises until
-    ``recordio`` is ported."""
+    """Image iterator over the records of a ``.rec`` file (``path_imgrec``:
+    ``recordio.unpack_img``, BGR to RGB) or an ``imglist`` of ``(label,
+    path)`` (JAX counterpart: ``image/__init__.py:226``; reference:
+    python/mxnet/image/image.py ImageIter)."""
 
     def __init__(self, batch_size: int, data_shape: Tuple[int, int, int],
                  path_imgrec: Optional[str] = None,
@@ -260,11 +258,17 @@ class ImageIter:
         self._shuffle = shuffle
         self._items: List = []
         if path_imgrec:
-            raise _no_recordio()
-        if imglist:
+            rec = recordio.MXRecordIO(path_imgrec, "r")
+            while True:
+                raw = rec.read()
+                if raw is None:
+                    break
+                self._items.append(("rec", raw))
+            rec.close()
+        elif imglist:
             for entry in imglist:
-                self._items.append((float(entry[0]),
-                                    os.path.join(path_root, entry[-1])))
+                self._items.append(("file", (float(entry[0]), os.path.join(
+                    path_root, entry[-1]))))
         else:
             raise MXNetError("ImageIter needs path_imgrec or imglist")
         self.reset()
@@ -284,8 +288,16 @@ class ImageIter:
             raise StopIteration
         data, labels = [], []
         for i in self._order[self._pos:self._pos + self.batch_size]:
-            label, path = self._items[i]
-            img = imread(path)
+            kind, payload = self._items[i]
+            if kind == "rec":
+                header, img = recordio.unpack_img(payload, iscolor=1)
+                cv2 = _cv2()
+                img = array(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+                label = float(header.label) if not onp.ndim(header.label) \
+                    else header.label
+            else:
+                label, path = payload
+                img = imread(path)
             for aug in self.auglist:
                 img = aug(img)
             data.append(img.asnumpy().transpose(2, 0, 1))

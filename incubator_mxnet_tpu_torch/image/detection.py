@@ -9,8 +9,8 @@ where ``label`` is an ``(M, 5)`` float array of
 [0, 1] (the reference's object format after header stripping).
 
 All augmentation is host-side numpy feeding device batches, as in
-``image/__init__.py``; ``path_imgrec`` raises until ``recordio`` is
-ported.
+``image/__init__.py``; ``ImageDetIter`` reads an ``imglist`` or a
+``.rec`` file (``path_imgrec``).
 """
 from __future__ import annotations
 
@@ -21,11 +21,12 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as onp
 
+from .. import recordio
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ndarray import array as _array
 from . import (Augmenter, CastAug, ColorNormalizeAug, ForceResizeAug,
-               ResizeAug, _no_recordio, array, imread)
+               ResizeAug, _cv2, array, imread)
 
 __all__ = ["DetAugmenter", "DetBorrowAug", "DetRandomSelectAug",
            "DetHorizontalFlipAug", "DetRandomCropAug", "DetRandomPadAug",
@@ -268,10 +269,11 @@ class ImageDetIter:
     ``(B, max_objects, 5)`` rows ``[class, xmin, ymin, xmax, ymax]``
     normalized to [0, 1], padded with -1 rows.
 
-    Source: ``imglist`` of ``(label_rows, path_or_array)``, an array in
-    place of the path for in-memory datasets; a label is (M, 5) rows or
-    the flat lst/rec det format ``[header_width, object_width, obj0...,
-    obj1...]``. ``path_imgrec`` raises until ``recordio`` is ported."""
+    Sources: ``path_imgrec`` (an im2rec ``.rec`` whose header label is the
+    flat det format ``[header_width, object_width, obj0..., obj1...]``),
+    or ``imglist`` of ``(label_rows, path_or_array)``, an array in place
+    of the path for in-memory datasets; a label is (M, 5) rows or the
+    flat format."""
 
     def __init__(self, batch_size: int, data_shape: Tuple[int, int, int],
                  path_imgrec: Optional[str] = None,
@@ -286,7 +288,19 @@ class ImageDetIter:
         self._shuffle = shuffle
         self._items: List = []
         if path_imgrec:
-            raise _no_recordio()
+            rec = recordio.MXRecordIO(path_imgrec, "r")
+            while True:
+                raw = rec.read()
+                if raw is None:
+                    break
+                header, img = recordio.unpack_img(raw, iscolor=1)
+                label = self._parse_label(onp.asarray(header.label,
+                                                      onp.float32))
+                cv2 = _cv2()
+                img = onp.ascontiguousarray(
+                    cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+                self._items.append((label, img))
+            rec.close()
         elif imglist:
             for label, src in imglist:
                 label = self._parse_label(onp.asarray(label, onp.float32))

@@ -20,6 +20,14 @@ On one card the mesh is 1x1x1: ``--dp``/``--tp``/``--sp`` above 1 need the
 multi-GPU slice, and ``--remat`` per-layer rematerialisation, which
 ``get_bert`` does not have; both raise. ``--zero1`` shards optimizer
 states over ``dp``, which is 1 here: it changes nothing.
+
+A length-bucketed corpus for the same step: :class:`SyntheticCorpus`
+(token sequences of given lengths, each sample drawn from its own seed,
+so any worker makes the same one), :func:`bucket_lengths` (lengths whose
+count in each bucket is a multiple of the batch size, so every batch of a
+``gluon.data.FixedBucketSampler`` is full and the fused step captures one
+graph per bucket) and :class:`BucketBatchify` (a batch padded to its
+bucket key, the seven arrays of :func:`synthetic_batch`).
 """
 from __future__ import annotations
 
@@ -31,8 +39,12 @@ import numpy as onp
 import torch
 
 from ..base import MXNetError
+from ..gluon.data.dataset import Dataset
 
-__all__ = ["synthetic_batch", "parse_args", "build", "main"]
+__all__ = ["synthetic_batch", "parse_args", "build", "main",
+           "bucket_lengths", "SyntheticCorpus", "BucketBatchify"]
+
+MASK_RATE = 0.15      # BERT's share of masked positions
 
 
 def synthetic_batch(rng, B, L, P, vocab) -> tuple:
@@ -48,6 +60,83 @@ def synthetic_batch(rng, B, L, P, vocab) -> tuple:
     nsp_labels = rng.randint(0, 2, (B,)).astype("float32")
     return (ids, token_types, valid_len, positions, mlm_labels, mlm_weights,
             nsp_labels)
+
+
+def bucket_lengths(n: int, bucket_keys, batch_size: int, low: int,
+                   seed: int = 0) -> onp.ndarray:
+    """``n`` sequence lengths in ``[low, bucket_keys[-1]]``, uniform within
+    each bucket, each bucket's count in proportion to its width and a
+    multiple of ``batch_size`` (the last bucket takes the rest), shuffled
+    by ``RandomState(seed)``."""
+    keys = sorted(bucket_keys)
+    rng = onp.random.RandomState(seed)
+    bounds = [low - 1] + keys
+    span = keys[-1] - low + 1
+    counts = [int(n * (hi - lo) / span) // batch_size * batch_size
+              for lo, hi in zip(bounds[:-1], bounds[1:])]
+    counts[-1] = n - sum(counts[:-1])
+    if counts[-1] % batch_size:
+        raise MXNetError(f"{n} sequences do not split into full batches "
+                         f"of {batch_size}")
+    lengths = onp.concatenate([
+        rng.randint(lo + 1, hi + 1, c)
+        for lo, hi, c in zip(bounds[:-1], bounds[1:], counts)])
+    rng.shuffle(lengths)
+    return lengths.astype("int32")
+
+
+class SyntheticCorpus(Dataset):
+    """A ``gluon.data`` dataset of token sequences: sample ``i`` has
+    ``lengths[i]`` tokens and segment ids, ``round(MASK_RATE *
+    max_length)`` masked positions below its length with their labels,
+    and an NSP label, all drawn from ``RandomState(seed + i)``: numpy only,
+    the same in any process."""
+
+    def __init__(self, lengths, vocab: int, max_length: int, seed: int = 0):
+        self._lengths = onp.asarray(lengths)
+        self._vocab = vocab
+        self._p = max(1, round(MASK_RATE * max_length))
+        self._seed = seed
+
+    def __len__(self):
+        return len(self._lengths)
+
+    def __getitem__(self, i):
+        n = int(self._lengths[i])
+        rng = onp.random.RandomState(self._seed + int(i))
+        ids = rng.randint(0, self._vocab, n).astype("int32")
+        token_types = rng.randint(0, 2, n).astype("int32")
+        positions = rng.randint(0, n, self._p).astype("int32")
+        labels = rng.randint(0, self._vocab, self._p).astype("float32")
+        nsp = onp.float32(rng.randint(0, 2))
+        return ids, token_types, positions, labels, nsp
+
+
+class BucketBatchify:
+    """A ``DataLoader`` batchify: the corpus samples padded to the smallest
+    bucket key that holds the longest, as the seven arrays of
+    :func:`synthetic_batch` (``round(MASK_RATE * key)`` masked positions,
+    weights 1). Numpy only, so it runs in forked workers."""
+
+    def __init__(self, bucket_keys):
+        self._keys = sorted(bucket_keys)
+
+    def __call__(self, samples):
+        longest = max(len(s[0]) for s in samples)
+        key = next(k for k in self._keys if k >= longest)
+        p = max(1, round(MASK_RATE * key))
+        B = len(samples)
+        ids = onp.zeros((B, key), "int32")
+        token_types = onp.zeros((B, key), "int32")
+        for r, s in enumerate(samples):
+            ids[r, :len(s[0])] = s[0]
+            token_types[r, :len(s[1])] = s[1]
+        valid = onp.array([len(s[0]) for s in samples], "float32")
+        positions = onp.stack([s[2][:p] for s in samples])
+        labels = onp.stack([s[3][:p] for s in samples])
+        weights = onp.ones((B, p), "float32")
+        nsp = onp.array([s[4] for s in samples], "float32")
+        return [ids, token_types, valid, positions, labels, weights, nsp]
 
 
 def parse_args(argv=None) -> argparse.Namespace:

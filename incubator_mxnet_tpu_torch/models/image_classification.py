@@ -10,8 +10,9 @@ the iterator shuffles with numpy's global stream, as in the JAX package).
 ``amp=True`` (``--amp``) calls ``amp.init()`` first: bfloat16 mixed
 precision with float32 weights. ``--ckpt-dir`` saves a ``fault``
 checkpoint of the trainer after every epoch, as the JAX example does
-(``:91-92``); ``--rec`` (``ImageRecordIter``) raises until the data slice.
-Run on the card::
+(``:91-92``); ``--rec`` reads an im2rec ``.rec`` file through
+``io.ImageRecordIter`` (shuffled, ``data_shape`` ``(3, S, S)``), as the
+JAX example does (``:69-74``). Run on the card::
 
     python3 -m incubator_mxnet_tpu_torch.models.image_classification \\
         --model resnet18_v1 --epochs 3 --amp
@@ -25,9 +26,8 @@ from typing import Optional
 
 import numpy as onp
 
-from ..base import MXNetError
-
-__all__ = ["synthetic_iter", "image_classification_example", "main"]
+__all__ = ["synthetic_iter", "record_iter", "image_classification_example",
+           "main"]
 
 
 def synthetic_iter(batch_size: int, classes: int, size: int, n: int = 512):
@@ -40,6 +40,14 @@ def synthetic_iter(batch_size: int, classes: int, size: int, n: int = 512):
     x = protos[y] + 0.1 * rng.randn(n, 3, size, size).astype("float32")
     return NDArrayIter(x, y.astype("float32"), batch_size=batch_size,
                        shuffle=True)
+
+
+def record_iter(rec: str, batch_size: int, size: int):
+    """The example's ``--rec`` iterator (JAX counterpart:
+    ``examples/image_classification.py:69-74``)."""
+    from ..io import ImageRecordIter
+    return ImageRecordIter(path_imgrec=rec, batch_size=batch_size,
+                           data_shape=(3, size, size), shuffle=True)
 
 
 def image_classification_example(model: str = "resnet18_v1",
@@ -60,9 +68,6 @@ def image_classification_example(model: str = "resnet18_v1",
     from ..context import current_context
     from ..gluon.model_zoo import vision
 
-    if rec is not None:
-        raise MXNetError("--rec needs ImageRecordIter and recordio, which "
-                         "are not ported yet")
     ctx = ctx or current_context()
     random.seed(seed if seed is not None
                 else int(os.environ.get("MXNET_TEST_SEED", "42")))
@@ -77,7 +82,8 @@ def image_classification_example(model: str = "resnet18_v1",
         net = vision.get_model(model, **kwargs)
         net.initialize(initializer.Xavier(magnitude=2.0), ctx=ctx)
         net.hybridize()
-        it = synthetic_iter(batch_size, classes, image_size)
+        it = record_iter(rec, batch_size, image_size) if rec \
+            else synthetic_iter(batch_size, classes, image_size)
         trainer = gluon.Trainer(net.collect_params(), "sgd",
                                 {"learning_rate": lr, "momentum": 0.9},
                                 kvstore=kvstore)
@@ -116,7 +122,7 @@ def main(argv=None) -> float:
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--rec", default=None,
-                    help="RecordIO file (not ported yet)")
+                    help="im2rec .rec file (default: a synthetic set)")
     ap.add_argument("--amp", action="store_true", help="bf16 mixed precision")
     ap.add_argument("--kvstore", default="device")
     ap.add_argument("--ckpt-dir", default=None,

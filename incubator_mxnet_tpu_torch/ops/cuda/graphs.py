@@ -83,7 +83,8 @@ class Graph:
         """Capture ``fn()`` on the device's capture stream and return what
         it returned (tensors in the graph's memory, rewritten by every
         replay). Launches inside go to :attr:`tally`. A capture error
-        raises; nothing falls back to running eagerly. Python's cyclic
+        raises; nothing falls back to running eagerly. Other threads may
+        work on other streams meanwhile (thread-local capture mode). Python's cyclic
         garbage collector is held off meanwhile: an unreachable graph that
         it destroyed inside the capture would end the capture."""
         global _tally
@@ -96,8 +97,13 @@ class Graph:
         collecting = gc.isenabled()
         gc.disable()
         try:
+            # thread-local capture mode: an input pipeline's thread
+            # (io.PrefetchIter, a DataLoader pinning batches) may copy,
+            # allocate and record events on its own stream meanwhile,
+            # which the global mode counts against this capture
             with torch.cuda.graph(self._graph, pool=self.pool,
-                                  stream=stream):
+                                  stream=stream,
+                                  capture_error_mode="thread_local"):
                 out = fn()
         finally:
             if collecting:

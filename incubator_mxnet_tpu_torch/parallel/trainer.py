@@ -97,6 +97,7 @@ from ..context import resolve_device
 from ..fault import checkpoint as ckpt
 from ..fault import inject
 from ..fault.checkpoint import array_dtype as _name
+from ..ndarray import NDArray
 from ..ndarray.serialization import from_host, to_host
 from ..nn import Dropout, set_dropout_generator
 from ..ops.cuda import graphs
@@ -307,12 +308,25 @@ class ShardedTrainer:
                    for p in self._block.collect_params().values())
 
     def place(self, *batch) -> tuple:
-        """Batch arrays (numpy or tensors) as tensors on the device; tensors
-        already there pass through."""
+        """Batch arrays (numpy, tensors or NDArrays) as tensors on the
+        device; tensors already there pass through. On the card a host
+        array is staged in pinned memory and copied with
+        ``non_blocking=True`` on the current stream (``io.PrefetchIter``
+        runs this on a stream of its own): the staging buffer comes from
+        PyTorch's pinned-memory cache, which keeps it from reuse until the
+        copy that reads it has completed. Pinning raises without a card;
+        nothing drops to a pageable copy."""
         out = []
         for a in batch:
-            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-                onp.ascontiguousarray(a))
+            if isinstance(a, NDArray):
+                t = a._data
+            elif isinstance(a, torch.Tensor):
+                t = a
+            else:
+                t = torch.from_numpy(onp.ascontiguousarray(a))
+            if self._device.type == "cuda" and t.device.type == "cpu" \
+                    and not t.is_pinned():
+                t = t.pin_memory()
             out.append(t.to(self._device, non_blocking=True))
         return tuple(out)
 

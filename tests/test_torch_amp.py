@@ -369,7 +369,9 @@ def test_example_loop_matches_jax_first_losses(monkeypatch, tmp_path):
     steps of one epoch, shuffled by numpy's global stream seeded alike):
     every step's loss within 1e-3 relative and the epoch accuracy within
     1%;
-    ``--rec`` raises (``--ckpt-dir`` saves: ``tests/test_torch_stacked_encoder.py``)."""
+    ``--rec`` reads the file it names, so a missing one raises (its
+    training: ``tests/test_torch_gluon_data.py``; ``--ckpt-dir`` saves:
+    ``tests/test_torch_stacked_encoder.py``)."""
     classes = 4
     pnet = _tiny(gluon, classes)
     pnet.initialize(mx.init.Xavier(magnitude=2.0))
@@ -401,8 +403,9 @@ def test_example_loop_matches_jax_first_losses(monkeypatch, tmp_path):
     # a prediction whose two best logits are within bf16 rounding may
     # differ: at most 1% of the 512 images
     assert abs(out["accuracy"] - jacc) <= 0.01, (out["accuracy"], jacc)
-    with pytest.raises(mx.MXNetError, match="not ported"):
-        image_classification.image_classification_example(rec="train.rec")
+    with pytest.raises((mx.MXNetError, OSError)):
+        image_classification.image_classification_example(
+            rec=str(tmp_path / "missing.rec"), ctx=mx.cpu(), **flags)
 
 
 def test_amp_fused_step_function_matches_eager():

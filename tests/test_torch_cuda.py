@@ -22,13 +22,17 @@ versions (padded row counts, ragged inner sizes), calibration of a
 hybridized net, and the fused step under ``amp.init("bfloat16")`` against
 the eager one; fault tolerance: a checkpoint restored in place into a
 trainer whose step is captured, and a guarded step rolled back in place,
-each resuming bitwise without a new capture.
+each resuming bitwise without a new capture; data: batches placed by
+``io.PrefetchIter`` on its own stream while the captured step replays,
+bitwise those placed on the main thread, and a multi-worker pinned
+``DataLoader`` made after CUDA is initialised.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
 version's GEMMs; bfloat16 (1e-2, 1.6e-2) for the output's rounding (one ulp
 is 2**-8 relative). The forward's lse within 1e-4 on rows that see a key.
 """
+import numpy as onp
 import pytest
 import torch
 
@@ -1037,3 +1041,87 @@ def test_fused_rollback_in_place_on_card(deterministic):
     for a, b in zip(_state_of(c), _state_of(g)):
         assert torch.equal(a, b)
     assert g.captures == 1 and g.last_step_graphs == 1
+
+
+def _pipeline_data(n=48):
+    rng = onp.random.RandomState(5)
+    return (rng.randint(0, 100, (n, 64)).astype("int32"),
+            rng.rand(n, 64).astype("float32"))
+
+
+@pytest.mark.cuda
+def test_prefetch_place_under_replay_matches_sync_on_card(deterministic):
+    """``io.PrefetchIter(place=trainer.place)`` over a ``DataLoader``
+    while the captured BERT step replays (the copies on the iterator's
+    stream, the step waiting on its event): every batch the step received
+    (its static input buffers after each load) and every loss bitwise
+    equal to a twin run placing each batch on the main thread."""
+    _card()
+    from incubator_mxnet_tpu_torch import bench, io
+    from incubator_mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    ids, noise = _pipeline_data()
+    rest = bench.make_batch(4, 64, vocab=100)[1:]
+
+    def batchify(samples):
+        x = onp.stack([s[0] for s in samples])
+        return [x] + [r[:len(samples)] for r in rest]
+
+    runs = []
+    for prefetch in (True, False):
+        tr = _trainer(_bert(), None)
+        loader = DataLoader(ArrayDataset(ids, noise), batch_size=4,
+                            batchify_fn=batchify)
+        onp.random.seed(0)
+        if prefetch:
+            it = io.PrefetchIter(loader, place=lambda b: tr.place(*b))
+        else:
+            src = iter(loader)
+            it = (tr.place(*b) for b in src)
+        losses, seen = [], []
+        for _ in range(8):
+            losses.append(tr.step(*next(it)))
+            entry = next(iter(tr._steps.values()))
+            seen.append([t.clone() for t in entry.inputs])
+        if prefetch:
+            it.close()
+        assert tr.captures == 1 and tr.last_step_graphs == 1
+        runs.append(([float(x) for x in losses], seen))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_dataloader_workers_pin_and_place_on_card(monkeypatch):
+    """A ``DataLoader(num_workers=2, pin_memory=True)`` made after CUDA is
+    initialised: its forked workers run (numpy only), each batch goes
+    through pinned memory to the card, equal to the numpy batch; the
+    same through the pipe."""
+    _card()
+    from incubator_mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    torch.ones(1, device="cuda").sum().item()     # CUDA initialised
+    ids, noise = _pipeline_data(20)
+    pins = []
+    orig = torch.Tensor.pin_memory
+
+    def spy(self, *a, **kw):
+        out = orig(self, *a, **kw)
+        pins.append(out.is_pinned())
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "pin_memory", spy)
+    for shm in ("1", "0"):
+        monkeypatch.setenv("MXTPU_DATALOADER_SHM", shm)
+        pins.clear()
+        loader = DataLoader(ArrayDataset(ids, noise), batch_size=6,
+                            num_workers=2, pin_memory=True, timeout=30)
+        got = list(loader)
+        loader.close()
+        assert len(got) == 4 and len(pins) == 8 and all(pins)
+        for k, (x, y) in enumerate(got):
+            assert x._data.is_cuda and y._data.is_cuda
+            assert torch.equal(x._data.cpu(),
+                               torch.from_numpy(ids[6 * k:6 * k + 6]))
+            assert torch.equal(y._data.cpu(),
+                               torch.from_numpy(noise[6 * k:6 * k + 6]))

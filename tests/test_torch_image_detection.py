@@ -172,10 +172,11 @@ def test_image_det_iter_batches_and_pads():
     assert (lab[0, 1:] == -1).all()
 
 
-def test_labels_dumps_and_recordio_refused():
+def test_labels_dumps_and_recordio_refused(tmp_path):
     """The flat lst/rec det label format parses; every augmenter dumps the
-    JAX package's JSON; ``path_imgrec`` raises until ``recordio`` is
-    ported."""
+    JAX package's JSON; ``path_imgrec`` reads a ``.rec`` file (written by
+    the JAX ``recordio``) whose header holds the flat det label, in
+    ``ImageDetIter`` and ``ImageIter``."""
     flat = onp.array([2, 5, 1, 0.1, 0.2, 0.5, 0.6, 3, 0.6, 0.1, 0.9, 0.4],
                      "float32")
     onp.testing.assert_allclose(ImageDetIter._parse_label(flat), _label())
@@ -190,11 +191,22 @@ def test_labels_dumps_and_recordio_refused():
         name, _ = json.loads(a.dumps())
         assert name == type(a).__name__
         assert json.loads(a.dumps()) == json.loads(ja.dumps())
-    with pytest.raises(mx.MXNetError, match="recordio"):
-        ImageDetIter(batch_size=1, data_shape=(3, 8, 8), path_imgrec="x.rec")
-    with pytest.raises(mx.MXNetError, match="recordio"):
-        image.ImageIter(batch_size=1, data_shape=(3, 8, 8),
-                        path_imgrec="x.rec")
+    from incubator_mxnet_tpu import recordio as jrec
+    rec = str(tmp_path / "det.rec")
+    w = jrec.MXRecordIO(rec, "w")
+    img = onp.random.RandomState(0).randint(0, 255, (8, 8, 3)).astype("uint8")
+    w.write(jrec.pack_img(jrec.IRHeader(0, flat, 0, 0), img, img_fmt=".png"))
+    w.close()
+    with mx.cpu():
+        b = next(ImageDetIter(batch_size=1, data_shape=(3, 8, 8),
+                              path_imgrec=rec))
+        onp.testing.assert_allclose(b.label[0].asnumpy()[0], _label())
+        onp.testing.assert_array_equal(
+            b.data[0].asnumpy()[0].transpose(1, 2, 0), img[:, :, ::-1])
+        b = next(image.ImageIter(batch_size=1, data_shape=(3, 8, 8),
+                                 path_imgrec=rec))
+        onp.testing.assert_array_equal(b.data[0].asnumpy()[0].transpose(
+            1, 2, 0), img[:, :, ::-1])
 
 
 def test_image_iter_and_augmenters_match_jax(tmp_path):
