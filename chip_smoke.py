@@ -31,11 +31,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    card could take (the bound);
 4. serve: BERT-base (``bert_12_768_12``, full width and depth, float32,
    seeded random weights) through ``serve.CompiledModel`` over the
-   ``{"batch": (1, 32), "seq": (8, 512)}`` bucket table and
+   ``{"batch": (1, 32), "seq": (8, 512)}`` bucket table (one CUDA graph
+   per bucket, all 42 captured at ``warmup``, none after) and
    ``serve.DynamicBatcher`` (5 ms deadline), fed ragged requests from four
-   client threads; the forward kernel must have launched on that run and
-   the backward kernels not, and served outputs must match unbatched
-   forwards on the plain attention path;
+   client threads; the forward kernel must have launched on that run
+   (replays counted) and the backward kernels not, and served outputs must
+   match unbatched forwards on the plain attention path;
 5. profile: one serving forward at the largest bucket, timed with CUDA
    events and split by kernel with ``torch.profiler``;
 6. train: the port bench (``incubator_mxnet_tpu_torch/bench.py``, the
@@ -145,7 +146,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``quantization.observe_net`` on one batch of 32 ragged requests
     (drawn as phase 4 draws, from another seed), ``quantization.
     quantize_model`` into a quantized ``CompiledModel`` over the same
-    table, ``warmup`` and ``DynamicBatcher``; the float and int8 models
+    table, ``warmup`` (a CUDA graph per bucket for each model) and
+    ``DynamicBatcher``; the float and int8 models
     serve phase 4's requests in turns (paced, then all at once): every
     request answered, no post-warmup compile, the 48 encoder Dense layers
     and the pooler ``QuantizedDense``, served outputs within 1e-3 of the
@@ -287,7 +289,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (e) when ``cv2`` imports, 512 JPEGs packed by the port's ``im2rec``
     (short side 256) and read by ``ImageRecordIter`` (random crop,
     mirror, mean/std): images/s; no ``/dev/shm/mxtpu_dl_*`` segment of the
-    phase's workers is left.
+    phase's workers is left;
+26. serve tier: two ``serve.Replica``s of BERT-base (each loader builds
+    the seeded model and captures 28 graphs over ``{"batch": (1, 8),
+    "seq": (8, 512)}``) behind ``serve.Router`` and ``serve.Server`` on
+    TCP; 4 client threads send 32 seeded ragged requests (4-511 tokens)
+    with ``serve.client_call`` with nothing held or killed (the tier's
+    steady req/s and latency, the share of the window in which neither
+    replica's ``predict`` ran, and the reply's wire encoding re-timed on
+    one thread), then 64 more, and after 16 replies (r0's next flush
+    held until a request waits in its queue) r0 dies by the
+    ``replica_kill`` chaos site in its request path, its queued requests
+    failing over to r1: every accepted request gets an ``ok`` reply, r0 restarts (fresh registry, captures
+    again) and is healthy, no capture after warmup, sampled replies (and
+    r0's after its restart) within 1e-3 of the eager plain-attention
+    forward; perturbed weights written with ``fault.checkpoint`` and
+    applied by ``Router.sync_weights_once`` to both replicas with no
+    capture, each serving the new weights; a burst of 64 short requests
+    over shed depth 1 answered or shed with ``retry_after``, no accepted
+    request lost; Transformer-big generation through
+    ``serve.client_generate`` equal to the in-process ``DecodeBatcher``
+    tokens, an over-budget tenant (``TokenRateBudget``) shed on the wire,
+    ``decode_replica_death`` failing its streams and the next request
+    served; printed: req/s and p50/p99 over the wire (the steady window
+    and the kill window apart), failovers, the restart's and the weight
+    sync's seconds, and the forward kernel's launches by the replicas
+    (gated against their batches) and by the generation apart.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -762,6 +789,11 @@ def drive(batcher, cm, reqs, gaps) -> dict:
     return {"outs": outs, "wall_s": wall, "snapshot": snap}
 
 
+def _max_err(host: onp.ndarray, dev: torch.Tensor) -> float:
+    """Largest absolute difference of a served numpy row and a tensor."""
+    return float(onp.abs(host - dev.float().cpu().numpy()).max())
+
+
 def phase_serve(n_requests: int, rate: float, seed: int) -> dict:
     t0 = time.perf_counter()
     model = models.get_bert("bert_12_768_12", vocab_size=30522,
@@ -777,7 +809,13 @@ def phase_serve(n_requests: int, rate: float, seed: int) -> dict:
     print(f"serve: model built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     warm = cm.warmup()
-    print(f"serve: warmup {warm}", flush=True)
+    captures = len(cm._graphs)
+    print(f"serve: warmup {warm}: {captures} CUDA graphs captured, one "
+          f"per bucket", flush=True)
+    check(captures == warm["compiled"] == table.num_buckets()
+          and cm.cache_info()["warmup_compiles"] == captures,
+          f"warmup captured {captures} graphs for {table.num_buckets()} "
+          f"buckets: {cm.cache_info()}")
 
     rng = onp.random.RandomState(seed)
     reqs = []
@@ -807,10 +845,12 @@ def phase_serve(n_requests: int, rate: float, seed: int) -> dict:
     for name in (fa.KERNEL_BWD_DKV, fa.KERNEL_BWD_DQ):
         check(launches[name] == 0, f"serving (inference_mode) launched the "
               f"backward kernel {name} {launches[name]} times")
+    check(cm.cache_info()["compiles"] == captures, f"a bucket was "
+          f"captured after warmup: {cm.cache_info()}")
     outs = runs["paced"]["outs"]
     for a, b in zip(outs, runs["burst"]["outs"]):
         check(a[0].shape == b[0].shape
-              and (a[0] - b[0]).abs().max().item() <= SERVE_ATOL,
+              and onp.abs(a[0] - b[0]).max() <= SERVE_ATOL,
               "paced and burst runs served different outputs")
 
     # served outputs vs unbatched forwards on the plain attention path
@@ -832,12 +872,11 @@ def phase_serve(n_requests: int, rate: float, seed: int) -> dict:
                       and tuple(got_pooled.shape) == (768,),
                       f"served shapes {tuple(got_seq.shape)}, "
                       f"{tuple(got_pooled.shape)} for length {L}")
-                check(bool(torch.isfinite(got_seq).all()
-                           and torch.isfinite(got_pooled).all()),
+                check(bool(onp.isfinite(got_seq).all()
+                           and onp.isfinite(got_pooled).all()),
                       "served outputs are not finite")
-                worst = max(worst,
-                            (got_seq - seq[0].cpu()).abs().max().item(),
-                            (got_pooled - pooled[0].cpu()).abs().max().item())
+                worst = max(worst, _max_err(got_seq, seq[0]),
+                            _max_err(got_pooled, pooled[0]))
     finally:
         del os.environ["MXTPU_ATTN_IMPL"]
     check(cuda_ops.launch_counts() == before,
@@ -845,7 +884,7 @@ def phase_serve(n_requests: int, rate: float, seed: int) -> dict:
     check(worst <= SERVE_ATOL, f"served vs unbatched xla forward: max abs "
           f"err {worst} > {SERVE_ATOL}")
     res = {"model": model, "requests": n_requests,
-           "warmup_s": warm["seconds"],
+           "warmup_s": warm["seconds"], "captures": captures,
            "launches": launches, "batches": batches,
            "served_vs_xla_max_abs_err": worst,
            "checked_lengths": [int(reqs[i][2]) for i in picks]}
@@ -2936,6 +2975,10 @@ def phase_int8_serve(model, seed: int) -> dict:
           f"{len(qdense)} QuantizedDense layers (want {4 * n_layers + 1}), "
           f"float Dense left: {left}")
     warm = {"float": cm.warmup(), "int8": qcm.warmup()}
+    for name, m in (("float", cm), ("int8", qcm)):
+        check(len(m._graphs) == table.num_buckets(), f"int8 serve: the "
+              f"{name} model captured {len(m._graphs)} graphs for "
+              f"{table.num_buckets()} buckets")
     bytes_ = {"float": _param_bytes(model), "int8": _param_bytes(qblock)}
     print(f"int8 serve: calibrated on {len(calib)} ragged requests in "
           f"{calib_s:.1f} s, quantized in {quant_s:.1f} s, "
@@ -2985,15 +3028,15 @@ def phase_int8_serve(model, seed: int) -> dict:
             ids, tt, vl = (torch.from_numpy(a[None]).cuda() for a in reqs[i])
             seq, pooled = qblock(ids, tt, vl)
             got_seq, got_pooled = served[i]
-            check(bool(torch.isfinite(got_seq).all()
-                       and torch.isfinite(got_pooled).all()),
+            check(bool(onp.isfinite(got_seq).all()
+                       and onp.isfinite(got_pooled).all()),
                   "served int8 outputs are not finite")
             for g, w in ((got_seq, seq[0]), (got_pooled, pooled[0])):
-                worst = max(worst, ((g - w.cpu()).abs().max()
-                                    / w.abs().max()).item())
+                worst = max(worst, _max_err(g, w)
+                            / w.abs().max().item())
             for g, f in zip(served[i], served_f[i]):
-                num += (g - f).abs().sum().item()
-                den += f.abs().sum().item()
+                num += float(onp.abs(g - f).sum())
+                den += float(onp.abs(f).sum())
     check(worst <= INT8_SERVE_RTOL, f"served vs unbatched int8 forward: "
           f"max abs err / max |out| {worst} > {INT8_SERVE_RTOL}")
     rel_vs_float = num / den
@@ -3032,7 +3075,8 @@ def phase_int8_serve(model, seed: int) -> dict:
     args = models.calib_args("bert_encoder", seed=5, device="cuda")
     want = smoke["f32"]["compiled"].predict(*args)
     got = smoke["compiled"].predict(*args)
-    rels = [((w - g).abs().mean() / (w.abs().mean() + 1e-6)).item()
+    rels = [((w._data - g._data).abs().mean()
+             / (w._data.abs().mean() + 1e-6)).item()
             for w, g in zip(want, got)]
     print(f"int8 serve: bert_encoder smoke twin on the card, mean rel err "
           f"{[round(r, 5) for r in rels]} (gate {INT8_SMOKE_GATE})",
@@ -5601,6 +5645,570 @@ def phase_data() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 26. serve tier: two replicas of BERT-base behind the router and the TCP
+# server, a kill, a weight sync, shedding and generation over the wire
+# ---------------------------------------------------------------------------
+TIER_TABLE = {"batch": (1, 8), "seq": (8, 512)}    # 4 x 7 = 28 graphs each
+TIER_STEADY = 32           # over the wire from 4 client threads, no kill
+TIER_REQUESTS = 64         # over the wire from 4 client threads, r0 killed
+TIER_KILL_AFTER = 16       # replies before r0 is killed
+TIER_SAMPLES = 4           # wire replies held against the eager forward
+TIER_BURST = 64            # concurrent short requests over the shed depth
+TIER_BURST_LEN = 32
+TIER_SHED_DEPTH = 1
+#: the weight sync's perturbation, in standard deviations of each weight
+TIER_WEIGHT_NOISE = 0.02
+TIER_NMT_TABLE = {"batch": (1, 1), "src": (8, 128)}
+TIER_NMT_PROMPTS = 4
+TIER_NMT_NEW = 24
+#: the decoder's per-tenant budget: 1 token/s refill, 32 tokens deep
+TIER_NMT_BURST = 32
+
+
+def _tier_bert():
+    """BERT-base as every replica's loader builds it: seeded, so every
+    build holds the same weights."""
+    return models.get_bert("bert_12_768_12", vocab_size=30522,
+                           max_length=512, use_decoder=False,
+                           use_classifier=False, device="cuda")
+
+
+def _tier_payload(req) -> dict:
+    ids, tt, vl = req
+    return {"model": "bert", "inputs": [ids.tolist(), tt.tolist(),
+                                        float(vl)],
+            "dtypes": ["int32", "int32", "float32"]}
+
+
+def _tier_eager(ref, reqs) -> list:
+    """Unbatched forwards of ``reqs`` on the plain attention path."""
+    outs = []
+    os.environ["MXTPU_ATTN_IMPL"] = "xla"
+    try:
+        with torch.inference_mode():
+            for r in reqs:
+                seq, pooled = ref(*(torch.from_numpy(onp.asarray(a)[None])
+                                    .cuda() for a in r))
+                outs.append((seq[0], pooled[0]))
+    finally:
+        del os.environ["MXTPU_ATTN_IMPL"]
+    return outs
+
+
+def _tier_err(got, want) -> float:
+    """Largest error of a reply's or a future's (seq, pooled) rows."""
+    return max(_max_err(onp.asarray(g, "float32"), w)
+               for g, w in zip(got, want))
+
+
+def _tier_steady(srv, reps, reqs) -> dict:
+    """``reqs`` over TCP from 4 closed-loop client threads, nothing held
+    or killed: the tier's steady req/s and latency. Each replica's
+    ``predict`` (replay and copies, under its model lock) is timed
+    meanwhile: the share of the window in which neither ran is a floor on
+    the card's idle share, since the two share the card. Then the wire
+    encoding of the window's replies (the server's ``tolist`` and
+    ``json.dumps``, the client's ``json.loads``) is timed again on this
+    thread, as a share of the window: the server and the clients do that
+    work in this one process, under one interpreter lock."""
+    n = len(reqs)
+    replies, lat, errors, spans = [None] * n, [0.0] * n, [], []
+    cms = [rep.registry.get("bert") for rep in reps]
+    real = [cm.predict for cm in cms]
+
+    def timed(fn):
+        def predict(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spans.append((t0, time.perf_counter()))
+        return predict
+
+    def client(cid):
+        try:
+            for i in range(cid, n, 4):
+                t0 = time.perf_counter()
+                replies[i] = serve.client_call(
+                    "127.0.0.1", srv.port, _tier_payload(reqs[i]),
+                    timeout=300)
+                lat[i] = (time.perf_counter() - t0) * 1e3
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    for cm, fn in zip(cms, real):
+        cm.predict = timed(fn)
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+    finally:
+        for cm, fn in zip(cms, real):
+            cm.predict = fn
+    check(not any(t.is_alive() for t in threads), "tier clients hung")
+    check(not errors, f"tier client failed: {errors[:3]}")
+    check(all(r is not None and r["ok"] for r in replies),
+          f"a steady request over the wire failed: "
+          f"{[r for r in replies if not (r and r['ok'])][:2]}")
+    busy, end = 0.0, t0
+    for a, b in sorted(spans):
+        a = max(a, end)
+        if b > a:
+            busy, end = busy + b - a, b
+    json_s, nbytes = 0.0, 0
+    for r in replies:
+        outs = [onp.asarray(o, "float32") for o in r["outputs"]]
+        t1 = time.perf_counter()
+        line = (json.dumps(dict(r, outputs=[o.tolist() for o in outs]))
+                + "\n").encode("utf-8")
+        json.loads(line.decode("utf-8"))
+        json_s += time.perf_counter() - t1
+        nbytes += len(line)
+    lat = sorted(lat)
+    return {"requests": n, "wall_s": wall, "req_s": n / wall,
+            "p50_ms": float(onp.percentile(lat, 50)),
+            "p99_ms": float(onp.percentile(lat, 99)),
+            "predict_s": busy, "neither_predicting_share": 1 - busy / wall,
+            "batches": len(spans), "json_s": json_s,
+            "json_share": json_s / wall, "reply_bytes_mean": nbytes / n,
+            "by_replica": {k: sum(r["replica"] == k for r in replies)
+                           for k in ("r0", "r1")}}
+
+
+def _tier_traffic(srv, reqs, reps, seed) -> dict:
+    """Every request over TCP from 4 client threads (closed loop). After
+    ``TIER_KILL_AFTER`` replies r0's next flush is held until a client's
+    request waits in its queue (or 30 s pass); then, with every client's
+    submit held at the replicas for that instant, r0 dies by the
+    ``replica_kill`` chaos site in its request path (so the armed site
+    fires on r0), its queued requests fail fast and the router fails them
+    over to r1; the health loop restarts r0."""
+    n = len(reqs)
+    replies, lat, errors = [None] * n, [0.0] * n, []
+    done = [0]
+    lock = threading.Lock()
+
+    def client(cid):
+        try:
+            for i in range(cid, n, 4):
+                t0 = time.perf_counter()
+                replies[i] = serve.client_call(
+                    "127.0.0.1", srv.port, _tier_payload(reqs[i]),
+                    timeout=300)
+                lat[i] = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    done[0] += 1
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    gate, hold = threading.Event(), threading.Event()
+    gate.set()
+    hold.set()
+    real = [rep.submit for rep in reps]
+    cm0 = reps[0].registry.get("bert")
+    real_predict = cm0.predict
+
+    def gated(k):
+        def submit(model, *arrays):
+            gate.wait(120)
+            return real[k](model, *arrays)
+        return submit
+
+    def held(*args):
+        hold.wait(120)
+        return real_predict(*args)
+
+    for k, rep in enumerate(reps):
+        rep.submit = gated(k)
+    cm0.predict = held
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in threads:
+        t.start()
+    queued = 0
+    try:
+        deadline = time.monotonic() + 300
+        while done[0] < TIER_KILL_AFTER and time.monotonic() < deadline \
+                and not errors:
+            time.sleep(0.01)
+        hold.clear()
+        deadline = time.monotonic() + 30
+        while reps[0].queue_depth() < 1 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        gate.clear()
+        queued = reps[0].queue_depth()
+        with inject.chaos(seed=seed, crash_sites=["replica_kill"]):
+            try:
+                real[0]("bert", *reqs[0])
+            except serve.ReplicaUnavailable:
+                pass
+        t_kill = time.perf_counter()
+    finally:
+        hold.set()
+        gate.set()
+        for rep, submit in zip(reps, real):
+            rep.submit = submit
+        cm0.predict = real_predict
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "tier clients hung")
+    check(not errors, f"tier client failed: {errors[:3]}")
+    check(reps[0].kills == 1, f"r0 was not killed: {reps[0].snapshot()}")
+    return {"replies": replies, "latency_ms": lat, "wall_s": wall,
+            "kill_at_s": t_kill - t0, "queued_at_kill": queued}
+
+
+def _tier_burst(srv, rng) -> dict:
+    """``TIER_BURST`` short requests at once over TCP: each is answered
+    or shed with ``retry_after``."""
+    reqs = _requests(rng, TIER_BURST)
+    reqs = [(a[:TIER_BURST_LEN], b[:TIER_BURST_LEN],
+             onp.array(min(TIER_BURST_LEN, int(c)), "float32"))
+            for a, b, c in reqs]
+    replies, errors = [None] * len(reqs), []
+    barrier = threading.Barrier(len(reqs))
+
+    def one(i):
+        try:
+            barrier.wait(60)
+            replies[i] = serve.client_call("127.0.0.1", srv.port,
+                                           _tier_payload(reqs[i]),
+                                           timeout=300)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    ts = [threading.Thread(target=one, args=(i,)) for i in range(len(reqs))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    check(not errors, f"burst client failed: {errors[:3]}")
+    return {"replies": replies}
+
+
+def _tier_generate(srv, seed) -> dict:
+    """Transformer-big generation through ``client_generate`` against the
+    in-process tokens, an over-budget tenant shed, and
+    ``decode_replica_death``."""
+    t0 = time.perf_counter()
+    net = nmt_model(dropout=0.0, seed=seed)
+    engine = serve.DecodeEngine(net, serve.BucketTable(TIER_NMT_TABLE),
+                                max_batch=8, block_size=16,
+                                max_target_len=64)
+    engine.warmup()
+    qos = serve.TokenRateBudget(tokens_per_s=1, burst=TIER_NMT_BURST)
+    batcher = serve.DecodeBatcher(engine, qos=qos).start()
+    srv.attach_decoder("nmt", batcher)
+    build_s = time.perf_counter() - t0
+    rng = onp.random.RandomState(seed + 26)
+    prompts = [rng.randint(3, NMT_VOCAB, int(rng.randint(8, 128))).astype(
+        "int32") for _ in range(TIER_NMT_PROMPTS)]
+    res = {"build_s": build_s, "streams": []}
+    try:
+        for k, p in enumerate(prompts):
+            want = batcher.submit(p, max_new_tokens=TIER_NMT_NEW,
+                                  tenant=f"local{k}").result(timeout=300)
+            t1 = time.perf_counter()
+            docs = list(serve.client_generate(
+                "127.0.0.1", srv.port,
+                {"model": "nmt", "tokens": p.tolist(),
+                 "max_new_tokens": TIER_NMT_NEW, "tenant": f"wire{k}"},
+                timeout=300))
+            ms = (time.perf_counter() - t1) * 1e3
+            got = [d["token"] for d in docs[:-1]]
+            check(all(d["ok"] for d in docs) and docs[-1].get("done")
+                  and got == want == docs[-1]["tokens"],
+                  f"generate over TCP gave {got}, in process {want}: "
+                  f"{docs[-1]}")
+            res["streams"].append({"prompt": len(p), "tokens": len(got),
+                                   "wire_ms": ms})
+        shed = list(serve.client_generate(
+            "127.0.0.1", srv.port,
+            {"model": "nmt", "tokens": prompts[0].tolist(),
+             "max_new_tokens": TIER_NMT_BURST + 8, "tenant": "heavy"}))
+        check(len(shed) == 1 and not shed[0]["ok"]
+              and shed[0]["error"].startswith("ShedError")
+              and shed[0]["retry_after"] > 0,
+              f"an over-budget tenant was not shed: {shed}")
+        res["shed"] = shed[0]
+        with inject.chaos(seed=seed, decode_replica_death=1.0):
+            died = list(serve.client_generate(
+                "127.0.0.1", srv.port,
+                {"model": "nmt", "tokens": prompts[1].tolist(),
+                 "max_new_tokens": 8, "tenant": "victim"}))
+            streams = [batcher.submit(p, max_new_tokens=8,
+                                      tenant=f"victim{k}")
+                       for k, p in enumerate(prompts[:2])]
+            failed = 0
+            for s in streams:
+                try:
+                    s.result(timeout=300)
+                except serve.ReplicaUnavailable:
+                    failed += 1
+        check(len(died) == 1 and not died[0]["ok"]
+              and died[0]["error"].startswith("ReplicaUnavailable")
+              and failed == len(streams),
+              f"decode_replica_death: wire {died}, {failed} of "
+              f"{len(streams)} streams failed")
+        after = list(serve.client_generate(
+            "127.0.0.1", srv.port,
+            {"model": "nmt", "tokens": prompts[2].tolist(),
+             "max_new_tokens": 8, "tenant": "after"}, timeout=300))
+        check(after[-1].get("done") and len(after) > 1,
+              f"the request after the replica death was not served: "
+              f"{after[-1]}")
+        res["stats"] = engine.stats()
+        check(res["stats"]["decode"]["post_warmup_compiles"] == 0
+              and res["stats"]["prefill"]["post_warmup_compiles"] == 0,
+              f"generation captured after warmup: {res['stats']}")
+    finally:
+        batcher.stop()
+    return res
+
+
+def phase_serve_tier(seed: int) -> dict:
+    """26. serve tier (the module docstring)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spec = models.serve_spec("bert_encoder")
+    example = (onp.zeros((1, 8), "int32"), onp.zeros((1, 8), "int32"),
+               onp.zeros((1,), "float32"))
+    table = serve.BucketTable(TIER_TABLE)
+
+    def loader(rep):
+        rep.load("bert", table=table, input_axes=spec["input_axes"],
+                 factory=_tier_bert, example_args=example,
+                 output_axes=spec["output_axes"],
+                 pad_values=spec["pad_values"])
+
+    reps = [serve.Replica(f"r{i}", loader, max_delay_ms=5.0) for i in (0, 1)]
+    router = serve.Router(reps, heartbeat_ms=50, stall_s=30, retries=3,
+                          request_timeout_s=300)
+    router.start()
+    load_s = time.perf_counter() - t0
+    srv = serve.Server(router=router).start()
+    ref = _tier_bert()
+    card = card_line()
+    cms = [rep.registry.get("bert") for rep in reps]
+    for rep, cm in zip(reps, cms):
+        check(len(cm._graphs) == table.num_buckets()
+              and cm.cache_info()["post_warmup_compiles"] == 0,
+              f"{rep.name}: {len(cm._graphs)} graphs for "
+              f"{table.num_buckets()} buckets, {cm.cache_info()}")
+    print(f"serve tier: 2 replicas of BERT-base loaded in {load_s:.1f} s, "
+          f"{table.num_buckets()} CUDA graphs each; resident "
+          f"{[cm.resident_bytes() for cm in cms]} bytes on {card}",
+          flush=True)
+    rng = onp.random.RandomState(seed + 26)
+    reqs = _requests(rng, TIER_REQUESTS)
+    steady = _requests(onp.random.RandomState(seed + 2600), TIER_STEADY)
+    res = {"card": card, "load_s": load_s, "buckets": table.num_buckets()}
+    cuda_ops.reset_launches()
+    try:
+        # (1): ragged traffic over the wire, nothing killed
+        res["steady"] = t = _tier_steady(srv, reps, steady)
+        print(f"serve tier: steady window of {TIER_STEADY} requests over "
+              f"TCP (4 threads, 4-511 tokens) in {t['wall_s']:.3f} s = "
+              f"{t['req_s']:.2f} req/s, latency p50 {t['p50_ms']:.1f} ms "
+              f"p99 {t['p99_ms']:.1f} ms; {t['batches']} batches, neither "
+              f"replica in predict {100 * t['neither_predicting_share']:.1f}"
+              f"% of the window; the replies' wire encoding (mean "
+              f"{t['reply_bytes_mean']:.0f} bytes) re-timed on one thread "
+              f"{t['json_s']:.3f} s = {100 * t['json_share']:.1f}% of the "
+              f"window; replies by replica {t['by_replica']} on {card}",
+              flush=True)
+        # (2): ragged traffic over the wire, r0 killed mid-run
+        t1 = time.perf_counter()
+        traffic = _tier_traffic(srv, reqs, reps, seed)
+        deadline = time.monotonic() + 300
+        while not all(r.healthy() for r in reps) \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        res["wait_for_r0_s"] = time.perf_counter() - t1 - traffic["wall_s"]
+        replies = traffic["replies"]
+        stats = router.snapshot()["stats"]
+        check(all(r is not None and r["ok"] for r in replies),
+              f"a request over the wire failed: "
+              f"{[r for r in replies if not (r and r['ok'])][:2]}")
+        check(stats["accepted"] == stats["completed"]
+              == TIER_STEADY + TIER_REQUESTS and stats["shed"] == 0,
+              f"accepted requests lost across the kill: {stats}")
+        check(reps[0].kills == 1 and reps[0].restarts == 1
+              and reps[0].healthy() and reps[1].healthy()
+              and stats["restarts"] == 1,
+              f"r0 did not die and come back once: {router.snapshot()}")
+        cms = [rep.registry.get("bert") for rep in reps]
+        check(all(len(cm._graphs) == table.num_buckets()
+                  and cm.cache_info()["post_warmup_compiles"] == 0
+                  for cm in cms), f"captures after warmup: "
+              f"{[cm.cache_info() for cm in cms]}")
+        picks = sorted(range(TIER_REQUESTS), key=lambda i: reqs[i][2])
+        picks = [picks[int(j)] for j in onp.linspace(
+            0, TIER_REQUESTS - 1, TIER_SAMPLES)]
+        direct = [reps[0].submit("bert", *reqs[i]).result(timeout=300)
+                  for i in picks[:2]]
+        want = _tier_eager(ref, [reqs[i] for i in picks])
+        worst = max([_tier_err(replies[i]["outputs"], w)
+                     for i, w in zip(picks, want)]
+                    + [_tier_err(d, w) for d, w in zip(direct, want)])
+        check(worst <= SERVE_ATOL, f"served over the wire vs the eager "
+              f"plain forward: max abs err {worst} > {SERVE_ATOL}")
+        lat = sorted(traffic["latency_ms"])
+        res["traffic"] = {
+            "requests": TIER_REQUESTS, "wall_s": traffic["wall_s"],
+            "req_s": TIER_REQUESTS / traffic["wall_s"],
+            "p50_ms": float(onp.percentile(lat, 50)),
+            "p99_ms": float(onp.percentile(lat, 99)),
+            "failovers": stats["failovers"], "retries": stats["retries"],
+            "kill_at_s": traffic["kill_at_s"],
+            "restart_s": router.restart_seconds[-1],
+            "served_vs_xla_max_abs_err": worst,
+            "by_replica": {k: sum(r["replica"] == k for r in replies)
+                           for k in ("r0", "r1")}}
+        t = res["traffic"]
+        t["queued_at_kill"] = traffic["queued_at_kill"]
+        print(f"serve tier: kill window of {TIER_REQUESTS} requests over "
+              f"TCP (4 threads, 4-511 tokens, r0's flush held, the kill and "
+              f"the restart inside) in {t['wall_s']:.3f} s = "
+              f"{t['req_s']:.2f} req/s, latency p50 {t['p50_ms']:.1f} ms p99 "
+              f"{t['p99_ms']:.1f} ms; r0 killed at {t['kill_at_s']:.2f} s "
+              f"with {t['queued_at_kill']} queued, "
+              f"{t['failovers']} failovers, restarted in "
+              f"{t['restart_s']:.2f} s; replies by replica "
+              f"{t['by_replica']}; vs eager xla max abs err {worst:.2e} "
+              f"on {card}", flush=True)
+
+        # (3): the weight pipe, a perturbed checkpoint, no capture
+        t1 = time.perf_counter()
+        wrng = onp.random.RandomState(seed + 260)
+        named = sorted(ref.collect_params().items())
+        new = {}
+        for name, p in named:
+            w = p.data().asnumpy()
+            new[name] = (w + TIER_WEIGHT_NOISE * (w.std() + 1e-12)
+                         * wrng.standard_normal(w.shape)).astype(w.dtype)
+        compiles = [cm.cache_info()["compiles"] for cm in cms]
+        with tempfile.TemporaryDirectory() as root:
+            t1 = time.perf_counter()
+            fault.checkpoint.save_checkpoint(
+                root, {f"param:{i:04d}": new[name]
+                       for i, (name, _) in enumerate(named)},
+                {"param_names": [name for name, _ in named]}, step=1)
+            save_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            out = router.sync_weights_once("bert", root)
+            sync_s = time.perf_counter() - t1
+        check(out["outcome"] == "applied"
+              and sorted(out["replicas"]) == ["r0", "r1"],
+              f"weight sync: {out}")
+        check([cm.cache_info()["compiles"] for cm in cms] == compiles,
+              f"the weight sync captured: {compiles} -> "
+              f"{[cm.cache_info()['compiles'] for cm in cms]}")
+        serve.apply_weights(ref, new)
+        want_new = _tier_eager(ref, [reqs[i] for i in picks[:2]])
+        worst_new, moved = 0.0, 0.0
+        for rep in reps:
+            for i, w_new, w_old in zip(picks[:2], want_new, want[:2]):
+                got = rep.submit("bert", *reqs[i]).result(timeout=300)
+                worst_new = max(worst_new, _tier_err(got, w_new))
+                moved = max(moved, _tier_err(got, w_old))
+        check(worst_new <= SERVE_ATOL and moved > 10 * SERVE_ATOL,
+              f"after the sync: vs the new weights {worst_new}, vs the old "
+              f"{moved}")
+        res["weight_sync"] = {"phase_s": time.perf_counter() - t1,
+                              "save_s": save_s, "sync_s": sync_s,
+                              "vs_new_max_abs_err": worst_new,
+                              "vs_old_max_abs_err": moved,
+                              "captures_added": 0}
+        print(f"serve tier: weight sync of {len(named)} arrays (checkpoint "
+              f"written in {save_s:.2f} s) applied to {out['replicas']} in "
+              f"{sync_s:.2f} s, 0 captures; served vs new weights "
+              f"{worst_new:.2e}, vs old {moved:.2e} on {card}", flush=True)
+
+        # (4): a burst over the shed depth
+        t1 = time.perf_counter()
+        before = router.snapshot()["stats"]
+        router.set_overload_policy(shed_depth=TIER_SHED_DEPTH)
+        burst = _tier_burst(srv, rng)["replies"]
+        router.set_overload_policy(shed_depth=0)
+        after = router.snapshot()["stats"]
+        ok = [r for r in burst if r["ok"]]
+        shed = [r for r in burst if not r["ok"]]
+        check(shed and all(r["error"].startswith("ShedError")
+                           and r["retry_after"] > 0 for r in shed),
+              f"burst of {TIER_BURST}: {len(shed)} shed, e.g. {shed[:1]}")
+        check(after["accepted"] - before["accepted"] == len(ok)
+              == after["completed"] - before["completed"],
+              f"accepted burst requests lost: {before} -> {after}")
+        res["shed"] = {"phase_s": time.perf_counter() - t1,
+                       "burst": TIER_BURST, "served": len(ok),
+                       "shed": len(shed),
+                       "retry_after": sorted({r["retry_after"]
+                                              for r in shed})}
+        print(f"serve tier: burst of {TIER_BURST} at shed depth "
+              f"{TIER_SHED_DEPTH}: {len(ok)} served, {len(shed)} shed with "
+              f"retry_after {res['shed']['retry_after']} s", flush=True)
+
+        # the replicas' launches: every BERT forward of the tier so far
+        launches = cuda_ops.launch_counts()
+        batches = {rep.name: rep.snapshot()["models"]["bert"]["batches"]
+                   for rep in reps}
+
+        # (5): Transformer-big generation over the wire
+        cuda_ops.reset_launches()
+        t1 = time.perf_counter()
+        res["generate"] = _tier_generate(srv, seed)
+        res["generate"]["phase_s"] = time.perf_counter() - t1
+        gen_launches = cuda_ops.launch_counts()
+    finally:
+        t1 = time.perf_counter()
+        srv.stop()
+        router.stop()
+        res["stop_s"] = time.perf_counter() - t1
+    g = res["generate"]
+    print(f"serve tier: Transformer-big built and warmed in "
+          f"{g['build_s']:.1f} s; generate over TCP = in process for "
+          f"{len(g['streams'])} prompts "
+          f"({[round(s['wire_ms'], 1) for s in g['streams']]} ms); "
+          f"over-budget tenant shed, retry_after {g['shed']['retry_after']}"
+          f"; decode_replica_death failed its streams, the next was served "
+          f"on {card}", flush=True)
+    # r0's batches before its death went with its registry, so the
+    # replicas' current batches are a floor
+    n_layers = models.BERT_CONFIGS["bert_12_768_12"]["num_layers"]
+    n_batches = sum(batches.values())
+    check(launches[fa.KERNEL] >= n_layers * n_batches > 0
+          and batches["r1"] > 0,
+          f"the replicas launched {fa.KERNEL} {launches[fa.KERNEL]} times "
+          f"for {batches} batches of {n_layers} layers")
+    check(gen_launches[fa.KERNEL] > 0, f"the generation launched "
+          f"{fa.KERNEL} {gen_launches[fa.KERNEL]} times")
+    for name in (fa.KERNEL_BWD_DKV, fa.KERNEL_BWD_DQ):
+        check(launches[name] == gen_launches[name] == 0,
+              f"the serve tier launched the backward kernel {name} "
+              f"{launches[name]} + {gen_launches[name]} times")
+    res["launches"] = launches
+    res["launches_generate"] = gen_launches
+    res["batches"] = batches
+    res["seconds"] = time.perf_counter() - t0
+    print(f"serve tier: the replicas' launches {launches} over {batches} "
+          f"batches, the generation's {gen_launches}; {res['seconds']:.1f} "
+          f"s (load {load_s:.1f}, steady {res['steady']['wall_s']:.1f}, "
+          f"kill window {res['traffic']['wall_s']:.1f}, waiting "
+          f"for r0 {res['wait_for_r0_s']:.1f}, weight sync "
+          f"{res['weight_sync']['phase_s']:.1f}, burst "
+          f"{res['shed']['phase_s']:.1f}, generate {g['phase_s']:.1f}, "
+          f"stop {res['stop_s']:.1f})", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -5656,6 +6264,7 @@ def main(argv=None) -> int:
     rest = phase_gluon_rest()
     fault_res = phase_fault()
     data_res = phase_data()
+    tier_res = phase_serve_tier(args.seed)
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -5717,7 +6326,10 @@ def main(argv=None) -> int:
                                  "optimizers": rest["optimizers"][
                                      "launches"][name],
                                  "fault": fault_res["launches"][name],
-                                 "data": data_res["launches"][name]},
+                                 "data": data_res["launches"][name],
+                                 "serve_tier": tier_res["launches"][name],
+                                 "serve_tier_generate": tier_res[
+                                     "launches_generate"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -5741,7 +6353,7 @@ def main(argv=None) -> int:
                        "amp": amp_res, "nd_ops": nd_res,
                        "mobilenet": mob_res, "zoo": zoo_res,
                        "gluon_rest": rest, "fault": fault_res,
-                       "data": data_res,
+                       "data": data_res, "serve_tier": tier_res,
                        "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -363,6 +363,9 @@ class HybridBlock(Block):
         self._flags: Dict[str, bool] = {}
         self._cached_ops: Dict[tuple, "_CachedOp"] = {}
         self._cached_params: Optional[List[Parameter]] = None
+        #: ``[(shape, dtype), ...]`` of the last call on arrays alone: the
+        #: signature ``serve.CompiledModel`` takes without example_args
+        self._last_sig: Optional[List[tuple]] = None
 
     def hybridize(self, active: bool = True, static_alloc: bool = False,
                   static_shape: bool = False, **kwargs) -> None:
@@ -404,6 +407,8 @@ class HybridBlock(Block):
 
     def forward(self, *args):
         if _has_nd(args):
+            if all(isinstance(a, (NDArray, torch.Tensor)) for a in args):
+                self._last_sig = [(tuple(a.shape), a.dtype) for a in args]
             if self._active:
                 op = self._cached_op(args)
                 if op is not None:
@@ -546,23 +551,24 @@ class _CachedOp:
             return torch.autograd.grad(diff, diff_in, seeds,
                                        allow_unused=True)
 
-        def warm():
-            outs = forward()
-            if rec and any(o.requires_grad for o in outs):
-                backward(outs, [torch.ones_like(o) for o in outs
-                                if o.requires_grad])
-
         # the warm run is not a call: the running statistics it moved
         # (aux parameters, ``grad_req="null"``) go back, so that this call
         # moves them once, by its replay
         aux = [p._var for p in self.params if p.grad_req == "null"]
         saved = [t.detach().clone() for t in aux]
-        graphs.run_on_capture_stream(self.device, warm)
-        with torch.no_grad():
-            for t, v in zip(aux, saved):
-                t.copy_(v)
+
+        def warm():
+            outs = forward()
+            if rec and any(o.requires_grad for o in outs):
+                backward(outs, [torch.ones_like(o) for o in outs
+                                if o.requires_grad])
+            with torch.no_grad():
+                for t, v in zip(aux, saved):
+                    t.copy_(v)
+
         self.fwd = graphs.Graph(self.device, gens)
-        outs = self.fwd.capture(forward)
+        outs = self.fwd.capture(forward, warm=warm,
+                                what=f"the capture of {block.name}")
         self.static_out = [o.detach() for o in outs]
         # nothing to differentiate: the forward graph alone serves
         self.recording = rec = rec and any(o.requires_grad for o in outs)

@@ -12,7 +12,8 @@ launch is noted in the graph's own tally instead of counted (the work does
 not run during a capture), and each replay adds the tally to the counts:
 the counts stay those of the kernels that ran. The tally is one for the
 process, not per thread, because a captured backward launches its kernels
-from autograd's device thread.
+from autograd's device thread; a launch goes to it when its stream
+captures, and captures run one at a time.
 
 A graph draws random numbers from each generator registered with it
 (``CUDAGraph.register_generator_state``; the default CUDA generator always
@@ -23,6 +24,7 @@ stream, before the capture, initialises what the work creates lazily
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import threading
 from typing import Callable, Dict, Iterable, Optional
@@ -35,19 +37,48 @@ __all__ = ["Graph", "capture_stream", "count_launch",
            "run_on_capture_stream"]
 
 _lock = threading.Lock()
+#: held across a first run and a capture on the capture stream: a second
+#: one waits for the first (reentrant: a run may build a nested one)
+_capture_lock = threading.RLock()
+#: what holds :data:`_capture_lock`, for the error of a wait that ends
+_holder: Optional[str] = None
+#: seconds a run or a capture waits for another thread's to end
+CAPTURE_WAIT_S = 300.0
 #: the tally of the graph being captured, else None
 _tally: Optional[Dict[str, int]] = None
 _streams: Dict[int, torch.cuda.Stream] = {}
 
 
 def count_launch(launches: Dict[str, int], name: str) -> None:
-    """Count one launch of kernel ``name`` in ``launches``, or, while a
-    :class:`Graph` captures, in its tally; a launch during some other
-    capture is not counted (it would never be replayed through us)."""
-    if _tally is not None:
-        _tally[name] = _tally.get(name, 0) + 1
-    elif not torch.cuda.is_current_stream_capturing():
+    """Count one launch of kernel ``name`` in ``launches``, or, when it
+    goes to a stream that a :class:`Graph` captures, in its tally; a
+    launch during some other capture is not counted (it would never be
+    replayed through us). Launches of other threads on streams that do
+    not capture count as launches while a graph captures."""
+    if torch.cuda.is_current_stream_capturing():
+        if _tally is not None:
+            _tally[name] = _tally.get(name, 0) + 1
+    else:
         launches[name] += 1
+
+
+@contextlib.contextmanager
+def _holding(what: str):
+    """Hold the capture stream for ``what``; raise :class:`MXNetError`
+    naming the holder when it stays held :data:`CAPTURE_WAIT_S`."""
+    global _holder
+    if not _capture_lock.acquire(timeout=CAPTURE_WAIT_S):
+        raise MXNetError(
+            f"{what} waited {CAPTURE_WAIT_S:.0f} s for the CUDA capture "
+            f"stream, held by {_holder} (a capture that never ends, such "
+            "as a staged load left past its deadline, holds it for good)")
+    outer, _holder = _holder, (f"thread "
+                               f"{threading.current_thread().name!r} ({what})")
+    try:
+        yield
+    finally:
+        _holder = outer
+        _capture_lock.release()
 
 
 def capture_stream(device: torch.device) -> torch.cuda.Stream:
@@ -79,20 +110,33 @@ class Graph:
             if g.device.type == "cuda":
                 self._graph.register_generator_state(g)
 
-    def capture(self, fn: Callable):
+    def capture(self, fn: Callable, warm: Optional[Callable] = None,
+                what: str = "a CUDA graph capture"):
         """Capture ``fn()`` on the device's capture stream and return what
         it returned (tensors in the graph's memory, rewritten by every
-        replay). Launches inside go to :attr:`tally`. A capture error
-        raises; nothing falls back to running eagerly. Other threads may
-        work on other streams meanwhile (thread-local capture mode). Python's cyclic
+        replay). ``warm()``, when given, first runs there eagerly (module
+        docstring), its launches counted as launches. Launches inside the
+        capture go to :attr:`tally`. A capture error raises; nothing falls
+        back to running eagerly. The warm run and the capture hold the
+        stream together (module docstring; ``what`` names this capture in
+        the error of a wait that ends). Other threads may work on other
+        streams meanwhile (thread-local capture mode). Python's cyclic
         garbage collector is held off meanwhile: an unreachable graph that
         it destroyed inside the capture would end the capture."""
         global _tally
         stream = capture_stream(self.device)
-        with _lock:
-            if _tally is not None:
-                raise MXNetError("one CUDA graph capture at a time")
-            _tally = self.tally
+        with _holding(what):
+            if warm is not None:
+                _run_on(stream, warm)
+            with _lock:
+                _tally = self.tally
+            try:
+                return self._capture_on(stream, fn)
+            finally:
+                with _lock:
+                    _tally = None
+
+    def _capture_on(self, stream: torch.cuda.Stream, fn: Callable):
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
@@ -108,8 +152,6 @@ class Graph:
         finally:
             if collecting:
                 gc.enable()
-            with _lock:
-                _tally = None
         return out
 
     def replay(self) -> None:
@@ -120,12 +162,18 @@ class Graph:
             KERNELS[name].launches[name] += n
 
 
-def run_on_capture_stream(device: torch.device, fn: Callable):
+def run_on_capture_stream(device: torch.device, fn: Callable,
+                          what: str = "a run on the capture stream"):
     """``fn()`` on the capture stream of ``device``, ordered after the work
     already queued on the current stream and before the work queued after
-    it; returns what ``fn`` returned."""
-    stream = capture_stream(device)
-    current = torch.cuda.current_stream(device)
+    it, never beside another thread's capture there; returns what ``fn``
+    returned."""
+    with _holding(what):
+        return _run_on(capture_stream(device), fn)
+
+
+def _run_on(stream: torch.cuda.Stream, fn: Callable):
+    current = torch.cuda.current_stream(stream.device)
     stream.wait_stream(current)
     with torch.cuda.stream(stream):
         out = fn()

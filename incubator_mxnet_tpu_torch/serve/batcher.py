@@ -1,15 +1,16 @@
 """DynamicBatcher: deadline-bounded request coalescing.
 
 Counterpart: the JAX package's ``serve/batcher.py`` (``stack_examples``
-``:63``, ``ServeFuture`` ``:100``, ``DynamicBatcher`` ``:151-470``).
+``:63``, ``ServeFuture`` ``:100``, ``DynamicBatcher`` ``:151-470``,
+``make_registry_batcher`` ``:51``).
 ``submit(*arrays)`` enqueues one example without the batch dim and returns
 a :class:`ServeFuture`; a worker thread flushes when the batch reaches the
 largest batch bucket (or ``max_batch``) or when the oldest request has
 waited ``max_delay_ms``. A flush stacks the requests, pads their bucketed
 axes to the batch maximum, runs :meth:`CompiledModel.predict` and routes
 row ``i`` of every output, sliced to the request's own sizes, to request
-``i``'s future as CPU tensors. The telemetry events and trace spans of the
-JAX batcher come with the ``telemetry/`` port.
+``i``'s future as numpy arrays (JAX ``:440``). The telemetry events and
+trace spans of the JAX batcher come with the ``telemetry/`` port.
 
 Env knobs (read at construction): ``MXTPU_SERVE_DEADLINE_MS`` (5 ms),
 ``MXTPU_SERVE_QUEUE_LIMIT`` (1024), ``MXTPU_SERVE_MAX_BATCH`` (0 = the
@@ -30,7 +31,20 @@ from .compiled import CompiledModel, _as_numpy
 from .metrics import ServeMetrics
 
 __all__ = ["DynamicBatcher", "ServeFuture", "QueueFullError",
-           "stack_examples"]
+           "stack_examples", "make_registry_batcher"]
+
+
+def make_registry_batcher(registry, name: str, **batcher_kw
+                          ) -> "DynamicBatcher":
+    """One started batcher for model ``name`` whose thunk resolves through
+    ``registry`` at flush time, so a version swap redirects the very next
+    batch: the shared creation path of ``Server.batcher`` and
+    ``Replica._batcher`` (JAX counterpart: ``serve/batcher.py:51``). An
+    unknown model raises here (the constructor resolves the thunk once for
+    the model's signature)."""
+    return DynamicBatcher(lambda: registry.get(name),
+                          metrics=ServeMetrics(model=name),
+                          **batcher_kw).start()
 
 
 def stack_examples(model: CompiledModel,
@@ -89,6 +103,11 @@ class ServeFuture:
 
     def done(self) -> bool:
         return self._event.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the result or exception lands (or ``timeout``);
+        returns whether it did: the router's non-raising poll."""
+        return self._event.wait(timeout)
 
     def result(self, timeout: Optional[float] = None):
         if not self._event.wait(timeout):
@@ -173,6 +192,19 @@ class DynamicBatcher:
             self._queue.clear()
         for req in leftovers:
             req.future.set_exception(MXNetError("batcher stopped"))
+
+    def worker_alive(self) -> bool:
+        """True while the flush worker runs: the liveness bit a replica's
+        heartbeat reports."""
+        w = self._worker
+        return w is not None and w.is_alive()
+
+    def retry_after_s(self) -> float:
+        """Backoff hint for a rejected or timed-out request: about the time
+        the queue takes to drain at one deadline flush per batch."""
+        batches = max(1, (self.depth() + self.max_batch - 1)
+                      // self.max_batch)
+        return round(max(0.05, batches * self.max_delay_ms / 1e3), 3)
 
     def depth(self) -> int:
         with self._lock:
@@ -304,7 +336,7 @@ class DynamicBatcher:
         out_axes = model._output_axes
         if out_axes is None:
             out_axes = [{0: model._primary_axis}] * len(flat)
-        host = [o.cpu() for o in flat]  # one device->host copy per output
+        host = [o.asnumpy() for o in flat]  # one device->host copy each
         for i, req in enumerate(batch):
             picks = []
             for o, spec in zip(host, out_axes):

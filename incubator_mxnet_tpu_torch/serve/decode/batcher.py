@@ -21,12 +21,14 @@ steps:
 An admission that meets :class:`~.blocks.CacheExhausted` goes back to the
 queue at most ``MXTPU_DECODE_MAX_REQUEUES`` times, then its stream fails
 loudly; a full queue raises :class:`~..batcher.QueueFullError`. ``qos`` is
-any object with ``try_take(tenant, tokens) -> bool``, consulted before a
-request queues (the JAX ``router.TokenRateBudget`` comes with
-``router.py``); a refusal raises :class:`ShedError`. The telemetry events
-and spans wait for the ``telemetry/`` port, and the ``decode_replica_death``
-chaos path for ``serve/replica.py``'s ``ReplicaUnavailable`` (the rest of
-serving).
+any object with ``try_take(tenant, tokens) -> bool`` (the router's
+:class:`~..router.TokenRateBudget`), consulted before a request queues; a
+refusal raises :class:`~..router.ShedError`. The chaos site
+``decode_replica_death`` (JAX ``:433-437``, ``:516-534``) kills the
+replica mid-generation at a token boundary: every active and queued stream
+fails with :class:`~..replica.ReplicaUnavailable`, the cache is reset, and
+the batcher serves the next request. The telemetry events, spans and the
+death's flight bundle wait for the ``telemetry/`` port.
 """
 from __future__ import annotations
 
@@ -39,8 +41,11 @@ from typing import List, Optional
 import numpy as onp
 
 from ...base import MXNetError
+from ...fault import inject
 from ...util import getenv
 from ..batcher import QueueFullError
+from ..replica import ReplicaUnavailable
+from ..router import ShedError
 from .blocks import CacheExhausted
 from .engine import DecodeEngine
 from .metrics import DecodeMetrics
@@ -48,17 +53,6 @@ from .metrics import DecodeMetrics
 __all__ = ["DecodeBatcher", "TokenStream", "ShedError"]
 
 _STREAM_IDS = itertools.count(1)
-
-
-class ShedError(MXNetError):
-    """A request refused by admission control before it queued;
-    ``retry_after`` (seconds) is the client's backoff hint (JAX
-    counterpart: ``serve/router.py:126``)."""
-
-    def __init__(self, msg: str, retry_after: float, reason: str = "shed"):
-        super().__init__(f"{msg} (retry_after={retry_after:.3f}s)")
-        self.retry_after = retry_after
-        self.reason = reason
 
 
 class TokenStream:
@@ -372,6 +366,9 @@ class DecodeBatcher:
     def _step_once(self) -> None:
         """One token boundary: every active sequence one token further
         through the fixed-shape decode step."""
+        if inject.should("decode_replica_death"):
+            self._replica_death()
+            return
         B = self.engine.max_batch
         positions = onp.zeros((B,), "int32")
         tokens = onp.zeros((B,), "int32")
@@ -427,3 +424,21 @@ class DecodeBatcher:
         else:
             self.metrics.record_failed()
             req.stream.set_exception(exc)
+
+    def _replica_death(self) -> None:
+        """Chaos: the replica dies mid-generation. Every active and queued
+        stream fails with ``ReplicaUnavailable`` (a router retries such a
+        request elsewhere), the cache is reset, and the next request is
+        served: nothing hangs, nothing is cut short silently."""
+        exc = ReplicaUnavailable(
+            "decode replica died mid-generation (chaos); stream aborted — "
+            "requeue the request")
+        for act in [a for a in self._active if a is not None]:
+            self._retire(act, reason="replica_death", exc=exc)
+        with self._lock:
+            queued = list(self._queue)
+            self._queue.clear()
+        for req in queued:
+            self.metrics.record_failed()
+            req.stream.set_exception(exc)
+        self.engine.reset_cache()

@@ -200,9 +200,9 @@ class DecodeEngine:
         and one capture; on the CPU one eager run. Counted in
         :attr:`decode_stats`."""
         if self.device.type == "cuda":
-            graphs.run_on_capture_stream(self.device, self._step)
             self._graph = graphs.Graph(self.device)
-            self._logits = self._graph.capture(self._step)
+            self._logits = self._graph.capture(
+                self._step, warm=self._step, what="the decode step's capture")
         else:
             self._step()
         self._param_ptrs = tuple(t.data_ptr()
@@ -313,7 +313,7 @@ class DecodeEngine:
         src = onp.asarray(src_tokens, "int32").reshape(1, -1)
         lp = int(valid_len if valid_len is not None else src.shape[1])
         packed = self.prefill.predict(src, onp.asarray([float(lp)],
-                                                       "float32"))[0]
+                                                       "float32"))._data[0]
         NL, U = self.num_layers, self.units
         ls = min(packed.shape[0], self.max_src)
         row = torch.zeros((NL, self.max_src, 2 * U), dtype=packed.dtype,

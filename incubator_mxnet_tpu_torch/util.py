@@ -25,6 +25,55 @@ ENV_VARS: Dict[str, tuple] = {
     "MXTPU_SERVE_MAX_BATCH": ("0", "Cap on the coalesced serve batch size; "
                               "0 = the bucket table's largest batch "
                               "bucket."),
+    "MXTPU_SERVE_REQUEST_TIMEOUT_S": ("30", "Per-request deadline: the "
+                                      "TCP front end and the HA router "
+                                      "wait this long for a result, then "
+                                      "return a structured "
+                                      "deadline_exceeded reply with "
+                                      "retry_after instead of a bare "
+                                      "exception."),
+    "MXTPU_SERVE_HEARTBEAT_MS": ("100", "Router health-check interval: "
+                                 "each sweep probes every replica's "
+                                 "state, queue depth and flush "
+                                 "progress."),
+    "MXTPU_SERVE_STALL_S": ("2", "Queued requests with zero flush "
+                            "progress for this long mark a replica "
+                            "wedged: the router's health loop kills and "
+                            "restarts it."),
+    "MXTPU_SERVE_RETRIES": ("2", "Failover retries per idempotent "
+                            "request: each retry moves to a surviving "
+                            "replica with capped exponential backoff; "
+                            "exhaustion sheds explicitly with "
+                            "retry_after."),
+    "MXTPU_SERVE_RETRY_BACKOFF_MS": ("10", "Base backoff between router "
+                                     "failover retries (doubles per "
+                                     "attempt, capped at 200 ms, never "
+                                     "past the request deadline)."),
+    "MXTPU_SERVE_HEDGE_MS": ("0", "After this many ms without a result "
+                             "the router races ONE hedged duplicate on "
+                             "a second healthy replica (first result "
+                             "wins); 0 disables hedging."),
+    "MXTPU_SERVE_SHED_DEPTH": ("0", "Overload shedding: when EVERY "
+                               "healthy replica's queue is at/over this "
+                               "depth, new requests are rejected with "
+                               "retry_after instead of queueing; 0 "
+                               "disables (per-replica backpressure "
+                               "still applies)."),
+    "MXTPU_SERVE_TENANT_INFLIGHT": ("0", "Per-tenant admission cap: "
+                                    "concurrent router requests a single "
+                                    "tenant may hold before being shed "
+                                    "with retry_after; 0 = unlimited."),
+    "MXTPU_SERVE_TENANT_TOKENS_PER_S": ("0", "Per-tenant decode QoS: "
+                                        "sustained generated-tokens/sec "
+                                        "budget (token bucket); requests "
+                                        "whose estimated tokens would "
+                                        "breach it are shed with "
+                                        "retry_after BEFORE queueing; "
+                                        "0 = unlimited."),
+    "MXTPU_SERVE_TENANT_TOKEN_BURST": ("0", "Token-bucket burst depth for "
+                                       "MXTPU_SERVE_TENANT_TOKENS_PER_S "
+                                       "(tokens); 0 = one second's "
+                                       "budget."),
     "MXTPU_DECODE_MAX_BATCH": ("8", "Decode batch rows: concurrent "
                                "sequences one DecodeEngine steps per "
                                "token boundary (the fixed shape of the "

@@ -25,7 +25,12 @@ trainer whose step is captured, and a guarded step rolled back in place,
 each resuming bitwise without a new capture; data: batches placed by
 ``io.PrefetchIter`` on its own stream while the captured step replays,
 bitwise those placed on the main thread, and a multi-worker pinned
-``DataLoader`` made after CUDA is initialised.
+``DataLoader`` made after CUDA is initialised; serving: a
+``serve.CompiledModel`` bucket's graph replay bitwise the eager forward at
+two buckets, a returned output untouched by the next replay, and
+``refresh_params`` capturing nothing after an in-place ``set_data`` and
+once after new storage, and two models warming up from two threads at
+once, each bucket's graph holding exactly its own launches.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -927,7 +932,7 @@ def test_quantize_net_on_hybridized_net_on_card():
         cm, quantization.observe_net(nets[1], [x]))
     assert nets[1]._cached_ops and not qcm._block._cached_ops
     assert torch.equal(nets[1](x)._data, want)
-    assert bool(torch.isfinite(qcm.predict(x)).all())
+    assert bool(torch.isfinite(qcm.predict(x)._data).all())
     quantization.quantize_net(nets[1], calib_data=[x])
     out = nets[1](x)
     assert out.context == mx.gpu(0) and bool(torch.isfinite(out._data).all())
@@ -1125,3 +1130,123 @@ def test_dataloader_workers_pin_and_place_on_card(monkeypatch):
                                torch.from_numpy(ids[6 * k:6 * k + 6]))
             assert torch.equal(y._data.cpu(),
                                torch.from_numpy(noise[6 * k:6 * k + 6]))
+
+
+def _served_bert(table):
+    """A 2-layer BERT encoder on the card and its ``CompiledModel``."""
+    from incubator_mxnet_tpu_torch import models, serve
+    net = _bert(use_decoder=False, use_classifier=False)
+    spec = models.serve_spec("bert_encoder")
+    example = (onp.zeros((1, 8), "int32"), onp.zeros((1, 8), "int32"),
+               onp.zeros((1,), "float32"))
+    cm = serve.CompiledModel(net, serve.BucketTable(table),
+                             spec["input_axes"], example,
+                             output_axes=spec["output_axes"],
+                             pad_values=spec["pad_values"])
+    return net, cm
+
+
+def _bert_request(rng, B, L):
+    return (rng.randint(1, 100, (B, L)).astype("int32"),
+            (onp.arange(L)[None] >= L // 2).repeat(B, 0).astype("int32"),
+            rng.randint(1, L + 1, B).astype("float32"))
+
+
+def _eager(net, args):
+    with torch.inference_mode():
+        return net(*(torch.from_numpy(a).cuda() for a in args))
+
+
+@pytest.mark.cuda
+def test_compiled_model_replays_equal_eager_on_card(deterministic):
+    """One CUDA graph per bucket, captured at ``warmup``: a replay at two
+    buckets equals the eager forward bitwise, with the forward kernel's
+    launches counted through the replays, and an output already returned
+    keeps its value through the next replay of its bucket."""
+    _card()
+    from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
+    net, cm = _served_bert({"batch": (1, 2), "seq": (8, 16)})
+    assert cm.warmup()["compiled"] == 4 and len(cm._graphs) == 4
+    rng = onp.random.RandomState(0)
+    for B, L in ((1, 8), (2, 16)):
+        args = _bert_request(rng, B, L)
+        cuda_ops.reset_launches()
+        got = cm.predict(*args)
+        assert cuda_ops.launch_counts()[fa.KERNEL] == 2
+        for g, w in zip(got, _eager(net, args)):
+            assert g.context.device_type == "gpu"
+            assert torch.equal(g._data, w)
+    first = cm.predict(*_bert_request(rng, 2, 16))
+    kept = [o._data.clone() for o in first]
+    cm.predict(*_bert_request(rng, 2, 16))
+    assert all(torch.equal(o._data, k) for o, k in zip(first, kept))
+    info = cm.cache_info()
+    assert info["compiles"] == 4 and info["post_warmup_compiles"] == 0
+
+
+@pytest.mark.cuda
+def test_compiled_model_refresh_params_on_card(deterministic):
+    """``refresh_params``: weights written in place (``set_data``) are
+    served with no capture; a parameter given new storage captures the
+    bucket again, counted as a post-warmup compile."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    net, cm = _served_bert({"batch": (2, 2), "seq": (16, 16)})
+    cm.warmup()
+    args = _bert_request(onp.random.RandomState(1), 2, 16)
+    before = cm.predict(*args)[0]._data.clone()
+    for p in net.collect_params().values():
+        p.set_data(p.data() * 0.9)
+    cm.refresh_params()
+    assert cm.cache_info()["compiles"] == 1
+    got = cm.predict(*args)[0]._data
+    assert not torch.equal(got, before)
+    assert torch.equal(got, _eager(net, args)[0])
+    net.initialize(mx.init.Xavier(generator=torch.Generator().manual_seed(7)),
+                   ctx=mx.gpu(0), force_reinit=True)
+    cm.refresh_params()
+    info = cm.cache_info()
+    assert info["compiles"] == 2 and info["post_warmup_compiles"] == 1
+    assert torch.equal(cm.predict(*args)[0]._data, _eager(net, args)[0])
+
+
+@pytest.mark.cuda
+def test_compiled_models_warm_up_together_on_card(deterministic):
+    """Two ``CompiledModel``s warm up from two threads at once (two
+    replicas loading on one card): every warm run and capture holds the
+    capture stream alone, so each bucket graph's tally is exactly its own
+    forward's launches (one per layer), the warm runs' launches are all
+    counted, and every replay equals its model's eager forward."""
+    _card()
+    import threading
+    from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
+    table = {"batch": (1, 2), "seq": (8, 16)}
+    pairs = [_served_bert(table) for _ in range(2)]
+    barrier, errors = threading.Barrier(2), []
+
+    def warm(cm):
+        try:
+            barrier.wait(60)
+            cm.warmup()
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    cuda_ops.reset_launches()
+    ts = [threading.Thread(target=warm, args=(cm,)) for _, cm in pairs]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300)
+    assert not errors and not any(t.is_alive() for t in ts)
+    torch.cuda.synchronize()
+    # 2 models x 4 buckets x 2 layers, each a warm run outside any graph
+    assert cuda_ops.launch_counts()[fa.KERNEL] == 16
+    rng = onp.random.RandomState(2)
+    for net, cm in pairs:
+        assert len(cm._graphs) == 4 and cm.cache_info()["compiles"] == 4
+        assert all(bg.graph.tally == {fa.KERNEL: 2}
+                   for bg in cm._graphs.values())
+        for B, L in ((1, 8), (2, 16)):
+            args = _bert_request(rng, B, L)
+            for g, w in zip(cm.predict(*args), _eager(net, args)):
+                assert torch.equal(g._data, w)

@@ -16,9 +16,9 @@ back-pressure, a QoS refusal, ``stop`` draining; greedy tokens equal to
 prefill row equal to the JAX engine's; ``block_bytes`` against the JAX
 function. The chaos case of cache-block exhaustion is
 ``tests/test_torch_stacked_encoder.py``'s; replica death, the QoS router
-and TCP ``generate`` cases of ``tests/test_decode.py`` wait for
-``replica.py``, ``router.py`` and ``server.py``. The set-up is shared with ``tests/test_torch_nmt.py``
-(``tests/test_torch_nmt_common.py``).
+and TCP ``generate`` cases of ``tests/test_decode.py`` are
+``tests/test_torch_serve_server.py``'s. The set-up is shared with
+``tests/test_torch_nmt.py`` (``tests/test_torch_nmt_common.py``).
 """
 import numpy as onp
 import pytest
