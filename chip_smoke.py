@@ -314,7 +314,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
     served; printed: req/s and p50/p99 over the wire (the steady window
     and the kill window apart), failovers, the restart's and the weight
     sync's seconds, and the forward kernel's launches by the replicas
-    (gated against their batches) and by the generation apart.
+    (gated against their batches) and by the generation apart;
+27. symbol: the Module API on the card. (a) ``models.mnist_example`` (the
+    JAX package's ``examples/train_mnist.py``: synthetic MNIST blobs,
+    ``Module.fit`` with SGD momentum 0.9, ``score``) on ``gpu(0)`` with the
+    JAX gate's arguments (3 epochs, 600 samples, lr 0.05), ``mlp`` and
+    ``lenet``: accuracy above 0.9 each; (b) ``lenet_symbol`` bound by
+    ``simple_bind`` at batch 64: the Executor's replayed forward+backward
+    (one CUDA graph) within 1e-5 of its eager one under deterministic
+    algorithms on two batches, with one capture; its gradients within
+    1e-4 of each largest of the CPU Executor's float64 run; a 20-step
+    ``Module.fit`` with ``eval_data`` capturing exactly one graph per
+    (shapes, ``is_train``); (c) that Module's checkpoint loaded into a CPU
+    Module whose ``predict`` agrees within 1e-5; (d) negative-step
+    indexing and assignment with its gradient on a CUDA NDArray equal to
+    the CPU's, ``mx.gpu_memory_info(0)`` against
+    ``torch.cuda.mem_get_info(0)``, arrays moved or made on ``cpu_pinned``
+    page-locked; (e) printed, not gated: the fit step (forward_backward,
+    update, update_metric) eager and replayed in turns for ``mlp`` and
+    ``lenet`` at batch 64, and a profiled window of 5 steps of each:
+    device ms and idle share per step ("not measured" when its traces
+    record no device event). No attention kernel launches in the phase.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -328,6 +348,7 @@ import glob
 import json
 import os
 import statistics
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3585,6 +3606,9 @@ def _nd_cases(rng) -> list:
         ("shape", "size_array", [a3], {}, ()),
         ("shape", "zeros_like", [x], {}, ()),
         ("shape", "ones_like", [i32], {}, ()),
+        ("shape", "_sym_zeros", [], {"shape": (64, 4096)}, ()),
+        ("shape", "_sym_ones", [], {"shape": (64, 4096), "dtype": "int32"},
+         ()),
         ("shape", "full_like", [x], {"fill_value": 3.5}, ()),
         ("shape", "cumsum", [x], {"axis": 1}, ()),
         ("shape", "cumprod", [pos[:, :64]], {"axis": 1}, ()),
@@ -3740,6 +3764,8 @@ def _nd_run(name, args, kw, grad, ctx, cot_seed):
     op = getattr(nd, name)
     arrs = [_nd_on(a, ctx) for a in args]
     kws = {k: _nd_on(v, ctx) for k, v in kw.items()}
+    if not args:
+        kws["ctx"] = ctx    # a source op (``_sym_zeros``) makes it there
     if not grad:
         out = op(*arrs, **kws)
         outs = out if isinstance(out, (list, tuple)) else [out]
@@ -6209,6 +6235,324 @@ def phase_serve_tier(seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 27. symbol: the Module API and train_mnist.py on the card
+# ---------------------------------------------------------------------------
+#: the JAX package's MNIST example gate (tests/test_examples.py:20-26)
+SYM_GATE = dict(num_epochs=3, num_synthetic=600, lr=0.05)
+SYM_GATE_ACC = 0.9
+SYM_BATCH = 64
+SYM_FIT_STEPS = 20          # (b): steps of the Module.fit whose captures count
+SYM_REPLAY_ATOL = 1e-5      # (b): replayed vs eager, of each tensor's largest
+SYM_GRAD_RTOL = 1e-4        # (b): card float32 vs CPU float64 gradients
+SYM_PREDICT_ATOL = 1e-5     # (c): card Module vs CPU Module predictions
+SYM_MEM_SLACK = 16 << 20    # (d): free bytes read twice, nothing allocated
+SYM_TURNS = 3               # (e): eager and replayed turns
+SYM_TURN_STEPS = 20
+SYM_PROFILED = 5            # (e): steps in the profiled window, per step
+
+
+def _sym_lenet_values(seed: int, batch: int = SYM_BATCH) -> dict:
+    """Seeded arguments of ``lenet_symbol`` at ``batch``: parameters
+    uniform in +-sqrt(3 / fan-in), MNIST-like data and labels."""
+    sym = models.lenet_symbol()
+    shapes, _, _ = sym.infer_shape(data=(batch, 1, 28, 28),
+                                   softmax_label=(batch,))
+    rng = onp.random.RandomState(seed)
+    vals = {}
+    for name, shape in zip(sym.list_arguments(), shapes):
+        if name == "data":
+            vals[name] = rng.rand(*shape).astype("float32")
+        elif name == "softmax_label":
+            vals[name] = rng.randint(0, 10, shape).astype("float32")
+        else:
+            fan = int(onp.prod(shape[1:])) if len(shape) > 1 else shape[0]
+            vals[name] = rng.uniform(-1, 1, shape).astype("float32") * \
+                (3.0 / fan) ** 0.5
+    return vals
+
+
+def _sym_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def symbol_example_gates() -> dict:
+    """(a) ``models.mnist_example`` (the JAX ``examples/train_mnist.py``)
+    on ``gpu(0)`` with the JAX gate's arguments, ``mlp`` and ``lenet``."""
+    res = {}
+    for network in ("mlp", "lenet"):
+        gc.collect()
+        cuda_ops.reset_launches()
+        t0 = time.perf_counter()
+        acc = models.mnist_example(network, ctx=mx.gpu(0), **SYM_GATE)
+        res[network] = {"accuracy": acc,
+                        "seconds": time.perf_counter() - t0,
+                        "launches": cuda_ops.launch_counts()}
+        print(f"symbol example gate {network} {SYM_GATE}: accuracy "
+              f"{acc:.4f} (gate > {SYM_GATE_ACC}), "
+              f"{res[network]['seconds']:.1f} s", flush=True)
+        check(acc > SYM_GATE_ACC, f"train_mnist {network} accuracy {acc} "
+              f"<= {SYM_GATE_ACC}")
+    return res
+
+
+def symbol_replay_gate() -> dict:
+    """(b) ``lenet_symbol`` by ``simple_bind`` at batch 64 on the card:
+    the replayed forward+backward (one CUDA graph) against the eager one
+    under deterministic algorithms, twice (the second on new data); the
+    gradients against the CPU Executor's float64 run."""
+    sym = models.lenet_symbol()
+    exe = sym.simple_bind(ctx=mx.gpu(0), data=(SYM_BATCH, 1, 28, 28),
+                          softmax_label=(SYM_BATCH,))
+    names = sym.list_arguments()
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for seed in (1, 2):
+            vals = _sym_lenet_values(seed)
+            for graphed in (False, True):
+                exe._graphed = graphed
+                exe.copy_params_from({k: v for k, v in vals.items()})
+                out = exe.forward(is_train=True)[0]._data.clone()
+                exe.backward()
+                runs[seed, graphed] = [out] + [
+                    exe.grad_dict[n]._data.clone() for n in names]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(exe.captures == 1, f"the replay gate captured {exe.captures} "
+          "graphs for one signature")
+    replay_err = max(_sym_rel(a, b) for seed in (1, 2)
+                     for a, b in zip(runs[seed, True], runs[seed, False]))
+    bitwise = all(torch.equal(a, b) for seed in (1, 2)
+                  for a, b in zip(runs[seed, True], runs[seed, False]))
+    vals = _sym_lenet_values(1)
+    cpu = sym.bind(mx.cpu(), {k: nd.array(v, ctx=mx.cpu(), dtype="float64")
+                              for k, v in vals.items()},
+                   {k: nd.zeros(v.shape, ctx=mx.cpu(), dtype="float64")
+                    for k, v in vals.items()})
+    cpu.forward(is_train=True)
+    cpu.backward()
+    grad_err = {n: _sym_rel(g, cpu.grad_dict[n]._data)
+                for n, g in zip(names, runs[1, True][1:])
+                if n not in ("data", "softmax_label")}
+    worst = max(grad_err, key=grad_err.get)
+    print(f"symbol replay gate: lenet batch {SYM_BATCH}, replayed vs eager "
+          f"forward+backward worst rel err {replay_err:.2e} (bitwise "
+          f"{bitwise}, tol {SYM_REPLAY_ATOL}); card float32 vs CPU float64 "
+          f"gradients worst {grad_err[worst]:.2e} at {worst} (tol "
+          f"{SYM_GRAD_RTOL})", flush=True)
+    check(replay_err <= SYM_REPLAY_ATOL, f"the Executor's replay differs "
+          f"from its eager run by {replay_err}")
+    check(grad_err[worst] <= SYM_GRAD_RTOL, f"card gradients differ from "
+          f"the CPU's float64 ones: {grad_err}")
+    return {"replay_rel_err": replay_err, "bitwise": bitwise,
+            "grad_rel_err": grad_err}
+
+
+def _sym_iters(n: int, batch: int = SYM_BATCH):
+    """MNIST-shaped blobs (``models.lenet.mnist_iters``) as ``n`` training
+    and 2 held-out batches on the current context, in a fixed order."""
+    train, _ = models.lenet.mnist_iters(batch, False, None,
+                                        int((n + 2) * batch / 0.9) + 1)
+    x, y = train.data[0][1], train.label[0][1]
+    return (mx.io.NDArrayIter(x[:n * batch], y[:n * batch], batch),
+            mx.io.NDArrayIter(x[n * batch:(n + 2) * batch],
+                              y[n * batch:(n + 2) * batch], batch))
+
+
+def symbol_fit_and_checkpoint() -> dict:
+    """(b) a ``SYM_FIT_STEPS``-step ``Module.fit`` of lenet on the card
+    with ``eval_data``: one capture per (shapes, ``is_train``); (c) its
+    checkpoint loaded into a CPU Module, whose ``predict`` agrees."""
+    mx.random.seed(0)
+    with mx.gpu(0):
+        train, val = _sym_iters(SYM_FIT_STEPS)
+        mod = mx.module.Module(models.lenet_symbol(), context=mx.gpu(0))
+        steps = []
+        mod.fit(train, eval_data=val, num_epoch=1, optimizer="sgd",
+                optimizer_params=(("learning_rate", 0.05),
+                                  ("momentum", 0.9)),
+                batch_end_callback=lambda p: steps.append(p.nbatch))
+        exe = mod._exec
+        keys = sorted(str(k[0]) for k in exe._graphs)
+        check(len(steps) == SYM_FIT_STEPS and exe.captures == 2
+              and keys == ["False", "True"],
+              f"Module.fit: {len(steps)} steps, {exe.captures} captures "
+              f"for signatures {keys} (one training, one scoring)")
+        card_pred = mod.predict(val).asnumpy()
+        root = tempfile.mkdtemp(prefix="mxsym_")
+        try:
+            mod.save_checkpoint(os.path.join(root, "lenet"), 1)
+            with mx.cpu():
+                cpu_val = mx.io.NDArrayIter(val.data[0][1], val.label[0][1],
+                                            SYM_BATCH)
+                cpu_mod = mx.module.Module.load(os.path.join(root, "lenet"),
+                                                1, context=mx.cpu())
+                cpu_mod.bind(cpu_val.provide_data, cpu_val.provide_label,
+                             for_training=False)
+                cpu_mod.init_params()
+                cpu_pred = cpu_mod.predict(cpu_val).asnumpy()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    err = float(onp.abs(card_pred - cpu_pred).max())
+    print(f"symbol fit: {len(steps)} steps of lenet batch {SYM_BATCH} with "
+          f"eval, {exe.captures} captures (signatures is_train {keys}); a "
+          f"card checkpoint's CPU Module predicts within {err:.2e} (tol "
+          f"{SYM_PREDICT_ATOL})", flush=True)
+    check(err <= SYM_PREDICT_ATOL, f"the CPU Module's predictions differ "
+          f"from the card's by {err}")
+    return {"steps": len(steps), "captures": exe.captures,
+            "predict_max_abs_err": err}
+
+
+def symbol_queue_c() -> dict:
+    """(d) Negative-step indexing with its gradient on a CUDA NDArray
+    against the CPU's; ``mx.gpu_memory_info`` against
+    ``torch.cuda.mem_get_info``; an array moved or made (in another dtype)
+    on ``cpu_pinned`` is page-locked with the same values."""
+    host = onp.random.RandomState(3).randn(6, 9).astype("float32")
+    got = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        x = nd.array(host, ctx=ctx)
+        x.attach_grad()
+        w = nd.array(onp.arange(6 * 5, dtype="float32").reshape(6, 5),
+                     ctx=ctx)
+        with autograd.record():
+            y = x[:, ::-2] * w
+        y.backward()
+        z = nd.zeros((6, 9), ctx=ctx)
+        z[::-1, 1::3] = nd.array(host[:, :3], ctx=ctx)
+        got[ctx.device_type] = (y.asnumpy(), x.grad.asnumpy(), z.asnumpy())
+    same = all(onp.array_equal(a, b) for a, b in zip(got["gpu"],
+                                                      got["cpu"]))
+    card = nd.array(host, ctx=mx.gpu(0))
+    moved = card.as_in_context(mx.cpu_pinned())
+    made = nd.array(card._data, ctx=mx.cpu_pinned(), dtype="float16")
+    pinned = (moved._data.is_pinned() and made._data.is_pinned()
+              and onp.array_equal(moved.asnumpy(), host)
+              and onp.array_equal(made.asnumpy(), host.astype("float16")))
+    info = mx.gpu_memory_info(0)
+    ref = torch.cuda.mem_get_info(0)
+    stats = mx.gpu(0).memory_stats()
+    print(f"symbol queue C: x[:, ::-2] with its gradient and x[::-1, 1::3] "
+          f"= v on the card equal to the CPU: {same}; gpu_memory_info "
+          f"{info} vs mem_get_info {ref}; memory_stats in use "
+          f"{stats['bytes_in_use']} of {stats['bytes_limit']}; cpu_pinned "
+          f"page-locked with equal values: {pinned}", flush=True)
+    check(same, "negative-step indexing on the card differs from the CPU")
+    check(pinned, "an array on cpu_pinned is not page-locked or differs")
+    check(info[1] == ref[1] and abs(info[0] - ref[0]) <= SYM_MEM_SLACK,
+          f"gpu_memory_info {info} vs torch.cuda.mem_get_info {ref}")
+    return {"indexing_equal": same, "gpu_memory_info": list(info),
+            "mem_get_info": list(ref), "cpu_pinned": pinned}
+
+
+def _sym_module(network: str, graphed: bool):
+    """A bound, initialised Module of ``network`` at batch 64 on the card
+    and its training batches (one epoch of the gate's data)."""
+    flat = network == "mlp"
+    mx.random.seed(0)
+    with mx.gpu(0):
+        train, _ = models.lenet.mnist_iters(
+            SYM_BATCH, flat, None, int(SYM_TURN_STEPS * SYM_BATCH / 0.9) + 1)
+        sym = models.mlp_symbol() if flat else models.lenet_symbol()
+        mod = mx.module.Module(sym, context=mx.gpu(0))
+        mod.bind(train.provide_data, train.provide_label)
+        mod.init_params(mx.init.Xavier(magnitude=2.0))
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=(("learning_rate", 0.05),
+                                             ("momentum", 0.9)))
+        mod._exec._graphed = graphed
+        batches = list(train)
+    return mod, batches
+
+
+def _sym_step(mod, batch, metric) -> None:
+    mod.forward_backward(batch)
+    mod.update()
+    mod.update_metric(metric, batch.label)
+
+
+def symbol_step_times() -> dict:
+    """(e) printed, not gated: ``Module.fit``'s step (forward_backward,
+    update, update_metric) eager and replayed in turns, mlp and lenet at
+    batch 64; a profiled window of ``SYM_PROFILED`` steps of each, per
+    step, with its idle share."""
+    res = {}
+    for network in ("mlp", "lenet"):
+        mods = {g: _sym_module(network, g) for g in (False, True)}
+        times = {False: [], True: []}
+        for _ in range(SYM_TURNS):
+            for graphed, (mod, batches) in mods.items():
+                metric = mx.metric.Accuracy()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in batches:
+                    _sym_step(mod, b, metric)
+                torch.cuda.synchronize()
+                times[graphed].append((time.perf_counter() - t0) * 1e3
+                                      / len(batches))
+        rec = {}
+        for graphed, (mod, batches) in mods.items():
+            tag = "replayed" if graphed else "eager"
+            metric = mx.metric.Accuracy()
+            for _ in range(3):   # a trace now and then records no device event
+                wall, per_kernel = device_split(lambda: [
+                    _sym_step(mod, b, metric)
+                    for b in batches[:SYM_PROFILED]])
+                if per_kernel:
+                    break
+            wall /= SYM_PROFILED
+            # a window whose traces all came back empty measured nothing:
+            # its device time and idle share are not measured (None)
+            busy = (sum(per_kernel.values()) / SYM_PROFILED if per_kernel
+                    else None)
+            rec[tag] = {"step_ms": statistics.median(times[graphed]),
+                        "turns_ms": times[graphed],
+                        "profiled_wall_ms": wall, "device_ms": busy,
+                        "idle_share": (None if busy is None else
+                                       max(0.0, 1.0 - busy / wall)),
+                        "captures": mod._exec.captures}
+        res[network] = rec
+
+        def window(r):
+            if r["device_ms"] is None:
+                return (f"device not measured (no device event in 3 traces)"
+                        f" in {r['profiled_wall_ms']:.3f} ms")
+            return (f"{r['device_ms']:.3f} ms device in "
+                    f"{r['profiled_wall_ms']:.3f} ms (idle "
+                    f"{r['idle_share']:.1%})")
+        print(f"symbol step {network} batch {SYM_BATCH} (median of "
+              f"{SYM_TURNS} turns of {SYM_TURN_STEPS} steps): eager "
+              f"{rec['eager']['step_ms']:.3f} ms, replayed "
+              f"{rec['replayed']['step_ms']:.3f} ms; profiled, per step: "
+              f"eager {window(rec['eager'])}, replayed "
+              f"{window(rec['replayed'])}", flush=True)
+    return res
+
+
+def phase_symbol() -> dict:
+    """27. symbol (the module docstring)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cuda_ops.reset_launches()
+    res = {"examples": symbol_example_gates(),
+           "replay": symbol_replay_gate(),
+           "fit": symbol_fit_and_checkpoint(),
+           "queue_c": symbol_queue_c(),
+           "steps": symbol_step_times()}
+    res["launches"] = cuda_ops.launch_counts()
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card_line()
+    print(f"symbol: {res['seconds']:.1f} s on {res['card']}; attention "
+          f"kernel launches {res['launches']}", flush=True)
+    check(not any(res["launches"].values()), f"the symbol phase launched "
+          f"attention kernels: {res['launches']}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -6265,6 +6609,7 @@ def main(argv=None) -> int:
     fault_res = phase_fault()
     data_res = phase_data()
     tier_res = phase_serve_tier(args.seed)
+    sym_res = phase_symbol()
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -6329,7 +6674,8 @@ def main(argv=None) -> int:
                                  "data": data_res["launches"][name],
                                  "serve_tier": tier_res["launches"][name],
                                  "serve_tier_generate": tier_res[
-                                     "launches_generate"][name]},
+                                     "launches_generate"][name],
+                                 "symbol": sym_res["launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -6354,7 +6700,7 @@ def main(argv=None) -> int:
                        "mobilenet": mob_res, "zoo": zoo_res,
                        "gluon_rest": rest, "fault": fault_res,
                        "data": data_res, "serve_tier": tier_res,
-                       "kernels": kernels},
+                       "symbol": sym_res, "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -51,26 +51,40 @@ fused step; and data: ``recordio`` and ``native`` (the C++ shim built
 with ``g++`` at first use), the rest of ``mx.io`` (``ImageRecordIter``,
 ``PrefetchIter`` placing batches on a stream of its own), ``gluon.data``
 (datasets, samplers, transforms, the multi-worker ``DataLoader`` over
-shared memory) and ``tools.im2rec``.
+shared memory) and ``tools.im2rec``; and the serving tier; and the
+symbolic API: ``mx.sym`` (``Symbol``, ``Executor`` replaying CUDA graphs
+on the card), ``mx.name``, ``mx.AttrScope``, ``mx.module.Module`` with
+``fit``, ``mx.model``, ``mx.callback``, ``mx.monitor`` and ``mx.viz``.
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
-    Context, cpu, current_context, gpu, num_gpus, resolve_device,
+    Context, cpu, cpu_pinned, cpu_shared, current_context, gpu,
+    gpu_memory_info, memory_stats, num_gpus, resolve_device,
 )
 from . import (  # noqa: F401
     autograd, engine, random, ndarray, initializer, gluon, ops, nn, models, serve,
     convert, optimizer, parallel, lr_scheduler, metric, io, contrib, image,
     amp, quantization, fault, lockcheck, native, recordio,
 )
+from . import (  # noqa: F401
+    name, attribute, symbol, model, callback, module, monitor, visualization,
+)
+from .attribute import AttrScope  # noqa: F401
 
 from .engine import waitall  # noqa: F401
+from .ndarray import NDArray  # noqa: F401
 
 nd = ndarray
 init = initializer
+sym = symbol
+viz = visualization
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "resolve_device", "waitall", "engine", "autograd", "random", "ndarray",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
+           "cpu_shared", "current_context", "num_gpus", "gpu_memory_info",
+           "memory_stats", "resolve_device", "waitall", "NDArray", "engine", "autograd", "random", "ndarray",
            "nd", "initializer", "init", "gluon", "ops", "nn", "models",
            "serve", "convert", "optimizer", "parallel", "lr_scheduler",
            "metric", "io", "contrib", "image", "amp", "quantization",
-           "fault", "lockcheck", "native", "recordio"]
+           "fault", "lockcheck", "native", "recordio", "name", "attribute",
+           "AttrScope", "symbol", "sym", "model", "callback", "module",
+           "monitor", "visualization", "viz"]

@@ -47,7 +47,7 @@ from .base import MXNetError, as_list
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad"]
+           "backward", "grad", "get_symbol"]
 
 
 class _State(threading.local):
@@ -261,3 +261,11 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     return [(_recorded if create_graph else NDArray)(
         g if g is not None else torch.zeros_like(leaf))
         for g, leaf in zip(grads, leaves)]
+
+
+def get_symbol(x):
+    """The symbol that computed ``x``: the eager tape records no graph of
+    symbols, so this raises, as in the JAX package (``autograd.py:361``);
+    ``hybridize()`` captures graphs."""
+    raise MXNetError("get_symbol is not supported; hybridize() captures "
+                     "graphs")

@@ -11,9 +11,20 @@ default context is ``gpu(0)``, and the default device of the entry points
 that take ``device=`` is the card: asking for it on a machine without one
 raises instead of falling back to the CPU, so a run never measures the CPU
 while claiming the card.
+
+``cpu_pinned``/``cpu_shared`` (JAX ``context.py:171-177``; MXNet's
+kCPUPinned and kCPUShared) are host contexts: an array moved to
+``cpu_pinned()`` with ``as_in_context``/``copyto`` (or made there by
+``nd.array``) is in page-locked memory when a card is present, the staging
+buffer of an asynchronous H2D copy; without a card, page-locking is not
+available and it is ordinary host memory. ``gpu_memory_info`` is
+``torch.cuda.mem_get_info``; ``memory_stats`` reads the caching allocator
+on the card and the process's resident set on the host (JAX
+``context.py:153-236``).
 """
 from __future__ import annotations
 
+import os
 import threading
 from typing import Optional, Union
 
@@ -22,7 +33,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["DEFAULT_DEVICE", "resolve_device", "Context", "cpu", "gpu",
-           "current_context", "num_gpus", "as_context"]
+           "cpu_pinned", "cpu_shared", "current_context", "num_gpus",
+           "as_context", "gpu_memory_info", "memory_stats"]
 
 DEFAULT_DEVICE = "cuda"
 #: CPU devices a context may name: torch has one
@@ -55,7 +67,8 @@ class Context:
     (JAX counterpart: ``context.py:79``). ``with ctx:`` makes it the default
     of the array factories and ``Block.initialize`` in this thread."""
 
-    devtype2id = {"cpu": 1, "gpu": 2}
+    devtype2id = {"cpu": 1, "gpu": 2, "cpu_pinned": 3, "cpu_shared": 5}
+    devid2type = {v: k for k, v in devtype2id.items()}
     _default = threading.local()
 
     def __init__(self, device_type, device_id: int = 0):
@@ -64,7 +77,7 @@ class Context:
                 device_type.device_id
         if device_type not in self.devtype2id:
             raise MXNetError(f"Unknown device type {device_type!r}; the port "
-                             "has 'cpu' and 'gpu'")
+                             f"has {sorted(self.devtype2id)}")
         self.device_type = device_type
         self.device_id = int(device_id)
 
@@ -84,13 +97,43 @@ class Context:
         """The ``torch.device``; raises for ``gpu`` without a card and for
         a ``device_id`` out of range (JAX counterpart: ``context.py:121``).
         """
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             if not 0 <= self.device_id < CPU_DEVICES:
                 raise MXNetError(
                     f"{self}: device_id out of range, only {CPU_DEVICES} "
                     "device(s) of this type are visible")
             return torch.device("cpu")
         return resolve_device(torch.device("cuda", self.device_id))
+
+    def place(self, t: torch.Tensor, dtype=None) -> torch.Tensor:
+        """One copy of ``t`` on this context, in ``dtype`` (default: its
+        own): on its device, and page-locked for ``cpu_pinned`` when a card
+        is present."""
+        dtype = dtype or t.dtype
+        if self.device_type == "cpu_pinned" and torch.cuda.is_available():
+            return torch.empty(t.shape, dtype=dtype, pin_memory=True).copy_(t)
+        return t.to(self.torch_device, dtype, copy=True)
+
+    def memory_stats(self) -> dict:
+        """Memory of this context's device (JAX counterpart:
+        ``context.py:153``): on the card the caching allocator's bytes in
+        use, reserved and at peak, and the device's total as
+        ``bytes_limit`` (``source="torch"``); on the host the process's
+        resident bytes and the physical memory (``source="host"``)."""
+        dev = self.torch_device
+        if dev.type == "cuda":
+            _, total = torch.cuda.mem_get_info(dev)
+            return {"bytes_in_use": int(torch.cuda.memory_allocated(dev)),
+                    "bytes_reserved": int(torch.cuda.memory_reserved(dev)),
+                    "peak_bytes_in_use":
+                        int(torch.cuda.max_memory_allocated(dev)),
+                    "bytes_limit": int(total), "source": "torch"}
+        page = os.sysconf("SC_PAGE_SIZE")
+        with open("/proc/self/statm") as f:
+            resident = int(f.read().split()[1]) * page
+        return {"bytes_in_use": resident,
+                "bytes_limit": int(os.sysconf("SC_PHYS_PAGES") * page),
+                "source": "host"}
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, Context)
@@ -119,6 +162,17 @@ def cpu(device_id: int = 0) -> Context:
     return Context("cpu", device_id)
 
 
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Page-locked host memory (module docstring)."""
+    return Context("cpu_pinned", device_id)
+
+
+def cpu_shared(device_id: int = 0) -> Context:
+    """Host memory, MXNet's shared-memory context (the port's multi-worker
+    ``DataLoader`` shares its batches through ``/dev/shm`` itself)."""
+    return Context("cpu_shared", device_id)
+
+
 def gpu(device_id: int = 0) -> Context:
     """CUDA device ``device_id`` (``torch.device("cuda", device_id)``)."""
     return Context("gpu", device_id)
@@ -143,3 +197,18 @@ def as_context(ctx) -> Context:
     if isinstance(ctx, Context):
         return ctx
     return Context.from_device(torch.device(ctx))
+
+
+def gpu_memory_info(device_id: int = 0) -> tuple:
+    """``(free, total)`` bytes of CUDA device ``device_id``
+    (``torch.cuda.mem_get_info``; JAX counterpart: ``context.py:215``).
+    Raises without a card."""
+    free, total = torch.cuda.mem_get_info(
+        resolve_device(torch.device("cuda", device_id)))
+    return int(free), int(total)
+
+
+def memory_stats(device_id: int = 0) -> dict:
+    """:meth:`Context.memory_stats` of ``gpu(device_id)`` (JAX counterpart:
+    ``context.py:230``)."""
+    return gpu(device_id).memory_stats()

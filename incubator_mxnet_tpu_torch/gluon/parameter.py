@@ -4,8 +4,8 @@ Counterpart: the JAX package's ``gluon/parameter.py`` (``:29-509``): the
 prefix-named ``Parameter`` with ``grad_req``, deferred initialisation
 (``allow_deferred_init``; shape dims of 0 are unknown until the first
 forward), ``initialize``/``data``/``grad``/``set_data``/``zero_grad``/
-``cast``/``_load_init``/``list_data``/``list_grad``/``reset_ctx``
-(``var`` raises until ``mx.sym`` is ported), ``Constant``,
+``cast``/``_load_init``/``list_data``/``list_grad``/``reset_ctx``/
+``var``, ``Constant``,
 ``ParameterDict`` (with ``get_constant``) and
 ``DeferredInitializationError``.
 
@@ -77,6 +77,7 @@ class Parameter:
         self._var = UninitializedParameter(
             requires_grad=dt.is_floating_point, dtype=dt)
         self._owned = False          # registered with torch by a block yet
+        self._sym_var = None         # var(): its symbol variable
         self._ctx: Optional[Context] = None
         self._deferred_init = ()     # (init, ctx, default_init, data)
         self._fresh_grad = False
@@ -270,10 +271,13 @@ class Parameter:
                              "initialized.")
 
     def var(self):
-        """The symbol variable of this parameter (JAX counterpart:
-        ``gluon/parameter.py:328``): ``mx.sym`` is not ported yet."""
-        raise MXNetError("Parameter.var() needs mx.sym, which is not "
-                         "ported yet")
+        """The symbol variable of this parameter, made once (JAX
+        counterpart: ``gluon/parameter.py:328``)."""
+        if self._sym_var is None:
+            from ..symbol import var
+            self._sym_var = var(self.name, shape=self.shape,
+                                dtype=self.dtype)
+        return self._sym_var
 
     def list_ctx(self) -> List[Context]:
         if self._initialized:

@@ -8,7 +8,9 @@ since the last update raises ``UserWarning``, or is skipped under
 ``ignore_stale_grad``), ``learning_rate``/``set_learning_rate`` and
 ``save_states``/``load_states``. Each parameter is updated once, even when
 several blocks hold it (a tied weight). ``allreduce_grads`` has nothing to
-reduce on one device; the kvstore seam comes with the multi-GPU slice.
+reduce on one device; the kvstore seam comes with the multi-GPU slice,
+so ``update_on_kvstore`` and ``compression_params`` are taken as in the JAX
+signature (``:26-28``), and ``True`` or a compression raises.
 
 The update is multi-tensor: the parameters with a fresh gradient are
 grouped by (device, dtype, fp32 master or not) and each group is one
@@ -48,10 +50,22 @@ class Trainer:
 
     def __init__(self, params, optimizer,
                  optimizer_params: Optional[dict] = None,
-                 kvstore: Optional[str] = "device"):
+                 kvstore: Optional[str] = "device", compression_params=None,
+                 update_on_kvstore: Optional[bool] = None):
         if kvstore not in (None, "local", "device"):
             raise MXNetError(f"kvstore {kvstore!r} is not ported yet: one "
                              "device, nothing to reduce")
+        if compression_params:
+            raise MXNetError(
+                f"compression_params={compression_params!r} needs the "
+                "kvstore port (ROADMAP queue A, item 6): the one-device "
+                "Trainer exchanges no gradients to compress")
+        if update_on_kvstore:
+            raise MXNetError(
+                "update_on_kvstore=True needs the kvstore port (ROADMAP "
+                "queue A, item 6); the one-device Trainer updates locally")
+        self._compression_params = compression_params
+        self._update_on_kvstore = update_on_kvstore
         if isinstance(params, (dict, ParameterDict)):
             params = [params[k] for k in sorted(params.keys())]
         if not isinstance(params, (list, tuple)):

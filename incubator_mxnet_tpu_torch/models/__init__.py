@@ -9,7 +9,9 @@ from . import (  # noqa: F401
 from .bert import (  # noqa: F401
     BERT_CONFIGS, BERTEncoder, BERTModel, bert_pretrain_loss, get_bert,
 )
-from .lenet import LeNet  # noqa: F401
+from .lenet import (  # noqa: F401
+    LeNet, lenet_symbol, mlp_symbol, mnist_example,
+)
 from .nmt import (  # noqa: F401
     NMTModel, TransformerDecoder, TransformerEncoder, beam_search,
     beam_search_reference,

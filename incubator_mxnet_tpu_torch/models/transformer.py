@@ -35,11 +35,12 @@ class MultiHeadAttention(HybridBlock):
     projection ``query_`` and fused KV projection ``kv_``). Only the
     projections a cell uses exist. ``mask`` broadcastable to (B, H, Lq,
     Lk), 1 = attend; ``causal`` hides the keys after each query (the band
-    aligned to the last key when Lq != Lk)."""
+    aligned to the last key when Lq != Lk). ``use_bias=False`` builds every
+    projection without a bias."""
 
     def __init__(self, units: int, num_heads: int, dropout: float = 0.0,
-                 causal: bool = False, dtype="float32",
-                 cross_attention: bool = False,
+                 causal: bool = False, use_bias: bool = True,
+                 dtype="float32", cross_attention: bool = False,
                  weight_initializer=None, **kwargs):
         super().__init__(**kwargs)
         if units % num_heads:
@@ -51,19 +52,20 @@ class MultiHeadAttention(HybridBlock):
         self._cross = cross_attention
         with self.name_scope():
             if cross_attention:
-                self.q_proj = Dense(units, flatten=False, in_units=units,
-                                    dtype=dtype, prefix="query_",
+                self.q_proj = Dense(units, flatten=False, use_bias=use_bias,
+                                    in_units=units, dtype=dtype,
+                                    prefix="query_",
                                     weight_initializer=weight_initializer)
                 self.kv_proj = Dense(2 * units, flatten=False,
-                                     in_units=units, dtype=dtype,
-                                     prefix="kv_",
+                                     use_bias=use_bias, in_units=units,
+                                     dtype=dtype, prefix="kv_",
                                      weight_initializer=weight_initializer)
             else:
-                self.qkv = Dense(3 * units, flatten=False, in_units=units,
-                                 dtype=dtype, prefix="qkv_",
+                self.qkv = Dense(3 * units, flatten=False, use_bias=use_bias,
+                                 in_units=units, dtype=dtype, prefix="qkv_",
                                  weight_initializer=weight_initializer)
-            self.proj = Dense(units, flatten=False, in_units=units,
-                              dtype=dtype, prefix="proj_",
+            self.proj = Dense(units, flatten=False, use_bias=use_bias,
+                              in_units=units, dtype=dtype, prefix="proj_",
                               weight_initializer=weight_initializer)
             self.dropout = Dropout(dropout) if dropout else None
 
@@ -121,12 +123,13 @@ class PositionwiseFFN(HybridBlock):
 
 class TransformerEncoderCell(HybridBlock):
     """Post-LN encoder layer: ``x = LN(x + MHA(x)); x = LN(x + FFN(x))``,
-    LayerNorm epsilon 1e-12 (JAX counterpart:
-    ``models/transformer.py:128``)."""
+    LayerNorm epsilon 1e-12, the FFN's ``activation`` GELU by default (JAX
+    counterpart: ``models/transformer.py:128``)."""
 
     def __init__(self, units: int, hidden_size: int, num_heads: int,
                  dropout: float = 0.0, layer_norm_eps: float = 1e-12,
-                 dtype="float32", weight_initializer=None, **kwargs):
+                 activation: str = "gelu", dtype="float32",
+                 weight_initializer=None, **kwargs):
         super().__init__(**kwargs)
         with self.name_scope():
             self.attention = MultiHeadAttention(
@@ -135,8 +138,9 @@ class TransformerEncoderCell(HybridBlock):
             self.ln1 = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
                                  prefix="ln1_")
             self.ffn = PositionwiseFFN(
-                units, hidden_size, dropout=dropout, dtype=dtype,
-                prefix="ffn_", weight_initializer=weight_initializer)
+                units, hidden_size, dropout=dropout, activation=activation,
+                dtype=dtype, prefix="ffn_",
+                weight_initializer=weight_initializer)
             self.ln2 = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
                                  prefix="ln2_")
 

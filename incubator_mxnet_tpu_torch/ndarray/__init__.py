@@ -8,8 +8,9 @@ the samplers of :mod:`.random` under their flat names (``random_uniform``
 ..., ``sample_multinomial``, ``shuffle``), and every op of the registry
 (:mod:`.op`), which are also the ``F`` of ``hybrid_forward``. Factories
 without ``ctx`` use the current context (``gpu(0)`` unless a ``with ctx:``
-says otherwise), which raises without a card. ``sparse`` (CSR and
-row-sparse arrays) is not ported yet.
+says otherwise), which raises without a card. ``mx.nd.contrib`` is
+``mx.contrib.nd``. ``sparse`` (CSR and row-sparse arrays) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -213,3 +214,13 @@ def load(fname: str):
 def _from_host(a) -> NDArray:
     # keep the file's dtype exactly (no float64/int64 narrowing)
     return array(a, ctx="cpu", dtype=None if a.dtype.names else a.dtype)
+
+
+def __getattr__(name):
+    # mx.nd.contrib is mx.contrib.nd (JAX counterpart:
+    # ndarray/__init__.py:255-259), so hybrid_forward's F.contrib.<op>
+    # works; imported on first use, as contrib imports this package
+    if name == "contrib":
+        from ..contrib import nd as _contrib_nd
+        return _contrib_nd
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

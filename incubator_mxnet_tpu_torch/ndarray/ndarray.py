@@ -71,6 +71,48 @@ def _index(key):
     return key
 
 
+def _negative_steps(key, shape: tuple):
+    """``(key, dims)``: a basic index whose slices with a negative step
+    are turned into the slices with a positive step over the same elements,
+    and the output dims to flip after indexing with it; ``dims`` is empty
+    when no slice steps back (torch refuses negative steps; JAX counterpart
+    of the semantics: ``ndarray/ndarray.py:215-230``)."""
+    items = key if isinstance(key, tuple) else (key,)
+    if not any(isinstance(k, slice) and k.step is not None and k.step < 0
+               for k in items):
+        return key, []
+    if any(isinstance(k, (torch.Tensor, list, onp.ndarray)) for k in items):
+        raise MXNetError("a slice with a negative step cannot be mixed with "
+                         "advanced (array) indices")
+    ndim = len(shape)
+    consumed = sum(1 for k in items if k is not None and k is not Ellipsis)
+    out, dims, d, od = [], [], 0, 0
+    for k in items:
+        if k is Ellipsis:
+            out.append(k)
+            d += ndim - consumed
+            od += ndim - consumed
+        elif k is None:
+            out.append(k)
+            od += 1
+        elif isinstance(k, slice):
+            if k.step is not None and k.step < 0:
+                start, stop, step = k.indices(shape[d])
+                n = len(range(start, stop, step))
+                last = start + step * (n - 1)
+                out.append(slice(last, start + 1, -step) if n else
+                           slice(0, 0))
+                dims.append(od)
+            else:
+                out.append(k)
+            d += 1
+            od += 1
+        else:
+            out.append(k)
+            d += 1
+    return tuple(out), dims
+
+
 class NDArray:
     """An n-dimensional array on a device :class:`~..context.Context`."""
 
@@ -205,14 +247,24 @@ class NDArray:
     # indexing
     # ------------------------------------------------------------------
     def __getitem__(self, key) -> "NDArray":
+        """``x[key]``: basic indexing with positive steps is a view of the
+        same storage; a slice with a negative step gives a copy (a flip of
+        the positive-step view), as torch has no negative strides."""
+        key, flips = _negative_steps(_index(key), self.shape)
         with torch.set_grad_enabled(autograd.is_recording()):
-            return _recorded(self._data[_index(key)])
+            out = self._data[key]
+            return _recorded(out.flip(flips) if flips else out)
 
     def __setitem__(self, key, value) -> None:
         self._check_inplace_ok()
         v = _operand(value, self._data)
+        key, flips = _negative_steps(_index(key), self.shape)
         with torch.no_grad():
-            self._data[_index(key)] = v
+            if flips and isinstance(v, torch.Tensor):
+                view = self._data[key]
+                v = torch.broadcast_to(v.to(view.dtype), view.shape).flip(
+                    flips)
+            self._data[key] = v
 
     def _check_inplace_ok(self) -> None:
         """Refuse in-place mutation of an array on the tape while recording
@@ -240,9 +292,9 @@ class NDArray:
             with torch.no_grad():
                 other._data.copy_(self._data)
             return other
-        dev = as_context(other).torch_device
+        ctx = as_context(other)
         with torch.set_grad_enabled(autograd.is_recording()):
-            return NDArray(self._data.to(dev, copy=True))
+            return NDArray(ctx.place(self._data))
 
     def copy(self) -> "NDArray":
         with torch.set_grad_enabled(autograd.is_recording()):
@@ -523,11 +575,12 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
     their dtype, with float64 and int64 narrowed to float32 and int32
     (JAX counterpart: ``ndarray.py:545``); tensors and NDArrays keep
     theirs."""
-    dev = as_context(ctx).torch_device
+    ctx = as_context(ctx)
+    dev = ctx.torch_device
     if isinstance(source_array, (NDArray, torch.Tensor)):
         t = _unwrap(source_array).detach()
         dt = torch_dtype(dtype) if dtype is not None else t.dtype
-        return NDArray(t.to(dev, dt, copy=True))
+        return NDArray(ctx.place(t, dt))
     a = onp.asarray(source_array)
     if a.dtype == BFLOAT16:
         t = torch.from_numpy(a.view("<i2").copy()).view(torch.bfloat16)
@@ -543,7 +596,8 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
         t = torch.from_numpy(onp.array(a, dtype="float32")).to(dt)
     else:
         t = torch.from_numpy(onp.array(a, dtype=dtype_name(dt), order="C"))
-    return NDArray(t.to(dev))
+    return NDArray(ctx.place(t) if ctx.device_type == "cpu_pinned"
+                   else t.to(dev))
 
 
 from . import op as _op  # noqa: E402  (the op namespace uses NDArray)

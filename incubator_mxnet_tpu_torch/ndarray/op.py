@@ -12,8 +12,11 @@ function on tensors. Given NDArrays it unwraps them, runs under
 given tensors (inside ``hybrid_forward``, which the Gluon blocks run on
 tensors) it is the plain function. Either way it drops ``name=`` and
 ``ctx=``, and ``out=`` (an array or a list, one per result) receives the
-results in place, as the JAX ``make_nd_op`` does. ``amp.init()`` casts the
-inputs of the ops of its list in this namespace.
+results in place, as the JAX ``make_nd_op`` does. Given no array at all
+(the source ops ``_sym_zeros``/``_sym_ones``), it runs on the device of
+``ctx=``, or else of the current context, and returns an NDArray; the JAX
+namespace raises ``TypeError`` there. ``amp.init()`` casts the inputs of the
+ops of its list in this namespace.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 
 from .. import autograd
 from .. import random as _random
-from ..context import Context
+from ..context import Context, as_context
 from ..ops import attention as _attn
 from ..ops import detection as _det
 from ..ops import nn as _nn  # noqa: F401  (registers the nn ops)
@@ -37,10 +40,10 @@ from .ndarray import NDArray, _recorded
 __all__ = ["make_nd_op"]
 
 
-def _has_nd(values) -> bool:
+def _has_nd(values, kinds=NDArray) -> bool:
     for v in values:
-        if isinstance(v, NDArray) or (isinstance(v, (list, tuple))
-                                      and _has_nd(v)):
+        if isinstance(v, kinds) or (isinstance(v, (list, tuple))
+                                    and _has_nd(v, kinds)):
             return True
     return False
 
@@ -92,14 +95,18 @@ def _write_out(out, result):
 def make_nd_op(opdef):
     """The ``mx.nd`` op of a registry entry (JAX counterpart:
     ``make_nd_op``): :func:`_nd_op` of its function, taking and dropping
-    ``name=``/``ctx=``, with ``out=``."""
+    ``name=``, with ``out=``; ``ctx=`` places a source op's result."""
     op = _nd_op(opdef.fn)
 
     @functools.wraps(opdef.fn)
     def nd_op(*args, out=None, **kwargs):
         kwargs.pop("name", None)
-        kwargs.pop("ctx", None)
-        result = op(*args, **kwargs)
+        ctx = kwargs.pop("ctx", None)
+        if _has_nd((*args, *kwargs.values()), (NDArray, torch.Tensor)):
+            result = op(*args, **kwargs)
+        else:
+            with torch.device(as_context(ctx).torch_device):
+                result = _wrap(opdef.fn(*args, **kwargs))
         return result if out is None else _write_out(out, result)
     nd_op.__name__ = nd_op.__qualname__ = opdef.name
     return nd_op

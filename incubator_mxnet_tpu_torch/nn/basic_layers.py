@@ -224,15 +224,18 @@ class SyncBatchNorm(BatchNorm):
 
 
 class LayerNorm(HybridBlock):
-    """Layer normalisation over the last axis (JAX counterpart:
-    ``gluon/nn/basic_layers.py:228``). ``gamma``/``beta`` are float32
-    whatever the model's dtype, and ``cast`` keeps them so (ROADMAP queue
-    C): a bfloat16 input's normalised value times ``gamma`` is float32."""
+    """Layer normalisation over ``axis`` (JAX counterpart:
+    ``gluon/nn/basic_layers.py:228``, arguments in its order).
+    ``gamma``/``beta`` are float32 whatever the model's dtype, and ``cast``
+    keeps them so (ROADMAP queue C): a bfloat16 input's normalised value
+    times ``gamma`` is float32."""
 
-    def __init__(self, epsilon: float = 1e-5, center: bool = True,
-                 scale: bool = True, beta_initializer="zeros",
-                 gamma_initializer="ones", in_channels: int = 0, **kwargs):
+    def __init__(self, axis: int = -1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels: int = 0, **kwargs):
         super().__init__(**kwargs)
+        self._axis = axis
         self._epsilon = epsilon
         with self.name_scope():
             self.gamma = self.params.get(
@@ -245,7 +248,7 @@ class LayerNorm(HybridBlock):
                 allow_deferred_init=True)
 
     def infer_shape(self, x, *args):
-        c = x.shape[-1]
+        c = x.shape[self._axis]
         self.gamma.shape = (c,)
         self.beta.shape = (c,)
 
@@ -253,7 +256,8 @@ class LayerNorm(HybridBlock):
         super().cast("float32")
 
     def hybrid_forward(self, F, x, gamma, beta):
-        return F.LayerNorm(x, gamma, beta, eps=self._epsilon)
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
 
 
 class GroupNorm(HybridBlock):

@@ -327,8 +327,17 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
         mean = mean.detach()
     else:
         mean, var = moving_mean.to(acc), moving_var.to(acc)
-        out, _, _ = torch.native_batch_norm(x, g, b, mean, var, False, 0.0,
-                                            eps)
+        if torch.is_grad_enabled() and (mean.requires_grad
+                                        or var.requires_grad):
+            # a symbol Executor differentiates the moving statistics too,
+            # as the JAX op's vjp does; torch's kernel refuses that
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            out = ((x.to(acc) - mean.view(shape))
+                   * torch.rsqrt(var.view(shape) + eps) * g.view(shape)
+                   + b.view(shape)).to(data.dtype)
+        else:
+            out, _, _ = torch.native_batch_norm(x, g, b, mean, var, False,
+                                                0.0, eps)
     if x is not data:
         out = out.movedim(1, axis)
     return out, mean, var

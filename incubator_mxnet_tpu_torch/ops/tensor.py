@@ -762,6 +762,22 @@ def size_array(data, **_):
                         device=data.device)
 
 
+# Source nodes behind mx.sym.zeros/ones (no tensor inputs, the shape in
+# attrs; JAX counterpart: ``ops/tensor.py:576-591``). They make their tensor
+# on torch's default device: the symbol evaluator and ``mx.nd`` set it to
+# their context's.
+@register_op("_sym_zeros")
+def _sym_zeros(shape, dtype="float32", **_):
+    """Constant zeros source node (``mx.sym.zeros``)."""
+    return torch.zeros(tuple(shape), dtype=torch_dtype(dtype))
+
+
+@register_op("_sym_ones")
+def _sym_ones(shape, dtype="float32", **_):
+    """Constant ones source node (``mx.sym.ones``)."""
+    return torch.ones(tuple(shape), dtype=torch_dtype(dtype))
+
+
 @register_op("zeros_like")
 def zeros_like(data, **_):
     return torch.zeros_like(data)

@@ -41,7 +41,7 @@ import torch
 from torch import nn
 
 from ..base import MXNetError, dtype_name, torch_dtype
-from ..context import resolve_device
+from ..context import as_context, resolve_device
 from ..ndarray import NDArray
 from ..ops.cuda import graphs
 from .buckets import BucketTable
@@ -71,6 +71,18 @@ def _dtype_name(dt) -> str:
     return name
 
 
+def _place(block: nn.Module, ctx) -> None:
+    """Move ``block`` to ``ctx``'s device: a Gluon block's initialised
+    parameters by ``reset_ctx`` (their context moves with them), then every
+    other tensor of the module."""
+    collect = getattr(block, "collect_params", None)
+    if collect is not None:
+        for p in collect().values():
+            if p._initialized and p.list_ctx()[0] != ctx:
+                p.reset_ctx(ctx)
+    block.to(ctx.torch_device)
+
+
 class _BucketGraph:
     """One bucket's captured forward: the graph, its static inputs and the
     outputs each replay rewrites."""
@@ -95,18 +107,24 @@ class CompiledModel:
     one ``{axis_index: bucket_axis_name}`` dict per input naming the dims
     that get padded. ``output_axes``: the same per output; default pads
     every output's axis 0 back from the ``"batch"`` bucket (or the table's
-    first axis). ``pad_values``: a scalar or one per input. Inputs go to
-    the device of the module's parameters.
+    first axis). ``pad_values``: a scalar or one per input. ``ctx`` (JAX
+    ``:74``, ``:141``): the module is placed on its device first (a Gluon
+    block's parameters by ``reset_ctx``); by default it stays where its
+    parameters are. Inputs go to the device of the module's parameters.
+    ``donate`` is taken for the JAX signature: requests are copied into
+    each bucket's static inputs, so there is nothing to donate.
     """
 
     def __init__(self, block: nn.Module, table: BucketTable,
                  input_axes: Sequence[Dict[int, str]],
                  example_args: Optional[Sequence] = None,
                  output_axes: Optional[Sequence[Dict[int, str]]] = None,
-                 pad_values: Any = 0):
+                 pad_values: Any = 0, donate: Any = "auto", ctx=None):
         if not isinstance(block, nn.Module):
             raise MXNetError(f"CompiledModel wraps an nn.Module, not "
                              f"{type(block)}")
+        if ctx is not None:
+            _place(block, as_context(ctx))
         if example_args is not None:
             in_avals = [(tuple(a.shape), _dtype_name(
                 a.dtype if hasattr(a, "dtype") else onp.asarray(a).dtype))

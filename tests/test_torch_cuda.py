@@ -30,7 +30,9 @@ bitwise those placed on the main thread, and a multi-worker pinned
 two buckets, a returned output untouched by the next replay, and
 ``refresh_params`` capturing nothing after an in-place ``set_data`` and
 once after new storage, and two models warming up from two threads at
-once, each bucket's graph holding exactly its own launches.
+once, each bucket's graph holding exactly its own launches; the symbolic
+API: an Executor's replayed forward+backward bitwise its eager run (and
+with ``grad_req="add"``), and negative-step indexing card = CPU.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -1250,3 +1252,69 @@ def test_compiled_models_warm_up_together_on_card(deterministic):
             args = _bert_request(rng, B, L)
             for g, w in zip(cm.predict(*args), _eager(net, args)):
                 assert torch.equal(g._data, w)
+
+
+@pytest.mark.cuda
+def test_executor_replay_matches_eager_on_card(deterministic):
+    """A ``simple_bind`` Executor of ``lenet_symbol`` on the card: its
+    captured forward+backward (one CUDA graph) replayed on two batches
+    equals its eager forward and backward on each bitwise, with one
+    capture; ``grad_req="add"`` adds the replayed gradients; a scoring
+    forward captures a second graph."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import models
+    sym = models.lenet_symbol()
+    names = sym.list_arguments()
+    shapes, _, _ = sym.infer_shape(data=(8, 1, 28, 28), softmax_label=(8,))
+    exe = sym.simple_bind(ctx=mx.gpu(0), data=(8, 1, 28, 28),
+                          softmax_label=(8,))
+    rng = onp.random.RandomState(0)
+    for _ in range(2):
+        vals = {n: rng.rand(*s).astype("float32") for n, s in
+                zip(names, shapes)}
+        vals["softmax_label"] = rng.randint(0, 10, (8,)).astype("float32")
+        runs = []
+        for graphed in (False, True):
+            exe._graphed = graphed
+            exe.copy_params_from(vals)
+            out = exe.forward(is_train=True)[0]._data.clone()
+            exe.backward()
+            runs.append([out] + [exe.grad_dict[n]._data.clone()
+                                 for n in names])
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+    assert exe.captures == 1
+    add = sym.simple_bind(ctx=mx.gpu(0), grad_req="add",
+                          data=(8, 1, 28, 28), softmax_label=(8,))
+    add.copy_params_from(vals)
+    for _ in range(2):
+        add.forward(is_train=True)
+        add.backward()
+    for n in names:
+        assert torch.equal(add.grad_dict[n]._data, 2 * runs[1][
+            1 + names.index(n)])
+    exe.forward(is_train=False)
+    assert exe.captures == 2
+
+
+@pytest.mark.cuda
+def test_negative_step_indexing_on_card():
+    """``x[:, ::-1]`` and its gradient, and ``x[::-1] = v``, on a CUDA
+    NDArray equal the CPU's."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, nd
+    host = onp.random.RandomState(1).randn(4, 7).astype("float32")
+    got = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        x = nd.array(host, ctx=ctx)
+        x.attach_grad()
+        with autograd.record():
+            y = (x[:, ::-1] * x[:, ::-1]).sum()
+        y.backward()
+        z = nd.zeros((4, 7), ctx=ctx)
+        z[::-1] = nd.array(host, ctx=ctx)
+        got.append((x[:, ::-3].asnumpy(), x.grad.asnumpy(), z.asnumpy()))
+    for a, b in zip(*got):
+        assert onp.array_equal(a, b)

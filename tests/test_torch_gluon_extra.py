@@ -260,8 +260,8 @@ def test_norm_layers_summary_and_parameters():
     assert pnet.collect_params().list_ctx() == [mx.cpu(0)]
     pnet.collect_params().setattr("lr_mult", 0.5)
     assert p.lr_mult == 0.5
-    with pytest.raises(MXNetError, match="mx.sym"):
-        p.var()
+    assert p.var() is p.var()
+    assert p.var().tojson() == jnet[2].weight.var().tojson()
 
 
 def test_gluon_utils_match_jax():
