@@ -334,7 +334,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
     update, update_metric) eager and replayed in turns for ``mlp`` and
     ``lenet`` at batch 64, and a profiled window of 5 steps of each:
     device ms and idle share per step ("not measured" when its traces
-    record no device event). No attention kernel launches in the phase.
+    record no device event). No attention kernel launches in the phase;
+28. artifacts: BERT-base served from an exported artifact, on the tier's
+    table (``{"batch": (1, 8), "seq": (8, 512)}``, 28 buckets). (a)
+    ``serve.export_for_serving``: one ``torch.export`` program that all
+    28 manifest entries name, its seconds and files' bytes; (b) the
+    program holds 12 ``mxtpu::flash_attention_fwd`` nodes and no weights;
+    (c) ``ModelRegistry.load(artifacts=)`` cold-loads it (``SymbolBlock``)
+    and warms 28 bucket graphs, timed; (d) four batches in four buckets
+    within 1e-3 of a factory-built ``CompiledModel`` over the same weights
+    (bitwise printed), 12 forward launches a batch (the phase's count in
+    the ``kernels`` line), a (8, 512) replay with no copy to the host in
+    its profile; (e) perturbed weights from a ``fault.checkpoint`` through
+    ``SymbolBlock.set_weights``: replies follow (within 1e-3 of the
+    factory model given them, moved from the old), no capture; (f) a
+    ``Replica``'s load timed from the factory, through an
+    ``ArtifactCache`` on a miss (factory, export, put, load) and on a hit
+    (no model built), then a corrupted entry (the ``corrupt_artifact``
+    chaos site) evicted as a miss; (g) ``optimize_for("INT8")`` of a small
+    conv net card vs CPU (the same int8 weights, outputs within one int8
+    step) and a ``DENSE_ACT`` partition card vs CPU (1e-5 of the largest
+    output); (h) ``models.serving_example`` (the JAX
+    ``examples/serving.py``) on the card, 0 captures after warmup.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -6553,6 +6574,340 @@ def phase_symbol() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 28. artifacts: BERT-base served from an exported artifact
+# ---------------------------------------------------------------------------
+ART_INPUTS = ["ids", "token_types", "valid_length"]
+ART_EXAMPLE = (onp.zeros((1, 8), "int32"), onp.zeros((1, 8), "int32"),
+               onp.full((1,), 8, "float32"))
+#: (d): (batch, longest request) of the batches held against the factory
+#: model, in four buckets of the tier's table
+ART_BATCHES = ((1, 9), (3, 130), (8, 512), (5, 64))
+#: (d), (e): artifact replies against the factory-built CompiledModel: the
+#: serving gates' tolerance (the same ops on the same weights: expected 0)
+ART_TOL = SERVE_ATOL
+ART_LAYERS = 12
+#: (g): the DENSE_ACT partition card vs CPU, relative to the largest output
+ART_DENSE_RTOL = 1e-5
+ART_EXAMPLE_REQUESTS = 64
+
+
+def _art_batch(rng, B: int, L: int) -> list:
+    """``B`` ragged BERT requests, the longest ``L``, as one zero-padded
+    batch of numpy arrays."""
+    lens = [L] + [int(x) for x in rng.randint(4, L + 1, B - 1)]
+    ids = onp.zeros((B, L), "int32")
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.randint(1, 30522, n)
+    tt = (onp.arange(L)[None] >= L // 2).repeat(B, 0).astype("int32")
+    return [ids, tt, onp.array(lens, "float32")]
+
+
+def _art_err(got, want) -> float:
+    return max(float((g._data.float() - w._data.float()).abs().max())
+               for g, w in zip(got, want))
+
+
+def _art_recorded_bert():
+    """The tier's BERT-base with one recorded forward (the signature an
+    export traces)."""
+    net = _tier_bert()
+    net(*(nd.array(a, ctx=mx.gpu(0), dtype=a.dtype) for a in ART_EXAMPLE))
+    return net
+
+
+def art_serve(root: str, load_kw: dict, seed: int) -> dict:
+    """(a)-(e): export, the registry's cold load, replies against the
+    factory-built model, the weights from a checkpoint."""
+    res = {}
+    t0 = time.perf_counter()
+    net = _art_recorded_bert()
+    res["build_s"] = time.perf_counter() - t0
+    prefix = os.path.join(root, "export", "bert")
+    os.makedirs(os.path.dirname(prefix))
+    t0 = time.perf_counter()
+    sym_file, params_file = serve.export_for_serving(
+        net, prefix, load_kw["table"], load_kw["input_axes"])
+    res["export_s"] = time.perf_counter() - t0
+    with open(sym_file) as f:
+        arch = json.load(f)
+    files = {n: os.path.getsize(os.path.join(os.path.dirname(prefix), n))
+             for n in os.listdir(os.path.dirname(prefix))}
+    res["files"] = files
+    programs = {e["pt2"] for e in arch["signatures"]}
+    check(len(arch["signatures"]) == load_kw["table"].num_buckets()
+          and len(programs) == 1, f"the manifest's signatures name "
+          f"{len(programs)} programs for {len(arch['signatures'])} entries")
+    print(f"artifacts: BERT-base built in {res['build_s']:.1f} s, exported "
+          f"for {len(arch['signatures'])} buckets in {res['export_s']:.2f} s "
+          f"(one program); files {files} bytes on {card_line()}",
+          flush=True)
+
+    # (b), (c): the registry's cold load and warmup from the files
+    reg = serve.ModelRegistry()
+    t0 = time.perf_counter()
+    reg.load("bert", artifacts=prefix, input_names=ART_INPUTS, **load_kw)
+    res["registry_load_s"] = time.perf_counter() - t0
+    cm = reg.get("bert")
+    blk = cm._block
+    (ep,) = blk._loaded.values()
+    nodes = sum(str(n.target).startswith("mxtpu.flash_attention_fwd")
+                for n in ep.graph.nodes)
+    res["flash_nodes"] = nodes
+    check(nodes == ART_LAYERS and not ep.state_dict and not ep.constants,
+          f"the exported program holds {nodes} flash nodes, "
+          f"{len(ep.state_dict)} weights and {len(ep.constants)} constants")
+    check(len(cm._graphs) == load_kw["table"].num_buckets()
+          and cm.cache_info()["post_warmup_compiles"] == 0,
+          f"artifact model: {len(cm._graphs)} graphs, {cm.cache_info()}")
+
+    # (d): replies against the factory-built CompiledModel, the same weights
+    ref = serve.CompiledModel(net, **load_kw)
+    rng = onp.random.RandomState(seed + 28)
+    batches = [_art_batch(rng, B, L) for B, L in ART_BATCHES]
+    cuda_ops.reset_launches()
+    got = [cm.predict(*b) for b in batches]
+    torch.cuda.synchronize()
+    res["launches"] = cuda_ops.launch_counts()
+    want = [ref.predict(*b) for b in batches]
+    errs = [_art_err(g, w) for g, w in zip(got, want)]
+    res["vs_factory_max_abs_err"] = max(errs)
+    res["bitwise"] = all(e == 0.0 for e in errs)
+    check(max(errs) <= ART_TOL, f"artifact replies vs the factory model: "
+          f"{errs} > {ART_TOL}")
+    check(res["launches"][fa.KERNEL] == ART_LAYERS * len(batches),
+          f"{res['launches']} for {len(batches)} batches of "
+          f"{ART_LAYERS} layers")
+    table = load_kw["table"]
+    largest = {n: table.sizes(n)[-1] for n in table.axes}
+    key = tuple(cm.signature_for(largest))
+    _, per_kernel = device_split(cm._graphs[key].graph.replay)
+    to_host = [k for k in per_kernel if "DtoH" in k]
+    res["replay_kernels"] = len(per_kernel)
+    check(per_kernel and not to_host, f"a replay moved data to the host: "
+          f"{to_host} ({len(per_kernel)} device events)")
+    print(f"artifacts: registry cold load (import, 28 captures) in "
+          f"{res['registry_load_s']:.2f} s; {nodes} flash nodes; replies vs "
+          f"the factory model max abs err {max(errs):.2e} (bitwise "
+          f"{res['bitwise']}); forward launches {res['launches']} for "
+          f"{len(batches)} batches; a replay of {largest}: "
+          f"{len(per_kernel)} device events, none to the host", flush=True)
+
+    # (e): the weights of a checkpoint through set_weights, in place
+    wrng = onp.random.RandomState(seed + 280)
+    named = sorted(net._collect_params_with_prefix().items())
+    new = {}
+    for name, p in named:
+        w = p.data().asnumpy()
+        new[name] = (w + TIER_WEIGHT_NOISE * (w.std() + 1e-12)
+                     * wrng.standard_normal(w.shape)).astype(w.dtype)
+    compiles = cm.cache_info()["compiles"]
+    ckpt = os.path.join(root, "ckpt")
+    fault.checkpoint.save_checkpoint(
+        ckpt, {f"param:{i:04d}": new[n] for i, (n, _) in enumerate(named)},
+        {"param_names": [n for n, _ in named]}, step=1)
+    t0 = time.perf_counter()
+    arrays, meta, _ = fault.checkpoint.load_latest(ckpt)
+    applied = blk.set_weights(serve.map_checkpoint_arrays(arrays, meta))
+    cm.refresh_params()
+    res["set_weights_s"] = time.perf_counter() - t0
+    serve.apply_weights(net, new)
+    ref.refresh_params()
+    got = [cm.predict(*b) for b in batches[:2]]
+    want_new = [ref.predict(*b) for b in batches[:2]]
+    after = max(_art_err(g, w) for g, w in zip(got, want_new))
+    moved = max(_art_err(g, w) for g, w in zip(got, want[:2]))
+    res["weights"] = {"applied": applied, "vs_new_max_abs_err": after,
+                      "vs_old_max_abs_err": moved,
+                      "captures_added": cm.cache_info()["compiles"]
+                      - compiles}
+    check(applied == len(named) and after <= ART_TOL
+          and moved > 10 * ART_TOL
+          and cm.cache_info()["compiles"] == compiles,
+          f"set_weights from a checkpoint: {res['weights']}")
+    print(f"artifacts: {applied} arrays of a checkpoint through set_weights "
+          f"in {res['set_weights_s']:.2f} s, 0 captures; replies vs the new "
+          f"weights {after:.2e}, vs the old {moved:.2e}", flush=True)
+    return res
+
+
+def art_restarts(root: str, load_kw: dict) -> dict:
+    """(f): a replica's load timed three ways in turns: from the factory,
+    through the cache on a miss (factory, export, put, load) and on a hit
+    (no model built); then a corrupted entry evicted as a miss."""
+    cache = serve.ArtifactCache(os.path.join(root, "cache"))
+    built = []
+
+    def factory():
+        built.append(1)
+        return _tier_bert()
+
+    def loader(with_cache):
+        def load(rep):
+            rep.load("bert", factory=factory, example_args=ART_EXAMPLE,
+                     input_names=ART_INPUTS,
+                     cache=cache if with_cache else None, **load_kw)
+        return load
+
+    res = {}
+    for how in ("factory", "miss", "hit"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_built = len(built)
+        rep = serve.Replica(how, loader(how != "factory"))
+        t0 = time.perf_counter()
+        rep.start()
+        res[f"{how}_s"] = time.perf_counter() - t0
+        cm = rep.registry.get("bert")
+        check(rep.healthy() and len(cm._graphs)
+              == load_kw["table"].num_buckets()
+              and cm._mode == ("block" if how == "factory" else "artifact")
+              and len(built) - n_built == (0 if how == "hit" else 1),
+              f"restart by {how}: {rep.state}, {len(cm._graphs)} graphs, "
+              f"mode {cm._mode}, models built {len(built) - n_built}")
+        rep.stop()
+        del rep, cm
+    stats = cache.snapshot()
+    check(stats == {"hits": 1, "misses": 1, "corrupt": 0, "puts": 1},
+          f"cache after miss and hit: {stats}")
+    with inject.chaos(seed=28, crash_sites=["corrupt_artifact"]):
+        missed = cache.get("bert", 1, load_kw["table"],
+                           load_kw["input_axes"]) is None
+    stats = res["cache"] = cache.snapshot()
+    check(missed and stats["corrupt"] == 1 and not os.listdir(
+        os.path.join(root, "cache", "bert")),
+          f"a corrupted entry was not evicted as a miss: {stats}")
+    print(f"artifacts: a replica's load from the factory "
+          f"{res['factory_s']:.2f} s, through the cache on a miss "
+          f"{res['miss_s']:.2f} s, on a hit {res['hit_s']:.2f} s (no model "
+          f"built); a corrupted entry evicted as a miss; cache {stats} on "
+          f"{card_line()}", flush=True)
+    return res
+
+
+def art_backends() -> dict:
+    """(g): ``optimize_for("INT8")`` and a ``DENSE_ACT`` partition, card
+    against CPU, from the same weights."""
+    from incubator_mxnet_tpu_torch.quantization import _QuantizedLayerBase
+    rng = onp.random.RandomState(28)
+    x = rng.randn(4, 1, 12, 12).astype("float32")
+    res = {}
+    with tempfile.TemporaryDirectory() as root:
+        outs, nets = {}, {}
+        for dev, ctx in (("cpu", mx.cpu()), ("gpu", mx.gpu(0))):
+            with ctx:
+                net = gluon.nn.HybridSequential(prefix="q_")
+                with net.name_scope():
+                    net.add(gluon.nn.Conv2D(8, kernel_size=3, padding=1,
+                                            activation="relu",
+                                            in_channels=1))
+                    net.add(gluon.nn.MaxPool2D(pool_size=2, strides=2))
+                    net.add(gluon.nn.Flatten())
+                    net.add(gluon.nn.Dense(32, activation="relu",
+                                           in_units=288))
+                    net.add(gluon.nn.Dense(10, in_units=32))
+                if dev == "cpu":
+                    mx.random.seed(28)
+                    net.initialize(mx.init.Xavier())
+                    net.save_parameters(f"{root}/q.params")
+                else:
+                    net.load_parameters(f"{root}/q.params", ctx=ctx)
+                xs = nd.array(x)
+                outs[dev] = net.optimize_for(
+                    xs, backend="INT8", calib_data=[xs]).asnumpy()
+                nets[dev] = net
+        swapped = [c for c in nets["gpu"]._children.values()
+                   if isinstance(c, _QuantizedLayerBase)]
+        step = max(max(abs(v) for v in c._range) for c in swapped) / 127
+        err = float(onp.abs(outs["gpu"] - outs["cpu"]).max())
+        same_q = all(onp.array_equal(a.qweight.data().asnumpy(),
+                                     b.qweight.data().asnumpy())
+                     for a, b in zip(
+                         [c for c in nets["cpu"]._children.values()
+                          if isinstance(c, _QuantizedLayerBase)], swapped))
+        res["int8"] = {"layers": len(swapped), "max_abs_err": err,
+                       "int8_step": step, "qweights_equal": same_q}
+        check(len(swapped) == 3 and same_q and err <= step,
+              f"optimize_for INT8 card vs CPU: {res['int8']}")
+        h = rng.randn(16, 64).astype("float32")
+        outs = {}
+        for dev, ctx in (("cpu", mx.cpu()), ("gpu", mx.gpu(0))):
+            with ctx:
+                net = gluon.nn.HybridSequential(prefix="da_")
+                with net.name_scope():
+                    net.add(gluon.nn.Dense(256, activation="tanh",
+                                           in_units=64))
+                    net.add(gluon.nn.Dense(10, in_units=256))
+                if dev == "cpu":
+                    mx.random.seed(29)
+                    net.initialize(mx.init.Xavier())
+                    net.save_parameters(f"{root}/d.params")
+                else:
+                    net.load_parameters(f"{root}/d.params", ctx=ctx)
+                plain = net(nd.array(h)).asnumpy()
+                part = net.optimize_for(nd.array(h), backend="DENSE_ACT")
+                ops = [n._op for n in mx.sym._topo(net._sg_graph[0])]
+                outs[dev] = (part.asnumpy(), plain, ops)
+        scale = float(onp.abs(outs["cpu"][0]).max())
+        res["dense_act"] = {
+            "rel_err": float(onp.abs(outs["gpu"][0] - outs["cpu"][0]).max())
+            / scale,
+            "vs_plain_rel_err": float(onp.abs(
+                outs["gpu"][0] - outs["gpu"][1]).max()) / scale,
+            "fused": outs["gpu"][2].count("_sg_dense_act")}
+        d = res["dense_act"]
+        check(d["rel_err"] <= ART_DENSE_RTOL and d["fused"] == 1
+              and d["vs_plain_rel_err"] <= ART_DENSE_RTOL,
+              f"DENSE_ACT card vs CPU: {d}")
+    print(f"artifacts: optimize_for INT8 card vs CPU {res['int8']}; "
+          f"DENSE_ACT {res['dense_act']}", flush=True)
+    return res
+
+
+def phase_artifacts(seed: int) -> dict:
+    """28. artifacts (the module docstring)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spec = models.serve_spec("bert_encoder")
+    load_kw = dict(table=serve.BucketTable(TIER_TABLE),
+                   input_axes=spec["input_axes"],
+                   output_axes=spec["output_axes"],
+                   pad_values=spec["pad_values"])
+    root = tempfile.mkdtemp(prefix="mx-artifacts-")
+    try:
+        res = art_serve(root, load_kw, seed)
+        res["card"] = card_line()
+        launches = res["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        cuda_ops.reset_launches()
+        res["restarts"] = art_restarts(root, load_kw)
+        res["backends"] = art_backends()
+        t1 = time.perf_counter()
+        with mx.gpu(0):
+            ex = models.serving_example(requests=ART_EXAMPLE_REQUESTS,
+                                        export_dir=os.path.join(root, "ex"))
+        cc = ex["metrics"]["compile_cache"]
+        res["example"] = {"served": ex["served"], "seconds":
+                          time.perf_counter() - t1, "compile_cache": cc}
+        check(ex["served"] == ART_EXAMPLE_REQUESTS
+              and cc["post_warmup_compiles"] == 0,
+              f"serving_example: {res['example']}")
+        rest = cuda_ops.launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in (fa.KERNEL_BWD_DKV, fa.KERNEL_BWD_DQ):
+        check(launches[name] == rest[name] == 0,
+              f"the artifact phase launched the backward kernel {name}")
+    res["seconds"] = time.perf_counter() - t0
+    print(f"artifacts: serving_example served {ex['served']} requests in "
+          f"{res['example']['seconds']:.1f} s, 0 captures after warmup "
+          f"({cc['cached_executables']} buckets); phase "
+          f"{res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -6610,6 +6965,7 @@ def main(argv=None) -> int:
     data_res = phase_data()
     tier_res = phase_serve_tier(args.seed)
     sym_res = phase_symbol()
+    art_res = phase_artifacts(args.seed)
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -6675,7 +7031,8 @@ def main(argv=None) -> int:
                                  "serve_tier": tier_res["launches"][name],
                                  "serve_tier_generate": tier_res[
                                      "launches_generate"][name],
-                                 "symbol": sym_res["launches"][name]},
+                                 "symbol": sym_res["launches"][name],
+                                 "artifacts": art_res["launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -6700,7 +7057,8 @@ def main(argv=None) -> int:
                        "mobilenet": mob_res, "zoo": zoo_res,
                        "gluon_rest": rest, "fault": fault_res,
                        "data": data_res, "serve_tier": tier_res,
-                       "symbol": sym_res, "kernels": kernels},
+                       "symbol": sym_res, "artifacts": art_res,
+                       "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -54,7 +54,11 @@ with ``g++`` at first use), the rest of ``mx.io`` (``ImageRecordIter``,
 shared memory) and ``tools.im2rec``; and the serving tier; and the
 symbolic API: ``mx.sym`` (``Symbol``, ``Executor`` replaying CUDA graphs
 on the card), ``mx.name``, ``mx.AttrScope``, ``mx.module.Module`` with
-``fit``, ``mx.model``, ``mx.callback``, ``mx.monitor`` and ``mx.viz``.
+``fit``, ``mx.model``, ``mx.callback``, ``mx.monitor`` and ``mx.viz``;
+and the deploy path: ``HybridBlock.export`` (``torch.export`` programs
+with the flash forward as the op ``mxtpu::flash_attention_fwd``),
+``gluon.SymbolBlock``, ``mx.subgraph`` and ``optimize_for``, and serving
+from an artifact (``serve.export_for_serving``, ``serve.ArtifactCache``).
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
@@ -68,6 +72,7 @@ from . import (  # noqa: F401
 )
 from . import (  # noqa: F401
     name, attribute, symbol, model, callback, module, monitor, visualization,
+    subgraph,
 )
 from .attribute import AttrScope  # noqa: F401
 
@@ -87,4 +92,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "metric", "io", "contrib", "image", "amp", "quantization",
            "fault", "lockcheck", "native", "recordio", "name", "attribute",
            "AttrScope", "symbol", "sym", "model", "callback", "module",
-           "monitor", "visualization", "viz"]
+           "monitor", "visualization", "viz", "subgraph"]

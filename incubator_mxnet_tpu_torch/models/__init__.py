@@ -10,7 +10,7 @@ from .bert import (  # noqa: F401
     BERT_CONFIGS, BERTEncoder, BERTModel, bert_pretrain_loss, get_bert,
 )
 from .lenet import (  # noqa: F401
-    LeNet, lenet_symbol, mlp_symbol, mnist_example,
+    LeNet, lenet_symbol, mlp_symbol, mnist_example, serving_example,
 )
 from .nmt import (  # noqa: F401
     NMTModel, TransformerDecoder, TransformerEncoder, beam_search,

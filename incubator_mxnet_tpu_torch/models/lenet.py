@@ -6,7 +6,8 @@ Counterpart: the JAX package's ``models/lenet.py`` (``LeNet`` at ``:16``,
 ``examples/train_mnist.py``, whose ``main`` (``:76-105``) is
 :func:`mnist_example` here, argument for argument: the same synthetic
 blobs (``:52-73``), ``Module.fit`` with SGD momentum 0.9 and a
-``Speedometer``, then ``score``.
+``Speedometer``, then ``score``; and ``examples/serving.py``, whose
+``main`` (``:29-84``) is :func:`serving_example`.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from ..gluon.block import HybridBlock
 from .. import nn
 
 __all__ = ["LeNet", "lenet", "lenet_symbol", "mlp_symbol", "mnist_iters",
-           "mnist_example"]
+           "mnist_example", "serving_example"]
 
 
 class LeNet(HybridBlock):
@@ -143,3 +144,56 @@ def mnist_example(network: str = "mlp", num_epochs: int = 5,
     acc = dict(res)["accuracy"]
     print(f"final accuracy: {acc:.4f}")
     return acc
+
+
+def serving_example(requests: int = 200, max_batch: int = 8,
+                    deadline_ms: float = 5.0, ckpt_dir: Optional[str] = None,
+                    export_dir: Optional[str] = None, ctx=None) -> dict:
+    """The JAX package's ``examples/serving.py`` loop on ``ctx`` (default:
+    the current context): a LeNet with one recorded forward, exported for
+    every batch bucket up to ``max_batch`` (``serve.export_for_serving``),
+    cold-loaded into a ``ModelRegistry`` from the artifact (the newest
+    verified checkpoint under ``ckpt_dir`` over its weights), warmed, then
+    ``requests`` single 28x28 images from ``RandomState(0)`` through a
+    ``DynamicBatcher``. Returns the example's report: ``served``,
+    ``class_histogram`` and ``metrics`` (the batcher's, with the model's
+    compile counters, whose ``post_warmup_compiles`` the example holds at
+    0: the caller's exit code)."""
+    import tempfile
+    from .. import serve
+    from ..context import current_context
+    from ..ndarray import array
+    from . import serve_spec
+
+    ctx = ctx or current_context()
+    with ctx:
+        net = LeNet()
+        net.initialize()
+        net.hybridize()
+        x = array(onp.zeros((2, 1, 28, 28), "float32"))
+        net(x)
+        net(x)
+        table = serve.BucketTable({"batch": (1, max_batch)})
+        spec = serve_spec("lenet")
+        export_dir = export_dir or tempfile.mkdtemp(prefix="mx-serve-")
+        os.makedirs(export_dir, exist_ok=True)
+        prefix = os.path.join(export_dir, "lenet")
+        serve.export_for_serving(net, prefix, table, spec["input_axes"])
+        reg = serve.ModelRegistry()
+        reg.load("lenet", table=table, input_axes=spec["input_axes"],
+                 output_axes=spec["output_axes"], artifacts=prefix,
+                 ckpt_root=ckpt_dir)
+        model = reg.get("lenet")
+        batcher = serve.DynamicBatcher(model, max_delay_ms=deadline_ms,
+                                       max_batch=max_batch).start()
+        rng = onp.random.RandomState(0)
+        futures = [batcher.submit(rng.randn(1, 28, 28).astype("float32"))
+                   for _ in range(requests)]
+        preds = [int(onp.asarray(f.result(timeout=60)).argmax())
+                 for f in futures]
+        snapshot = batcher.metrics.snapshot(model)
+        batcher.stop()
+    return {"served": len(preds),
+            "class_histogram": onp.bincount(onp.asarray(preds),
+                                            minlength=10).tolist(),
+            "metrics": snapshot}

@@ -32,6 +32,7 @@ from ..ops import detection as _det
 from ..ops import nn as _nn  # noqa: F401  (registers the nn ops)
 from ..ops import optimizer_ops as _opt_ops
 from ..ops import quantization as _quant
+from ..ops import subgraph_ops as _sg_ops  # noqa: F401  (the partitioner's)
 from ..ops import tensor as _tensor  # noqa: F401  (registers the tensor ops)
 from ..ops import vision as _vision  # noqa: F401  (registers MakeLoss last)
 from ..ops.registry import OPS, register_op

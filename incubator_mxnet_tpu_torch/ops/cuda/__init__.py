@@ -4,7 +4,10 @@ Each kernel has one source ``csrc/<name>.cu``, a wrapper module here with a
 plain PyTorch version of the same function beside it, and a launch count
 in that module's ``launches`` dict, which counts the launches of a
 captured CUDA graph on each replay (:mod:`.graphs`). :data:`KERNELS` lists
-them for callers that drive every kernel (``chip_smoke.py``).
+them for callers that drive every kernel (``chip_smoke.py``). Importing
+this package registers the flash forward as the op
+``mxtpu::flash_attention_fwd``, which every exported program names, so
+``torch.export.load`` finds it in any process that imported the port.
 """
 from typing import Dict
 

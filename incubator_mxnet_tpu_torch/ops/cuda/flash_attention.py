@@ -15,8 +15,10 @@ Routing: a tensor on the card goes to the kernels, which launch or raise; a
 tensor on the CPU goes to the plain versions
 (:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`). :func:`flash_attention` records the
 backward (:class:`FlashAttentionFunction`) when grad is enabled and q, k or
-v requires it; under ``torch.no_grad()`` or ``torch.inference_mode()`` it
-runs the forward alone.
+v requires it; otherwise (``torch.no_grad()``, ``torch.inference_mode()``,
+an export) it runs the forward alone, through the registered op
+``mxtpu::flash_attention_fwd`` (:func:`flash_attention_fwd`), so an
+exported program holds one node per attention call.
 
 A row that sees no key at all (every key masked, or hidden by the causal
 band) gives the mean of V over all ``Lk`` keys, cast to q's dtype, and
@@ -42,9 +44,9 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_bwd_reference",
            "flash_attention_bwd_dkv_reference",
            "flash_attention_bwd_dq_reference", "flash_supported",
-           "FlashAttentionFunction", "KERNEL", "KERNEL_BWD_DKV",
-           "KERNEL_BWD_DQ", "KERNELS", "SUPPORTED_HEAD_DIMS", "MAX_TILE",
-           "launches"]
+           "FlashAttentionFunction", "flash_attention_fwd", "KERNEL",
+           "KERNEL_BWD_DKV", "KERNEL_BWD_DQ", "KERNELS",
+           "SUPPORTED_HEAD_DIMS", "MAX_TILE", "launches"]
 
 _NEG = -1e30
 KERNEL = "flash_attention_fwd"
@@ -376,6 +378,38 @@ def _bwd(q, k, v, key_mask, causal, scale, window, lse, do, delta):
     raise MXNetError(f"flash_attention runs on cuda or cpu, not {q.device}")
 
 
+@torch.library.custom_op("mxtpu::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_mask: Optional[torch.Tensor], causal: bool,
+                        scale: float, window: Optional[int]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as the registered op ``mxtpu::flash_attention_fwd``:
+    ``(o, lse)`` for a (B, Lk) key mask or None. On the card it is the
+    kernel (:func:`_fwd_cuda`: it launches or raises), on the CPU the plain
+    version; ``register_fake`` gives the shapes, so ``torch.export`` records
+    one node per call that a saved program names, and a loaded one runs on
+    whichever device its tensors are on. The name is part of every saved
+    artifact: it stays."""
+    raise MXNetError(f"flash_attention runs on cuda or cpu, not {q.device}")
+
+
+@flash_attention_fwd.register_kernel("cuda")
+def _fwd_op_cuda(q, k, v, key_mask, causal, scale, window):
+    return _fwd_cuda(q, k, v, key_mask, causal, scale, window)
+
+
+@flash_attention_fwd.register_kernel("cpu")
+def _fwd_op_cpu(q, k, v, key_mask, causal, scale, window):
+    return flash_attention_reference(q, k, v, key_mask, causal, scale,
+                                     window)
+
+
+@flash_attention_fwd.register_fake
+def _fwd_op_fake(q, k, v, key_mask, causal, scale, window):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3],
+                                             dtype=torch.float32)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with its backward on the dK/dV and dQ kernels (JAX
     counterpart: the custom VJP ``_flash``, ``flash_attention.py:507-525``).
@@ -425,5 +459,6 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, key_mask, causal, scale,
                                             window)
-    o, _ = _fwd(q, k, v, key_mask, causal, scale, window)
+    o, _ = flash_attention_fwd(q, k, v, key_mask, bool(causal), scale,
+                               window)
     return o

@@ -14,7 +14,11 @@
 :class:`Server`           in-process and JSON-lines TCP front end (the
                           JAX package's wire protocol)
 :class:`Replica`          one independent worker (a private registry and
-                          batchers); crash and restart lifecycle
+                          batchers); crash and restart lifecycle, the
+                          restart from the artifact cache
+:class:`ArtifactCache`    CRC-checked on-disk cache of exported bundles
+                          (``export_for_serving``); a corrupt entry is
+                          evicted and served as a miss
 :class:`Router`           health-checked failover routing, retries and
                           hedging, admission control and load shedding,
                           the training-to-serving weight pipe
@@ -35,16 +39,20 @@ Minimal end to end::
     serve.client_call("127.0.0.1", srv.port,
                       {"model": "bert", "inputs": [ids, types, [n]]})
 
-``export_for_serving``, ``ArtifactCache``, ``ArtifactCorruptError`` and
-``signature_key`` (the artifact path) wait for the port's
-``export``/``SymbolBlock`` (ROADMAP queue A, item 7).
+From an artifact, no Python model at serving time::
+
+    serve.export_for_serving(net, "deploy/bert", table, spec["input_axes"])
+    reg.load("bert", table=table, input_axes=spec["input_axes"],
+             artifacts="deploy/bert", output_axes=spec["output_axes"])
 """
 from .batcher import (  # noqa: F401
     DynamicBatcher, QueueFullError, ServeFuture, make_registry_batcher,
     stack_examples,
 )
 from .buckets import BucketOverflow, BucketTable, round_up_pow2  # noqa: F401
-from .compiled import CompiledModel  # noqa: F401
+from .artifact_cache import (ArtifactCache,  # noqa: F401
+                             ArtifactCorruptError, signature_key)
+from .compiled import CompiledModel, export_for_serving  # noqa: F401
 from .metrics import ServeMetrics  # noqa: F401
 from .registry import (ModelRegistry, ModelVersion,  # noqa: F401
                        apply_weights, map_checkpoint_arrays)
@@ -59,7 +67,8 @@ from .decode import (  # noqa: F401
 )
 
 __all__ = ["BucketTable", "BucketOverflow", "round_up_pow2",
-           "CompiledModel",
+           "CompiledModel", "export_for_serving",
+           "ArtifactCache", "ArtifactCorruptError", "signature_key",
            "DynamicBatcher", "QueueFullError", "ServeFuture",
            "ServeMetrics", "ModelRegistry", "ModelVersion",
            "apply_weights", "map_checkpoint_arrays",

@@ -26,8 +26,16 @@ the counter the serving contract asserts on.
 weights written in place (``Parameter.set_data`` copies) need nothing,
 since the graphs read the parameters' own storage; a parameter given new
 storage (re-initialised, cast) makes every captured bucket capture again,
-each counted as a compile. Artifact mode, numerics taps, the autotune
-consult and the memory ledger come with later slices.
+each counted as a compile. Numerics taps, the autotune consult and the
+memory ledger come with later slices.
+
+Artifact mode (JAX ``:114-125``): over a :class:`~..gluon.SymbolBlock`
+imported from :func:`export_for_serving`'s files, a bucket runs (on the
+card: its graph captures) the loaded ``torch.export`` program over the
+artifact's parameters, with no Python model. The signature comes from the
+manifest; a bucket the artifact was not exported for raises, naming the
+ones it has. Its parameters are the block's own tensors, so
+``SymbolBlock.set_weights`` reaches every graph with no capture.
 """
 from __future__ import annotations
 
@@ -42,11 +50,12 @@ from torch import nn
 
 from ..base import MXNetError, dtype_name, torch_dtype
 from ..context import as_context, resolve_device
+from ..gluon.block import SymbolBlock, _rebuild_args
 from ..ndarray import NDArray
 from ..ops.cuda import graphs
 from .buckets import BucketTable
 
-__all__ = ["CompiledModel"]
+__all__ = ["CompiledModel", "export_for_serving"]
 
 
 def _as_numpy(x) -> onp.ndarray:
@@ -125,13 +134,22 @@ class CompiledModel:
                              f"{type(block)}")
         if ctx is not None:
             _place(block, as_context(ctx))
-        if example_args is not None:
+        self._skeleton = None
+        if isinstance(block, SymbolBlock):
+            if not block._sigs:
+                raise MXNetError("artifact has no torch.export programs; "
+                                 "re-export with HybridBlock.export()")
+            self._mode = "artifact"
+            in_avals = [(tuple(s), str(d))
+                        for s, d in block._sigs[0]["in_avals"]]
+        elif example_args is not None:
+            self._mode = "block"
             in_avals = [(tuple(a.shape), _dtype_name(
                 a.dtype if hasattr(a, "dtype") else onp.asarray(a).dtype))
                 for a in example_args]
         elif getattr(block, "_last_sig", None) is not None:
-            in_avals = [(tuple(s), _dtype_name(d))
-                        for s, d in block._last_sig]
+            self._mode = "block"
+            self._skeleton, _, in_avals, _ = block._last_sig
         else:
             raise MXNetError(
                 "CompiledModel over a live block needs either a prior "
@@ -142,7 +160,7 @@ class CompiledModel:
         self._input_axes = [dict(a) for a in input_axes]
         self._output_axes = ([dict(a) for a in output_axes]
                              if output_axes is not None else None)
-        p = next(iter(block.parameters()), None)
+        p = next(iter(self._tensors()), None)
         self._device = p.device if p is not None else resolve_device()
         self._graphed = self._device.type == "cuda"
         self._lock = threading.RLock()
@@ -184,7 +202,10 @@ class CompiledModel:
 
     # -- parameters -----------------------------------------------------
     def _tensors(self) -> List[torch.Tensor]:
-        """The module's parameters and buffers, once each."""
+        """The module's parameters and buffers (an artifact's parameters),
+        once each."""
+        if self._mode == "artifact":
+            return self._block._param_tensors()
         seen = {}
         for t in itertools.chain(self._block.parameters(),
                                  self._block.buffers()):
@@ -258,8 +279,10 @@ class CompiledModel:
 
     def _forward(self, inputs: List[torch.Tensor]
                  ) -> Tuple[List[torch.Tensor], bool]:
+        args = inputs if self._skeleton is None \
+            else _rebuild_args(self._skeleton, iter(inputs))
         with torch.inference_mode():
-            outs = self._block(*inputs)
+            outs = self._block(*args)
         multi = isinstance(outs, (tuple, list))
         return (list(outs) if multi else [outs]), multi
 
@@ -412,3 +435,33 @@ class CompiledModel:
                     slicer[axis] = slice(0, sizes[name])
             outs.append(o[tuple(slicer)])
         return outs
+
+
+def export_for_serving(block, path: str, table: BucketTable,
+                       input_axes: Sequence[Dict[int, str]],
+                       epoch: int = 0, platforms=None) -> Tuple[str, str]:
+    """Export ``block`` for every bucket of ``table`` (JAX counterpart:
+    ``serve/compiled.py:456``): the recorded signature of its last forward
+    on arrays with the bucketed axes of ``input_axes`` set to each bucket
+    assignment, through :meth:`~..gluon.HybridBlock.export` (one program
+    that every bucket's manifest entry names). The files cold-load with
+    ``SymbolBlock.imports`` or ``ModelRegistry.load(artifacts=)`` and serve
+    every bucket with no Python model and no capture after warmup."""
+    if getattr(block, "_last_sig", None) is None:
+        raise MXNetError("export_for_serving needs a traced graph: call "
+                         "hybridize() and run one forward first")
+    _, n_in, in_avals, _ = block._last_sig
+    if len(input_axes) != n_in:
+        raise MXNetError(f"input_axes has {len(input_axes)} entries but "
+                         f"the model takes {n_in} array inputs")
+    signatures = []
+    for assignment in table.assignments():
+        sig = []
+        for (shape, dtype), spec in zip(in_avals, input_axes):
+            s = list(shape)
+            for axis, name in spec.items():
+                s[axis] = assignment[name]
+            sig.append((tuple(s), dtype))
+        signatures.append(sig)
+    return block.export(path, epoch=epoch, platforms=platforms,
+                        signatures=signatures)

@@ -12,9 +12,12 @@ staging copy before the version table is touched, and a hung loader is cut
 by a :class:`~..fault.watchdog.Watchdog` deadline (``deadline_s``).
 
 A version comes from ``factory=``, a zero-argument callable returning the
-block (the checkpoint under ``ckpt_root=``, if given, overrides its
-weights). The same architecture and bucket table make a version swap
-:meth:`CompiledModel.refresh_params`: :func:`apply_weights` writes in
+block, or from ``artifacts=``, the prefix of an :func:`~.compiled.
+export_for_serving` bundle imported as a :class:`~..gluon.SymbolBlock`
+with retry (no Python model); the checkpoint under ``ckpt_root=``, if
+given, overrides its weights (``apply_weights``, or the artifact's
+``set_weights``). The same architecture and bucket table make a version
+swap :meth:`CompiledModel.refresh_params`: :func:`apply_weights` writes in
 place through ``Parameter.set_data``, so a swap captures nothing.
 
 With ``MXTPU_HBM_BUDGET`` set, a staged version whose measured residency
@@ -22,10 +25,8 @@ With ``MXTPU_HBM_BUDGET`` set, a staged version whose measured residency
 graphs' memory pool after warmup) is over budget is rejected while the
 active version keeps serving: the counterpart of the JAX ladder preflight
 (``:291-324``), priced from measured bytes as the decode engine prices
-its pool. The ``artifacts=`` source (StableHLO export, ``SymbolBlock``)
-waits for the port's ``export``/``SymbolBlock`` (ROADMAP queue A, item
-7), and the ``analysis.hlo`` MX7xx passes and the telemetry events for
-the ``telemetry``/``analysis`` port (item 8).
+its pool. The ``analysis.hlo`` MX7xx passes and the telemetry events wait
+for the ``telemetry``/``analysis`` port (ROADMAP queue A, item 8).
 """
 from __future__ import annotations
 
@@ -47,12 +48,6 @@ from .compiled import CompiledModel
 
 __all__ = ["ModelRegistry", "ModelVersion", "map_checkpoint_arrays",
            "apply_weights"]
-
-#: where the deferred sources of the JAX registry are planned
-_ARTIFACTS_LATER = ("artifacts= (a StableHLO export loaded as a "
-                    "SymbolBlock) waits for the port's export/SymbolBlock, "
-                    "ROADMAP queue A item 7; use factory=")
-
 
 class ModelVersion:
     """One immutable (name, version) entry: the compiled model and its
@@ -160,21 +155,24 @@ class ModelRegistry:
              example_args: Optional[Sequence] = None,
              ckpt_root: Optional[str] = None,
              version: Optional[int] = None,
-             warmup: bool = True,
+             input_names: Optional[Sequence[str]] = None,
+             epoch: int = 0, warmup: bool = True,
              output_axes: Optional[Sequence[Dict[int, str]]] = None,
              pad_values: Any = 0, analyze: bool = True,
              deadline_s: Optional[float] = None) -> ModelVersion:
         """Build, check, warm (capture) and install one model version.
-        Everything that can fail happens on a staging copy; the table is
-        touched only on success, so the active version keeps serving
-        through a failed load (module docstring). ``analyze=True`` runs
-        the budget preflight (the MX7xx passes wait for the ``analysis``
-        port). ``deadline_s`` bounds the staging build: a hung loader
-        aborts with the active version serving, its thread left detached
-        (a capture or a factory cannot be interrupted safely)."""
-        if artifacts is not None:
-            raise MXNetError(_ARTIFACTS_LATER)
-        if factory is None:
+        Everything that can fail (the artifact's import, the checkpoint's
+        load, each under the registry's retry policy, and the captures)
+        happens on a staging copy; the table is touched only on success,
+        so the active version keeps serving through a failed load (module
+        docstring). ``artifacts=`` is the prefix of an exported bundle
+        (``<prefix>-symbol.json``, ``<prefix>-<epoch>.params``), loaded on
+        the current context. ``analyze=True`` runs the budget preflight
+        (the MX7xx passes wait for the ``analysis`` port). ``deadline_s``
+        bounds the staging build: a hung loader aborts with the active
+        version serving, its thread left detached (a capture or a factory
+        cannot be interrupted safely)."""
+        if (artifacts is None) == (factory is None):
             raise MXNetError("pass exactly one of artifacts= (cold start "
                              "from an exported prefix) or factory= (live "
                              "Block constructor)")
@@ -190,8 +188,9 @@ class ModelRegistry:
         def stage():
             return self._stage(
                 name, version, table=table, input_axes=input_axes,
-                factory=factory, example_args=example_args,
-                ckpt_root=ckpt_root, warmup=warmup,
+                artifacts=artifacts, factory=factory,
+                example_args=example_args, ckpt_root=ckpt_root,
+                input_names=input_names, epoch=epoch, warmup=warmup,
                 output_axes=output_axes, pad_values=pad_values,
                 analyze=analyze)
 
@@ -219,22 +218,49 @@ class ModelRegistry:
                 self._active[name] = version
         return entry
 
-    def _stage(self, name: str, version: int, *, table, input_axes, factory,
-               example_args, ckpt_root, warmup, output_axes, pad_values,
-               analyze):
+    def _stage(self, name: str, version: int, *, table, input_axes,
+               artifacts, factory, example_args, ckpt_root, input_names,
+               epoch, warmup, output_axes, pad_values, analyze):
         """The failable half of :meth:`load`: builds, checks and warms one
-        :class:`CompiledModel` without touching the registry."""
-        block = factory()
-        if ckpt_root is not None:
-            weights = _weights_from_checkpoint(ckpt_root, self._policy)
-            if not apply_weights(block, weights):
-                raise MXNetError(
-                    f"checkpoint under {ckpt_root!r} matched 0 of the "
-                    f"factory model's parameters (checkpoint names: "
-                    f"{sorted(weights)[:4]}...) — name-scope mismatch?")
-        source: Dict[str, Any] = {
-            "factory": getattr(factory, "__name__", "factory"),
-            "ckpt_root": ckpt_root}
+        :class:`CompiledModel` without touching the registry (JAX
+        counterpart: ``serve/registry.py:222``)."""
+        if artifacts is not None:
+            from ..gluon.block import SymbolBlock
+            sym_file = f"{artifacts}-symbol.json"
+            params_file = f"{artifacts}-{epoch:04d}.params"
+            block = call_with_retry(
+                lambda: SymbolBlock.imports(
+                    sym_file, list(input_names or ["data"]), params_file),
+                policy=self._policy,
+                describe=f"artifact import from {artifacts!r}")
+            if ckpt_root is not None:
+                weights = _weights_from_checkpoint(ckpt_root, self._policy)
+                applied = block.set_weights(weights, allow_missing=True,
+                                            ignore_extra=True)
+                if not applied:
+                    # every name fell through the mapping: the version
+                    # would serve the artifact's weights while claiming
+                    # the checkpoint's
+                    raise MXNetError(
+                        f"checkpoint under {ckpt_root!r} matched 0 of the "
+                        f"artifact's parameters (checkpoint names: "
+                        f"{sorted(weights)[:4]}...; artifact names: "
+                        f"{sorted(block._arch.get('param_order', []))[:4]}"
+                        "...) — was it written by a trainer over a "
+                        "different model or name scope?")
+            source: Dict[str, Any] = {"artifacts": artifacts,
+                                      "ckpt_root": ckpt_root}
+        else:
+            block = factory()
+            if ckpt_root is not None:
+                weights = _weights_from_checkpoint(ckpt_root, self._policy)
+                if not apply_weights(block, weights):
+                    raise MXNetError(
+                        f"checkpoint under {ckpt_root!r} matched 0 of the "
+                        f"factory model's parameters (checkpoint names: "
+                        f"{sorted(weights)[:4]}...) — name-scope mismatch?")
+            source = {"factory": getattr(factory, "__name__", "factory"),
+                      "ckpt_root": ckpt_root}
         compiled = CompiledModel(block, table, input_axes,
                                  example_args=example_args,
                                  output_axes=output_axes,

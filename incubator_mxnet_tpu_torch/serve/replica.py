@@ -25,21 +25,27 @@ Lifecycle::
 - ``restart()`` rebuilds from scratch, as a respawned process would: a
   fresh registry and fresh batchers, the loader run again (its models'
   bucket graphs captured again; two replicas on one card capture one at a
-  time, :mod:`...ops.cuda.graphs`).
+  time, :mod:`...ops.cuda.graphs`). A loader that loads through an
+  :class:`~.artifact_cache.ArtifactCache` (``load(cache=)``) restarts from
+  the verified artifact, with no Python model built.
 
 The ``router.health`` events and the flight bundle of a kill wait for the
-``telemetry`` port (ROADMAP queue A, item 8), and ``load(cache=)`` (the
-artifact cache's prewarm) for item 7.
+``telemetry`` port (ROADMAP queue A, item 8).
 """
 from __future__ import annotations
 
 import time
 from typing import Callable, Dict, Optional, Sequence
 
+import numpy as onp
+import torch
+
+from .. import autograd
 from ..base import MXNetError
 from ..fault import inject
 from ..fault.inject import ChaosCrash
 from ..lockcheck import make_lock
+from .artifact_cache import ArtifactCache
 from .batcher import (DynamicBatcher, QueueFullError, ServeFuture,
                       make_registry_batcher)
 from .buckets import BucketTable
@@ -50,6 +56,18 @@ __all__ = ["Replica", "ReplicaUnavailable", "ReplicaCrashed"]
 #: legal lifecycle states (the module docstring's state machine)
 STATES = ("new", "loading", "healthy", "unhealthy", "draining",
           "restarting", "crashed", "stopped")
+
+
+def _record_forward(block, example_args) -> None:
+    """One inference forward of ``block`` on ``example_args`` as NDArrays
+    on its parameters' device: the signature an export traces."""
+    from ..ndarray import NDArray
+    p = next(iter(block.parameters()), None)
+    device = p.device if p is not None else torch.device("cpu")
+    args = [NDArray(torch.as_tensor(onp.asarray(a)).to(device))
+            for a in example_args]
+    with autograd.pause(train_mode=False), torch.no_grad():
+        block(*args)
 
 
 class ReplicaUnavailable(MXNetError):
@@ -128,24 +146,47 @@ class Replica:
              input_axes: Sequence[Dict[int, str]],
              factory: Optional[Callable] = None,
              artifacts: Optional[str] = None,
-             cache=None, version: int = 1,
+             cache: Optional[ArtifactCache] = None, version: int = 1,
+             input_names: Optional[Sequence[str]] = None,
              example_args: Optional[Sequence] = None,
              output_axes: Optional[Sequence[Dict[int, str]]] = None,
              pad_values=0, analyze: bool = True,
              warmup: bool = True) -> ModelVersion:
         """Load one model into this replica's registry under its staging
-        deadline (JAX counterpart: ``replica.py:140``). ``cache=`` (the
-        artifact cache) waits for ROADMAP queue A, item 7."""
-        if cache is not None:
-            raise MXNetError(
-                "Replica.load(cache=) needs the artifact cache, which "
-                "waits for the port's export/SymbolBlock (ROADMAP queue A, "
-                "item 7); load with factory=")
+        deadline, through the artifact cache when one is given (JAX
+        counterpart: ``replica.py:140``).
+
+        With ``cache`` and ``factory``: a verified hit loads the artifact
+        (no Python model is built: the path a restart takes); a miss or a
+        corrupt entry builds ``factory()``, runs it once on
+        ``example_args`` if it has recorded no forward, writes the entry
+        (:meth:`ArtifactCache.put`) and loads from that fresh artifact, so
+        every boot serves the bytes a restart will."""
+        if cache is not None and factory is not None:
+            names = list(input_names or ["data"])
+            got = cache.get(name, version, table, input_axes)
+            if got is None:
+                block = factory()
+                if getattr(block, "_last_sig", None) is None \
+                        and example_args is not None:
+                    _record_forward(block, example_args)
+                prefix = cache.put(name, version, block, table, input_axes,
+                                   input_names=names)
+                del block
+            else:
+                prefix, manifest = got
+                names = list(manifest.get("input_names", names))
+            return self.registry.load(
+                name, table=table, input_axes=input_axes, artifacts=prefix,
+                version=version, input_names=names, output_axes=output_axes,
+                pad_values=pad_values, analyze=analyze, warmup=warmup,
+                deadline_s=self.load_deadline_s)
         return self.registry.load(
             name, table=table, input_axes=input_axes, factory=factory,
-            artifacts=artifacts, version=version, example_args=example_args,
-            output_axes=output_axes, pad_values=pad_values, analyze=analyze,
-            warmup=warmup, deadline_s=self.load_deadline_s)
+            artifacts=artifacts, version=version, input_names=input_names,
+            example_args=example_args, output_axes=output_axes,
+            pad_values=pad_values, analyze=analyze, warmup=warmup,
+            deadline_s=self.load_deadline_s)
 
     # -- request path ---------------------------------------------------
     def _batcher(self, name: str) -> DynamicBatcher:

@@ -288,12 +288,12 @@ class Symbol:
         outs = out if isinstance(out, (list, tuple)) else [out]
         return [NDArray(o) for o in outs]
 
-    def optimize_for(self, backend, *args, **kwargs) -> "Symbol":
-        """Graph partitioning by a subgraph backend: the port's
-        ``subgraph`` comes with ROADMAP queue A, item 7b."""
-        raise MXNetError(f"optimize_for({backend!r}) needs the subgraph "
-                         "backends, which come with ROADMAP queue A, "
-                         "item 7b (export, SymbolBlock, subgraph)")
+    def optimize_for(self, backend) -> "Symbol":
+        """This graph partitioned by a registered subgraph backend (JAX
+        counterpart: ``symbol/__init__.py:260``); the graph itself is left
+        as it was."""
+        from .. import subgraph as _subgraph
+        return _subgraph.partition(self, backend)
 
     def bind(self, ctx: Context, args, args_grad=None,
              grad_req: str = "write", aux_states=None,

@@ -32,7 +32,11 @@ two buckets, a returned output untouched by the next replay, and
 once after new storage, and two models warming up from two threads at
 once, each bucket's graph holding exactly its own launches; the symbolic
 API: an Executor's replayed forward+backward bitwise its eager run (and
-with ``grad_req="add"``), and negative-step indexing card = CPU.
+with ``grad_req="add"``), and negative-step indexing card = CPU; the
+deploy path: an artifact exported on the card launching the forward kernel
+through ``mxtpu::flash_attention_fwd`` (eager and in a ``CompiledModel``'s
+graphs, bitwise the eager forward, weights from ``set_weights`` with no
+capture), and one exported on the CPU moved to the card.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -1318,3 +1322,97 @@ def test_negative_step_indexing_on_card():
         got.append((x[:, ::-3].asnumpy(), x.grad.asnumpy(), z.asnumpy()))
     for a, b in zip(*got):
         assert onp.array_equal(a, b)
+
+
+def _flash_nodes(blk) -> int:
+    return sum(str(n.target).startswith("mxtpu.flash_attention_fwd")
+               for ep in blk._loaded.values() for n in ep.graph.nodes)
+
+
+@pytest.mark.cuda
+def test_exported_artifact_launches_the_kernel_on_card(deterministic,
+                                                       tmp_path):
+    """A 2-layer BERT exported on the card for a 2x2 bucket table (one
+    program, two ``mxtpu::flash_attention_fwd`` nodes) and imported as a
+    ``SymbolBlock``: its forward launches the forward kernel once per layer
+    and equals the eager forward bitwise; a ``CompiledModel`` over it
+    captures the 4 buckets and its replays equal the eager forward with 2
+    launches a batch; weights written in place by ``set_weights`` reach
+    the replays with no capture."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, models, nd, serve
+    from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
+    net = _bert(use_decoder=False, use_classifier=False)
+    spec = models.serve_spec("bert_encoder")
+    table = serve.BucketTable({"batch": (1, 2), "seq": (8, 16)})
+    rng = onp.random.RandomState(3)
+    args = _bert_request(rng, 2, 16)
+    net(*(nd.array(a, ctx=mx.gpu(0), dtype=a.dtype) for a in args))
+    prefix = str(tmp_path / "bert")
+    sym_file, params_file = serve.export_for_serving(
+        net, prefix, table, spec["input_axes"])
+    blk = gluon.SymbolBlock.imports(sym_file, ["ids", "types", "valid"],
+                                    params_file, ctx=mx.gpu(0))
+    assert len(blk._loaded) == 1 and _flash_nodes(blk) == 2
+    cuda_ops.reset_launches()
+    got = blk(*(nd.array(a, ctx=mx.gpu(0), dtype=a.dtype) for a in args))
+    assert cuda_ops.launch_counts()[fa.KERNEL] == 2
+    for g, w in zip(got, _eager(net, args)):
+        assert torch.equal(g._data, w)
+    cm = serve.CompiledModel(blk, table, spec["input_axes"],
+                             output_axes=spec["output_axes"],
+                             pad_values=spec["pad_values"])
+    assert cm.warmup()["compiled"] == 4 and len(cm._graphs) == 4
+    for B, L in ((1, 8), (2, 16)):
+        args = _bert_request(rng, B, L)
+        cuda_ops.reset_launches()
+        got = cm.predict(*args)
+        assert cuda_ops.launch_counts()[fa.KERNEL] == 2
+        for g, w in zip(got, _eager(net, args)):
+            assert torch.equal(g._data, w)
+    new = {k: p.data().asnumpy() * 1.5
+           for k, p in net._collect_params_with_prefix().items()}
+    assert blk.set_weights(new) == len(new)
+    serve.apply_weights(net, new)
+    cm.refresh_params()
+    for g, w in zip(cm.predict(*args), _eager(net, args)):
+        assert torch.equal(g._data, w)
+    assert cm.cache_info()["compiles"] == 4
+
+
+@pytest.mark.cuda
+def test_cpu_export_loads_on_card(tmp_path):
+    """A program exported on the CPU with ``platforms=["cpu", "cuda"]`` is
+    moved to the card when its parameters are there
+    (``move_to_device_pass``): it launches the forward kernel once per
+    layer and equals the eager forward on the card within the float32
+    tolerance; one exported for the CPU alone raises, naming ``cuda``."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, models, nd
+    from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
+    with mx.cpu():
+        net = models.get_bert("bert_2_128_2", vocab_size=100, max_length=64,
+                              dropout=0.0, device="cpu",
+                              use_decoder=False, use_classifier=False)
+    args = _bert_request(onp.random.RandomState(4), 2, 16)
+    net(*(nd.array(a, ctx=mx.cpu(), dtype=a.dtype) for a in args))
+    both = net.export(str(tmp_path / "both"), platforms=["cpu", "cuda"])
+    cpu_only = net.export(str(tmp_path / "cpu"))
+    card = models.get_bert("bert_2_128_2", vocab_size=100, max_length=64,
+                           dropout=0.0, device="cuda",
+                           use_decoder=False, use_classifier=False)
+    card.load_parameters(both[1], ctx=mx.gpu(0))
+    blk = gluon.SymbolBlock.imports(both[0], ["a", "b", "c"], both[1],
+                                    ctx=mx.gpu(0))
+    cuda_ops.reset_launches()
+    got = blk(*(nd.array(a, ctx=mx.gpu(0), dtype=a.dtype) for a in args))
+    assert cuda_ops.launch_counts()[fa.KERNEL] == 2
+    rtol, atol = TOL[torch.float32]
+    for g, w in zip(got, _eager(card, args)):
+        torch.testing.assert_close(g._data, w, rtol=rtol, atol=atol)
+    only = gluon.SymbolBlock.imports(cpu_only[0], ["a", "b", "c"],
+                                     cpu_only[1], ctx=mx.gpu(0))
+    with pytest.raises(MXNetError, match="'cuda'"):
+        only(*(nd.array(a, ctx=mx.gpu(0), dtype=a.dtype) for a in args))

@@ -234,12 +234,15 @@ def _hybrid_loop(pkg, net, batch):
     return outs, grads, losses
 
 
-def test_hybridized_gluon_bert_matches_jax():
+def test_hybridized_gluon_bert_matches_jax(tmp_path):
     batch = _batch()
+    # the port's seeded weights, through a .params file: loading them
+    # also gives the JAX net's deferred LayerNorms their shapes, with no
+    # eager JAX forward to initialise it
+    with mx.cpu():
+        _gluon_bert(mx).save_parameters(str(tmp_path / "seed.params"))
     jnet = _gluon_bert(jmx)
-    jmx.random.seed(0)
-    jnet.initialize(ctx=jmx.cpu())
-    jnet(*(jmx.nd.array(a) for a in batch[:4]))
+    jnet.load_parameters(str(tmp_path / "seed.params"), ctx=jmx.cpu())
     arrays = {k: p.data().asnumpy() for k, p in jnet.collect_params().items()}
     with mx.cpu():
         pnet = _gluon_bert(mx)

@@ -85,12 +85,16 @@ def _adam_losses(pkg, net, batch, steps=4):
 
 @pytest.fixture(scope="module")
 def jax_bert(tmp_path_factory):
-    """The JAX BERT, once: its names, initial weights, outputs and
-    ``.params`` file, then its 4 Adam losses."""
+    """The JAX BERT, once: its names, initial weights (the port's seeded
+    ones through a ``.params`` file, which compiles less than the JAX
+    initialisers), outputs and ``.params`` file, then its 4 Adam
+    losses."""
     d = tmp_path_factory.mktemp("bert")
-    jmx.random.seed(0)
+    seed_file = str(d / "seed.params")
+    _bert(mx, generator=torch.Generator().manual_seed(0)).save_parameters(
+        seed_file)
     net = _bert(jmx)
-    net.initialize(ctx=jmx.cpu())
+    net.load_parameters(seed_file, ctx=jmx.cpu())
     batch = _batch()
     out = [o.asnumpy() for o in net(*(jmx.nd.array(a) for a in batch[:4]))]
     pfile = str(d / "jax.params")

@@ -213,9 +213,11 @@ def test_symbolic_api_imports_without_jax():
 def test_seams_raise_naming_their_items():
     """``contrib.sym`` composes ``_contrib_*`` ops (``box_nms`` evaluates
     as ``contrib.nd``'s) and its control flow raises naming item 7c;
-    ``optimize_for`` names 7b; a Monitor on a Gluon block names item 8; a
-    distributed kvstore names item 6; ``autograd.get_symbol`` raises as
-    in the JAX package; ``Parameter.var()`` is the JAX variable."""
+    ``optimize_for`` with a backend nobody registered raises the JAX
+    "unknown subgraph backend" error; a Monitor on a Gluon block names
+    item 8; a distributed kvstore names item 6; ``autograd.get_symbol``
+    raises as in the JAX package; ``Parameter.var()`` is the JAX
+    variable."""
     boxes = onp.random.RandomState(5).rand(1, 6, 6).astype("float32")
     x = mx.sym.Variable("x")
     nms = mx.sym.contrib.box_nms(x, overlap_thresh=0.5, name="nms")
@@ -228,7 +230,7 @@ def test_seams_raise_naming_their_items():
                               overlap_thresh=0.5).asnumpy())
     with pytest.raises(MXNetError, match="item 7c"):
         mx.contrib.sym.foreach(lambda d, s: (d, s), x, [])
-    with pytest.raises(MXNetError, match="item 7b"):
+    with pytest.raises(MXNetError, match="unknown subgraph backend"):
         nms.optimize_for("MKLDNN")
     with pytest.raises(MXNetError, match="item 8"):
         monitor.Monitor().install(gluon.nn.Dense(2))

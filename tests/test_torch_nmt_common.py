@@ -8,6 +8,7 @@ JAX reference model (built once per process), the port model from its
 weights, and the warmed decode engines.
 """
 import functools
+import tempfile
 
 import numpy as onp
 import pytest
@@ -62,9 +63,16 @@ def batch(seed=0, B=32, Ls=5, Lt=6):
 
 @functools.lru_cache(maxsize=None)
 def _reference():
-    jmx.random.seed(0)
-    net = jax_nmt.NMTModel(VOCAB, VOCAB, prefix="nmtref_", **CFG)
-    net.initialize(jmx.init.Xavier())
+    # the port's seeded Xavier weights through a .params file: loading
+    # compiles far less than the JAX initialisers
+    with mx.cpu():
+        seed = models.NMTModel(VOCAB, VOCAB, **CFG)
+        seed.initialize(mx.init.Xavier(
+            generator=torch.Generator().manual_seed(0)))
+    with tempfile.TemporaryDirectory() as d:
+        seed.save_parameters(f"{d}/seed.params")
+        net = jax_nmt.NMTModel(VOCAB, VOCAB, prefix="nmtref_", **CFG)
+        net.load_parameters(f"{d}/seed.params")
     src, tgt, valid, _ = batch()
     logits = net(jnd.array(src), jnd.array(tgt), jnd.array(valid)).asnumpy()
     arrays = arrays_of(net)
@@ -74,9 +82,9 @@ def _reference():
 
 @pytest.fixture(scope="module")
 def ref():
-    """The JAX model (seeded Xavier) and its forward on a ragged batch; the
-    port model from the same weights. A test that changes the JAX model's
-    weights puts them back."""
+    """The JAX model (the port's seeded Xavier weights) and its forward on
+    a ragged batch; the port model from the same weights. A test that
+    changes the JAX model's weights puts them back."""
     return _reference()
 
 

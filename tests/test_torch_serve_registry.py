@@ -36,7 +36,7 @@ from incubator_mxnet_tpu_torch import gluon, models, nd, serve
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.convert import params_from_jax
 from incubator_mxnet_tpu_torch.fault import inject
-from incubator_mxnet_tpu_torch.fault.retry import RetryPolicy
+from incubator_mxnet_tpu_torch.fault.retry import RetryExhausted, RetryPolicy
 
 ATOL = 1e-5
 VOCAB, MAXLEN = 60, 32
@@ -359,8 +359,9 @@ def test_registry_errors():
         reg.get("ghost")
     with pytest.raises(MXNetError, match="exactly one"):
         reg.load("x", **kw)
-    with pytest.raises(MXNetError, match="item 7"):
-        reg.load("x", artifacts="deploy/x", **kw)
+    once = serve.ModelRegistry(retry_policy=RetryPolicy(retries=0))
+    with pytest.raises(RetryExhausted, match="deploy/x-symbol.json"):
+        once.load("x", artifacts="deploy/x", **kw)
     with pytest.raises(MXNetError, match="example_args"):
         reg.load("x", factory=lambda: models.get_bert(
             "bert_2_128_2", vocab_size=VOCAB, max_length=MAXLEN,
