@@ -356,6 +356,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
     step) and a ``DENSE_ACT`` partition card vs CPU (1e-5 of the largest
     output); (h) ``models.serving_example`` (the JAX
     ``examples/serving.py``) on the card, 0 captures after warmup.
+29. parallel: what one card runs of the multi-rank path (the card count
+    is 1, and NCCL refuses two ranks on one device; the multi-rank
+    meaning is held against the JAX package on the CPU by the tests).
+    (a) ``ops.cuda.flash_attention.flash_block``, the ring's hop, at one
+    hop of BERT-base over sp=4 (8, 12, 128 of 512, 64), float32 and
+    bfloat16, modes 0 (full) and 1 (causal diagonal), under a ragged key
+    mask in which one batch row has no key in the block: ``o``, ``lse``
+    (rows with a key; the others at about -1e30) and dq/dk/dv under a
+    non-zero lse cotangent against the plain versions, with the forward
+    and backward kernels' ms (CUDA events, and device time from
+    ``torch.profiler``) beside the plain versions'; (b) the 4-hop ring
+    schedule run serially in one process at the train shape (8, 12, 512,
+    64): each of the 4 ranks' query blocks meets the K/V blocks in the
+    order that rank sees them, through the port's own ``ring._hop_attn``
+    and ``ring._merge`` (a key mask with one row keyless in one shard),
+    full and causal: the gathered output and the q/k/v gradients against
+    ``flash_attention`` of the whole sequence, each of the three kernels
+    launched once per live hop (16 full, 10 causal) and none for the 6
+    masked hops (the phase's count in the ``kernels`` line,
+    ``launches_by_path["parallel"]``); (c) a one-rank NCCL group
+    (``parallel.dist.initialize(backend="nccl")``): the collectives over
+    it on CUDA tensors, ``mx.kv.create("nccl")`` push/pull, and BERT-base
+    at full width and depth (float32, dropout 0, batch 8 x 128, Adam)
+    trained 3 steps through ``ShardedTrainer(mesh=make_mesh(),
+    rules=bert_sharding_rules(), zero1=True)`` and the mesh-less fused
+    trainer under deterministic algorithms: losses and weights bitwise
+    equal, one graph per step (``launches_by_path["parallel_trainer"]``,
+    the mesh trainer's launches alone). At one rank ``rules`` and
+    ``zero1`` change nothing (every parameter stays whole, and the mesh
+    trainer takes the fused path): (c) shows that a one-rank mesh is the
+    mesh-less path on the card, and runs none of the multi-rank step,
+    which the CPU tests hold against the JAX package on gloo ranks.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -6908,6 +6940,252 @@ def phase_artifacts(seed: int) -> dict:
     return res
 
 
+# -- parallel: the ring's hop, the ring's schedule, a one-rank NCCL group ---
+# one ring hop of BERT-base at sp=4, and the train shape the ring cuts
+PAR_HOP = (8, 12, 128, 64)
+PAR_RING = (8, 12, 512, 64)
+PAR_SP = 4
+# flash_block vs its plain versions on the card (o, lse, dq/dk/dv): the
+# kernels' own (atol, rtol) of phase 3 (3xTF32 float32; one bf16 ulp), as
+# max abs err <= atol + rtol * max |plain value|
+PAR_HOP_TOL = TOL
+# the serial 4-hop ring vs flash_attention of the whole sequence: the same
+# softmax merged over 4 hops in float32, another summation order; bf16:
+# each hop's o is rounded to bf16 before the merge (one ulp, 2**-8
+# relative, per hop) and each hop's dq/dk/dv before their sum over hops:
+# per tensor, max abs err <= tol * max |whole-sequence value|
+PAR_RING_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def par_flash_block() -> dict:
+    """(a): ``flash_block`` on the card against its plain version, timed
+    (module docstring, phase 29)."""
+    B, H, L, D = PAR_HOP
+    g = torch.Generator(device="cuda").manual_seed(29)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = PAR_HOP_TOL[dtype]
+        q, k, v, do = (torch.randn(B, H, L, D, device="cuda",
+                                   generator=g).to(dtype) for _ in range(4))
+        dlse = torch.randn(B, H, L, device="cuda", generator=g)
+        km = (torch.rand(B, L, device="cuda", generator=g) > 0.3).int()
+        km[1] = 0                        # no key for batch row 1 here
+        live = km.bool().any(-1)[:, None].expand(B, H)
+        for causal in (False, True):
+            a, b, c = (t.detach().clone().requires_grad_(True)
+                       for t in (q, k, v))
+            o, lse = fa.flash_block(a, b, c, km, causal, D ** -0.5)
+            ((o.float() * do.float()).sum() + (lse * dlse).sum()).backward()
+            ro, rlse = fa.flash_attention_reference(q, k, v, km, causal,
+                                                    D ** -0.5)
+            rdelta = (fa._delta(ro, do) - dlse).contiguous()
+            rgrads = fa.flash_attention_bwd_reference(
+                q, k, v, km, causal, D ** -0.5, None, ro, rlse, do, rdelta)
+            res = [[t.detach().float() for t in
+                    (o, lse, a.grad, b.grad, c.grad)],
+                   [t.float() for t in (ro, rlse) + tuple(rgrads)]]
+            errs = {}
+            for name, got, want in zip(("o", "lse", "dq", "dk", "dv"),
+                                       *res):
+                if name == "lse":
+                    check(bool((got[~live] < -1e29).all()),
+                          "flash_block: a keyless row's lse is not ~-1e30")
+                    got, want = got[live], want[live]
+                err = (got - want).abs().max().item()
+                errs[name] = err
+                check(err <= atol + rtol * want.abs().max().item(),
+                      f"flash_block {dtype} causal={causal}: {name} differs "
+                      f"from the plain version by {err}")
+            out[f"{dtype_name(dtype)}_mode{int(causal)}"] = errs
+        scale = D ** -0.5
+        o, lse = fa._fwd(q, k, v, km, False, scale)
+        delta = (fa._delta(o, do) - dlse).contiguous()
+        timed = {
+            "fwd": (lambda: fa._fwd(q, k, v, km, False, scale),
+                    lambda: fa.flash_attention_reference(
+                        q, k, v, km, False, scale)),
+            "bwd": (lambda: fa._bwd(q, k, v, km, False, scale, None, lse,
+                                    do, delta),
+                    lambda: fa.flash_attention_bwd_reference(
+                        q, k, v, km, False, scale, None, o, lse, do, delta)),
+        }
+        for name, (kern, plain) in timed.items():
+            out[f"{dtype_name(dtype)}_{name}_ms"] = cuda_ms(kern)
+            out[f"{dtype_name(dtype)}_{name}_device_ms"] = device_ms(kern)
+            out[f"{dtype_name(dtype)}_{name}_plain_ms"] = cuda_ms(plain)
+    print(f"parallel (a): flash_block {PAR_HOP} vs plain: " + ", ".join(
+        f"{k} {v if isinstance(v, dict) else round(v, 4)}"
+        for k, v in out.items()), flush=True)
+    return out
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _ring_serial(q, k, v, km, causal):
+    """The 4-hop ring schedule in one process: rank ``r`` holds query
+    block ``r`` and meets the K/V blocks ``r, r-1, ...`` in turn, through
+    ``ring._hop_attn`` and ``ring._merge``; the ranks' outputs gathered
+    along the sequence."""
+    from incubator_mxnet_tpu_torch.parallel import ring
+    n, lq = PAR_SP, q.shape[2] // PAR_SP
+    scale = q.shape[-1] ** -0.5
+    kv = torch.stack([k, v])
+    outs = []
+    for r in range(n):
+        qr = q[:, :, r * lq:(r + 1) * lq].contiguous()
+        o = torch.zeros(qr.shape, dtype=torch.float32, device=q.device)
+        lse = torch.full(qr.shape[:3], -1e30, device=q.device)
+        for i in range(n):
+            src = (r - i) % n
+            o_i, lse_i = ring._hop_attn(
+                qr, kv[:, :, :, src * lq:(src + 1) * lq].contiguous(),
+                km[:, src * lq:(src + 1) * lq].contiguous(),
+                ring.hop_mode(src, r, causal), r * lq, src * lq, scale)
+            o, lse = ring._merge(o, lse, o_i, lse_i)
+        outs.append(ring._finish(o, lse, q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def par_ring_schedule() -> dict:
+    """(b): the serial 4-hop ring against the whole sequence (module
+    docstring, phase 29); returns the errors and the launches."""
+    B, H, L, D = PAR_RING
+    g = torch.Generator(device="cuda").manual_seed(30)
+    res = {}
+    launches = {n: 0 for n in fa.KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = PAR_RING_TOL[dtype]
+        q, k, v, do = (torch.randn(B, H, L, D, device="cuda",
+                                   generator=g).to(dtype).contiguous()
+                       for _ in range(4))
+        km = (torch.rand(B, L, device="cuda", generator=g) > 0.2).int()
+        km[2, L // PAR_SP:2 * L // PAR_SP] = 0  # a keyless shard, row 2
+        km[:, 0] = 1     # every causal row sees a key (else the whole-
+        #                  sequence kernel gives it the mean of V, the ring 0)
+        for causal in (False, True):
+            got, want = [], []
+            for ring_path in (True, False):
+                a, b, c = (t.detach().clone().requires_grad_(True)
+                           for t in (q, k, v))
+                if ring_path:
+                    cuda_ops.reset_launches()
+                    o = _ring_serial(a, b, c, km, causal)
+                    (o.float() * do.float()).sum().backward()
+                    torch.cuda.synchronize()
+                    counts = cuda_ops.launch_counts()
+                else:
+                    o = fa.flash_attention(a, b, c, mask=km, causal=causal)
+                    (o.float() * do.float()).sum().backward()
+                (got if ring_path else want).extend(
+                    t.detach().float() for t in (o, a.grad, b.grad, c.grad))
+            live = 16 if not causal else 10
+            check(all(counts[n] == live for n in fa.KERNELS),
+                  f"ring schedule {dtype} causal={causal}: launches "
+                  f"{counts}, expected {live} of each kernel")
+            for n in fa.KERNELS:
+                launches[n] += counts[n]
+            errs = {}
+            for name, x, y in zip(("o", "dq", "dk", "dv"), got, want):
+                err = ((x - y).abs().max() / y.abs().max()).item()
+                errs[name] = err
+                check(err <= tol, f"ring schedule {dtype} causal={causal}: "
+                      f"{name} rel err {err} > {tol}")
+            res[f"{dtype_name(dtype)}_causal{int(causal)}"] = dict(
+                errs, launches=counts)
+    res["launches"] = launches
+    print(f"parallel (b): 4-hop ring at {PAR_RING} vs whole sequence: "
+          f"{res}", flush=True)
+    return res
+
+
+def par_nccl_trainer(steps: int = 3) -> dict:
+    """(c): a one-rank NCCL group, the collectives, ``mx.kv``'s ``nccl``
+    store and the mesh trainer against the mesh-less fused one (module
+    docstring, phase 29). At one rank ``rules`` and ``zero1`` are no-ops:
+    every parameter stays whole and the mesh trainer takes the fused path,
+    so no line of the multi-rank step runs here."""
+    from incubator_mxnet_tpu_torch.parallel import collectives as C
+    parallel.initialize(backend="nccl")
+    try:
+        import torch.distributed as tdist
+        check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
+              "dist.initialize(backend='nccl') made no one-rank NCCL group")
+        x = torch.randn(4, 1024, device="cuda")
+        for name, y in (("all_reduce", C.all_reduce(x, None)),
+                        ("all_gather", C.all_gather(x, None)),
+                        ("reduce_scatter", C.reduce_scatter(x, None)),
+                        ("broadcast", C.broadcast(x, None)),
+                        ("all_to_all", C.all_to_all(x, None, 0, 1))):
+            torch.cuda.synchronize()
+            check(torch.equal(y, x), f"one-rank {name} changed its input")
+        kv = mx.kv.create("nccl")
+        kv.init(0, nd.zeros((4, 1024), ctx=mx.gpu(0)))
+        kv.push(0, [nd.NDArray(x), nd.NDArray(x)])
+        check(torch.equal(kv.pull(0)._data, 2 * x), "nccl store: push/pull")
+        batch = bench.make_batch(8, 128)
+        torch.use_deterministic_algorithms(True)
+        try:
+            nets, trainers = [], []
+            for mesh in (parallel.make_mesh(), None):
+                net = models.get_bert(
+                    "bert_12_768_12", vocab_size=bench.VOCAB,
+                    max_length=128, dropout=0.0, device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+                kw = {} if mesh is None else dict(
+                    mesh=mesh, rules=models.bert_sharding_rules(),
+                    zero1=True)
+                nets.append(net)
+                trainers.append(parallel.ShardedTrainer(
+                    net, models.bert_pretrain_loss, "adam",
+                    {"learning_rate": 1e-4}, device="cuda", n_labels=3,
+                    **kw))
+            losses, counts = [], None
+            for tr in trainers:
+                cuda_ops.reset_launches()
+                losses.append([float(tr.step(*batch))
+                               for _ in range(steps)])
+                torch.cuda.synchronize()
+                # the count is the mesh trainer's alone
+                counts = counts or cuda_ops.launch_counts()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check(all(tr.last_path == "fused" and tr.last_step_graphs == 1
+                  and tr.captures == 1 for tr in trainers),
+              "the one-rank mesh trainer did not replay one graph a step")
+        ref = dict(nets[1].named_parameters())
+        same = all(torch.equal(p, ref[n]) for n, p in
+                   nets[0].named_parameters())
+        check(losses[0] == losses[1] and same,
+              f"one-rank mesh trainer vs mesh-less: losses {losses}, "
+              f"weights bitwise {same}")
+        check(all(c == 12 * steps for c in counts.values()),
+              f"mesh trainer launches {counts}, expected 12 a step")
+        print(f"parallel (c): one-rank NCCL group: collectives and the "
+              f"nccl store ok; BERT-base mesh trainer vs mesh-less fused, "
+              f"{steps} steps: losses {losses[0]} bitwise, weights "
+              f"bitwise, launches {counts}", flush=True)
+        del nets, trainers
+        gc.collect()
+        return {"losses": losses[0], "bitwise": True, "launches": counts}
+    finally:
+        parallel.finalize()
+
+
+def phase_parallel() -> dict:
+    """Phase 29 (module docstring)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"flash_block": par_flash_block(), "ring": par_ring_schedule(),
+           "nccl": par_nccl_trainer()}
+    res["launches"] = res["ring"]["launches"]
+    res["seconds"] = time.perf_counter() - t0
+    print(f"parallel: phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -6966,6 +7244,7 @@ def main(argv=None) -> int:
     tier_res = phase_serve_tier(args.seed)
     sym_res = phase_symbol()
     art_res = phase_artifacts(args.seed)
+    par_res = phase_parallel()
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -7032,7 +7311,10 @@ def main(argv=None) -> int:
                                  "serve_tier_generate": tier_res[
                                      "launches_generate"][name],
                                  "symbol": sym_res["launches"][name],
-                                 "artifacts": art_res["launches"][name]},
+                                 "artifacts": art_res["launches"][name],
+                                 "parallel": par_res["launches"][name],
+                                 "parallel_trainer": par_res["nccl"][
+                                     "launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -7058,6 +7340,7 @@ def main(argv=None) -> int:
                        "gluon_rest": rest, "fault": fault_res,
                        "data": data_res, "serve_tier": tier_res,
                        "symbol": sym_res, "artifacts": art_res,
+                       "parallel": par_res,
                        "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))

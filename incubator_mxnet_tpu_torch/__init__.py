@@ -58,7 +58,14 @@ on the card), ``mx.name``, ``mx.AttrScope``, ``mx.module.Module`` with
 and the deploy path: ``HybridBlock.export`` (``torch.export`` programs
 with the flash forward as the op ``mxtpu::flash_attention_fwd``),
 ``gluon.SymbolBlock``, ``mx.subgraph`` and ``optimize_for``, and serving
-from an artifact (``serve.export_for_serving``, ``serve.ArtifactCache``).
+from an artifact (``serve.export_for_serving``, ``serve.ArtifactCache``);
+and several ranks: ``parallel.dist`` (one process per rank over
+``torch.distributed``: NCCL on the card, gloo on the CPU), meshes,
+sharding rules and collectives, ring attention over ``sp`` on the flash
+kernels (``ops.cuda.flash_attention.flash_block``), ``ShardedTrainer``
+over a mesh (rule-sharded parameters, ZeRO-1, checkpoints in the
+multi-host layout), ``mx.kv`` and the kvstore seams of ``gluon.Trainer``
+and ``Module``.
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
@@ -75,6 +82,8 @@ from . import (  # noqa: F401
     subgraph,
 )
 from .attribute import AttrScope  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
 
 from .engine import waitall  # noqa: F401
 from .ndarray import NDArray  # noqa: F401

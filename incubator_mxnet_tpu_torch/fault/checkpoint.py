@@ -23,17 +23,22 @@ raw bits, named ``"bfloat16"`` in the manifest, as the JAX package names
 them). The trainers own what goes in (``parallel.ShardedTrainer.
 save_checkpoint``, ``gluon.Trainer.save_checkpoint``).
 
-The reader takes the JAX package's multi-host layout too (one
-``arrays-p<i>.params`` shard per host, named per array in the manifest),
-so a pod checkpoint restores on one card. The multi-host writer (shards,
-commit markers, the primary's barrier) comes with the multi-GPU slice:
-with more than one process :func:`save_checkpoint` raises.
+With more than one process the writer follows the JAX package's
+multi-host commit protocol (``:261-420``): every rank writes its shard
+(``arrays-p<i>.params``) and a fsync'd commit marker into one shared
+staging directory; the primary waits for every marker (bounded by
+``commit_timeout_s``, ``MXTPU_ELASTIC_COMMIT_TIMEOUT_S``, 60 s), checks
+that arrays written by several ranks agree bit for bit, and writes the
+manifest last, before the one rename. A save torn by a rank's death leaves
+a staging directory without a manifest, which no reader sees. The reader
+takes that layout from either package.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import time
 import warnings
 import zlib
 from typing import Dict, List, Optional, Tuple
@@ -183,60 +188,179 @@ def save_checkpoint(root: str, arrays: Dict[str, onp.ndarray],
                     meta: Optional[dict] = None, *, step: int,
                     keep: Optional[int] = 3,
                     process_index: Optional[int] = None,
-                    process_count: Optional[int] = None) -> str:
+                    process_count: Optional[int] = None,
+                    commit_timeout_s: Optional[float] = None) -> str:
     """Write one atomic checkpoint for ``step`` and return its directory.
 
     ``arrays`` maps names to host arrays; ``meta`` must be JSON-
     serialisable. ``keep`` prunes to the newest ``keep`` completed steps
     after a successful save (None keeps all). Saving an existing step
     again replaces it atomically. Crash sites: ``checkpoint.arrays``
-    (after the arrays, before the manifest) and ``checkpoint.finalize``
-    (before the rename); either leaves only a temporary directory, which
-    no reader sees.
+    (after the arrays, before the manifest or marker),
+    ``checkpoint.manifest`` (the primary, before the manifest) and
+    ``checkpoint.finalize`` (before the rename); each leaves only a
+    staging directory, which no reader sees.
 
     With more than one process (``process_count``, else
-    ``torch.distributed``'s world size or ``DMLC_NUM_WORKER``) it raises:
-    the multi-host commit protocol comes with the multi-GPU slice. A lone
-    process with a non-zero rank writes nothing, as in the JAX package
-    (only the primary writes)."""
+    ``torch.distributed``'s world size or ``DMLC_NUM_WORKER``) each rank
+    passes the arrays it writes, and the multi-host protocol runs (module
+    docstring); a rank other than the primary returns after its marker. A
+    lone process with a non-zero rank writes nothing, as in the JAX
+    package (only the primary writes)."""
     meta = dict(meta or {})
     widx, wcount = _world()
     idx = widx if process_index is None else int(process_index)
     count = wcount if process_count is None else int(process_count)
     final = os.path.join(root, _step_dirname(step))
     if count > 1:
-        raise CheckpointError(
-            f"save_checkpoint with {count} processes needs the multi-host "
-            "commit protocol (per-host shards and commit markers), which "
-            "comes with the multi-GPU slice; this build writes "
-            "single-process checkpoints")
-    if idx != 0:
+        _save_multihost(root, arrays, meta, step=step, idx=idx, count=count,
+                        timeout_s=(_commit_timeout_s()
+                                   if commit_timeout_s is None
+                                   else commit_timeout_s))
+        if idx != 0:
+            return final
+    elif idx != 0:
         return final
-    os.makedirs(root, exist_ok=True)
-    tmp = os.path.join(
-        root, f"{_TMP_PREFIX}{_step_dirname(step)}-{os.getpid()}")
-    if os.path.isdir(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    try:
-        host = {name: onp.asarray(a) for name, a in arrays.items()}
-        entries = {name: {"shape": list(a.shape), "dtype": array_dtype(a),
-                          "crc32": _crc(a)} for name, a in host.items()}
-        from ..ndarray.serialization import dmlc_save
-        dmlc_save(os.path.join(tmp, ARRAYS_FILE),
-                  list(host.values()), list(host.keys()))
-        inject.crash("checkpoint.arrays")   # died: arrays, no manifest
-        manifest = {"format": FORMAT_VERSION, "step": int(step),
-                    "meta": meta, "arrays": entries}
-        _write_json(os.path.join(tmp, MANIFEST_FILE), manifest)
-        _fsync_dir(tmp)
-        _finalize_rename(root, tmp, final)
-    except BaseException:
-        shutil.rmtree(tmp, ignore_errors=True)
-        raise
+    else:
+        os.makedirs(root, exist_ok=True)
+        tmp = os.path.join(
+            root, f"{_TMP_PREFIX}{_step_dirname(step)}-{os.getpid()}")
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        try:
+            host, entries = _write_entries(arrays)
+            from ..ndarray.serialization import dmlc_save
+            dmlc_save(os.path.join(tmp, ARRAYS_FILE),
+                      list(host.values()), list(host.keys()))
+            inject.crash("checkpoint.arrays")   # died: arrays, no manifest
+            manifest = {"format": FORMAT_VERSION, "step": int(step),
+                        "meta": meta, "arrays": entries}
+            _write_json(os.path.join(tmp, MANIFEST_FILE), manifest)
+            _fsync_dir(tmp)
+            _finalize_rename(root, tmp, final)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
     if keep is not None:
         _prune(root, keep)
     return final
+
+
+def _shard_file(idx: int) -> str:
+    return f"arrays-p{idx}.params"
+
+
+def _marker_file(idx: int) -> str:
+    return f"commit-p{idx}.json"
+
+
+def _commit_timeout_s() -> float:
+    from ..util import getenv
+    try:
+        return max(0.1, float(getenv("MXTPU_ELASTIC_COMMIT_TIMEOUT_S")))
+    except ValueError:
+        return 60.0
+
+
+def _write_entries(arrays: Dict[str, onp.ndarray]
+                   ) -> Tuple[Dict[str, onp.ndarray], Dict[str, dict]]:
+    host = {name: onp.asarray(a) for name, a in arrays.items()}
+    entries = {name: {"shape": list(a.shape), "dtype": array_dtype(a),
+                      "crc32": _crc(a)} for name, a in host.items()}
+    return host, entries
+
+
+def _save_multihost(root: str, arrays: Dict[str, onp.ndarray], meta: dict,
+                    *, step: int, idx: int, count: int,
+                    timeout_s: float) -> str:
+    """The shard half of the commit protocol (every rank) and the manifest
+    half (the primary; JAX counterpart: ``_save_multihost``, ``:353``)."""
+    final = os.path.join(root, _step_dirname(step))
+    # one staging directory every rank shares, named by the step alone,
+    # on the final name's filesystem (the rename stays atomic)
+    tmp = os.path.join(root, f"{_TMP_PREFIX}{_step_dirname(step)}-shared")
+    os.makedirs(tmp, exist_ok=True)
+    host, entries = _write_entries(arrays)
+    from ..ndarray.serialization import dmlc_save
+    try:
+        dmlc_save(os.path.join(tmp, _shard_file(idx)),
+                  list(host.values()), list(host.keys()))
+        inject.crash("checkpoint.arrays")   # died after shard, no marker
+        marker = {"format": FORMAT_VERSION, "step": int(step),
+                  "process": {"index": idx, "count": count},
+                  "arrays": entries}
+        _write_json(os.path.join(tmp, _marker_file(idx)), marker)
+        _fsync_dir(tmp)
+    except BaseException:
+        # a rank that fails removes only its own files
+        for f in (_shard_file(idx), _marker_file(idx)):
+            try:
+                os.unlink(os.path.join(tmp, f))
+            except OSError:
+                pass
+        raise
+    if idx != 0:
+        return final
+    markers = _gather_markers(tmp, count, timeout_s, step)
+    merged = _merge_marker_entries(markers, step)
+    inject.crash("checkpoint.manifest")  # died between shards and manifest
+    manifest = {"format": FORMAT_VERSION, "step": int(step), "meta": meta,
+                "arrays": merged,
+                "shards": {str(p): {"file": _shard_file(p),
+                                    "arrays": sorted(markers[p]["arrays"])}
+                           for p in sorted(markers)}}
+    _write_json(os.path.join(tmp, MANIFEST_FILE), manifest)
+    _fsync_dir(tmp)
+    _finalize_rename(root, tmp, final)
+    return final
+
+
+def _gather_markers(tmp: str, count: int, timeout_s: float,
+                    step: int) -> Dict[int, dict]:
+    """The primary's commit barrier: poll the staging directory until
+    every rank's marker is there (each is the last file its rank fsyncs);
+    a rank that never writes it is a timeout naming its index, not a
+    hang."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        missing = [p for p in range(count) if not os.path.isfile(
+            os.path.join(tmp, _marker_file(p)))]
+        if not missing:
+            break
+        if time.monotonic() >= deadline:
+            raise CheckpointError(
+                f"multi-host checkpoint commit for step {step} timed out "
+                f"after {timeout_s:g}s: process(es) {missing} never wrote "
+                "their shard commit marker (died mid-shard or never reached "
+                "the save); the torn save stays in its staging directory, "
+                "which no reader sees")
+        time.sleep(0.05)
+    markers: Dict[int, dict] = {}
+    for p in range(count):
+        with open(os.path.join(tmp, _marker_file(p))) as f:
+            markers[p] = json.load(f)
+    return markers
+
+
+def _merge_marker_entries(markers: Dict[int, dict],
+                          step: int) -> Dict[str, dict]:
+    """The manifest's array table from the ranks' markers; an array that
+    several ranks wrote must carry the same bytes in each (else the ranks
+    diverged, and the save refuses to commit either copy)."""
+    merged: Dict[str, dict] = {}
+    for p in sorted(markers):
+        for name, ent in markers[p].get("arrays", {}).items():
+            if name in merged:
+                if merged[name]["crc32"] != ent["crc32"]:
+                    raise CheckpointError(
+                        f"multi-host checkpoint for step {step}: ranks "
+                        f"wrote different bytes for array {name!r} (crc "
+                        f"{merged[name]['crc32']} vs process {p}'s "
+                        f"{ent['crc32']}); refusing to commit")
+                continue
+            merged[name] = dict(ent, file=_shard_file(p))
+    return merged
 
 
 def _prune(root: str, keep: int) -> None:

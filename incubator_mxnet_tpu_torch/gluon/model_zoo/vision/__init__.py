@@ -16,7 +16,7 @@ from .resnet import (  # noqa: F401
     BasicBlockV1, BasicBlockV2, BottleneckV1, BottleneckV2, ResNetV1,
     ResNetV2, get_resnet, resnet18_v1, resnet34_v1, resnet50_v1,
     resnet101_v1, resnet152_v1, resnet18_v2, resnet34_v2, resnet50_v2,
-    resnet101_v2, resnet152_v2,
+    resnet101_v2, resnet152_v2, resnet_sharding_rules,
 )
 from .alexnet import AlexNet, alexnet  # noqa: F401
 from .vgg import (  # noqa: F401

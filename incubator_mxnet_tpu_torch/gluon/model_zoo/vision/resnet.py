@@ -4,8 +4,8 @@ the backbone of ``bench.py``'s ResNet-50 workload).
 v1 is post-activation (conv-BN-relu, the shortcut added before the last
 relu); v2 is pre-activation (BN-relu-conv). The block and channel tables
 and the parameter names are the reference's, so converted weights and
-``.params`` files line up name for name. ``resnet_sharding_rules`` comes
-with the multi-GPU slice.
+``.params`` files line up name for name. :func:`resnet_sharding_rules` is
+the JAX package's channel-parallel table for ``parallel.ShardedTrainer``.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ __all__ = ["BasicBlockV1", "BasicBlockV2", "BottleneckV1", "BottleneckV2",
            "ResNetV1", "ResNetV2", "get_resnet",
            "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
            "resnet152_v1", "resnet18_v2", "resnet34_v2", "resnet50_v2",
-           "resnet101_v2", "resnet152_v2"]
+           "resnet101_v2", "resnet152_v2", "resnet_sharding_rules"]
 
 
 def _conv3x3(channels, stride, in_channels, prefix):
@@ -293,3 +293,14 @@ def resnet101_v2(**kw):
 def resnet152_v2(**kw):
     """resnet152_v2 (JAX counterpart: ``resnet.py:228-265``)."""
     return get_resnet(2, 152, **kw)
+
+
+def resnet_sharding_rules(extra=()):
+    """Channel-parallel ``tp`` rules (JAX counterpart: ``resnet.py:218``):
+    conv weights (O, I, kh, kw) split their output channels, dense weights
+    their input dim; BatchNorm stays replicated."""
+    from ....parallel.sharding import P, ShardingRules
+    return ShardingRules(list(extra) + [
+        (r".*conv.*weight", P("tp", None, None, None)),
+        (r".*dense.*weight", P(None, "tp")),
+    ])

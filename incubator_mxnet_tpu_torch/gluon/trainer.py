@@ -7,10 +7,14 @@ stale-gradient protocol (``:184-217``: a gradient no backward has written
 since the last update raises ``UserWarning``, or is skipped under
 ``ignore_stale_grad``), ``learning_rate``/``set_learning_rate`` and
 ``save_states``/``load_states``. Each parameter is updated once, even when
-several blocks hold it (a tied weight). ``allreduce_grads`` has nothing to
-reduce on one device; the kvstore seam comes with the multi-GPU slice,
-so ``update_on_kvstore`` and ``compression_params`` are taken as in the JAX
-signature (``:26-28``), and ``True`` or a compression raises.
+several blocks hold it (a tied weight). The kvstore seam is the JAX
+package's (``_init_kvstore``, ``:27-90``), resolved at the first step:
+``None``/``"local"``/``"device"``/``"nccl"`` exchange nothing (one device
+holds one replica of each parameter); ``compression_params`` with one of
+them, any other type name (``"dist_sync"``: sums across the ranks of the
+process group) or a ``KVStore`` object route every gradient through the
+store, the key batch in one ``push``/``pull``. ``update_on_kvstore`` is
+kept as the JAX Trainer keeps it: the update runs here either way.
 
 The update is multi-tensor: the parameters with a fresh gradient are
 grouped by (device, dtype, fp32 master or not) and each group is one
@@ -52,19 +56,10 @@ class Trainer:
                  optimizer_params: Optional[dict] = None,
                  kvstore: Optional[str] = "device", compression_params=None,
                  update_on_kvstore: Optional[bool] = None):
-        if kvstore not in (None, "local", "device"):
-            raise MXNetError(f"kvstore {kvstore!r} is not ported yet: one "
-                             "device, nothing to reduce")
-        if compression_params:
-            raise MXNetError(
-                f"compression_params={compression_params!r} needs the "
-                "kvstore port (ROADMAP queue A, item 6): the one-device "
-                "Trainer exchanges no gradients to compress")
-        if update_on_kvstore:
-            raise MXNetError(
-                "update_on_kvstore=True needs the kvstore port (ROADMAP "
-                "queue A, item 6); the one-device Trainer updates locally")
         self._compression_params = compression_params
+        self._kvstore_type = kvstore
+        self._kvstore = None
+        self._kv_initialized = False
         self._update_on_kvstore = update_on_kvstore
         if isinstance(params, (dict, ParameterDict)):
             params = [params[k] for k in sorted(params.keys())]
@@ -103,9 +98,45 @@ class Trainer:
     def set_learning_rate(self, lr: float) -> None:
         self._optimizer.set_learning_rate(lr)
 
+    def _init_kvstore(self) -> None:
+        """Resolve the exchange at the first step (module docstring; JAX
+        counterpart: ``gluon/trainer.py:67-90``)."""
+        from .. import kvstore as kv
+        kt = self._kvstore_type
+        if kt and not isinstance(kt, str):
+            self._kvstore = kt              # a store object
+        elif kt in (None, "local", "device", "nccl"):
+            # the inline exchange has no compression stage: a request for
+            # one takes a real store rather than being dropped
+            self._kvstore = (kv.create(kt or "device")
+                             if self._compression_params else None)
+        else:
+            self._kvstore = kv.create(kt)
+        if self._kvstore is not None:
+            if self._compression_params:
+                self._kvstore.set_gradient_compression(
+                    self._compression_params)
+            for i, param in enumerate(self._params):
+                if param._initialized:
+                    self._kvstore.init(i, param.data())
+        self._kv_initialized = True
+
     def allreduce_grads(self) -> None:
-        """Sum gradients across replicas: one device holds one replica, so
+        """Exchange the gradients through the kvstore: every key with a
+        gradient in one ``push`` and one ``pull`` (the store sums them in
+        one collective); without a store one device holds one replica and
         there is nothing to do."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is None:
+            return
+        items = [(i, p.grad()) for i, p in enumerate(self._params)
+                 if p.grad_req != "null" and p._initialized]
+        if items:
+            keys = [i for i, _ in items]
+            grads = [g for _, g in items]
+            self._kvstore.push(keys, grads)
+            self._kvstore.pull(keys, out=grads)
 
     def step(self, batch_size: int, ignore_stale_grad: bool = False) -> None:
         """Reduce the gradients and update every parameter, the gradients
@@ -118,6 +149,8 @@ class Trainer:
                ) -> None:
         """The update alone, for gradients already reduced."""
         self._optimizer.rescale_grad = self._scale / batch_size
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad: bool = False) -> None:

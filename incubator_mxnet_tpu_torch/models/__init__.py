@@ -7,14 +7,15 @@ from . import (  # noqa: F401
     ssd, transformer, word_language_model,
 )
 from .bert import (  # noqa: F401
-    BERT_CONFIGS, BERTEncoder, BERTModel, bert_pretrain_loss, get_bert,
+    BERT_CONFIGS, BERTEncoder, BERTModel, bert_pretrain_loss,
+    bert_sharding_rules, get_bert,
 )
 from .lenet import (  # noqa: F401
     LeNet, lenet_symbol, mlp_symbol, mnist_example, serving_example,
 )
 from .nmt import (  # noqa: F401
     NMTModel, TransformerDecoder, TransformerEncoder, beam_search,
-    beam_search_reference,
+    beam_search_reference, transformer_sharding_rules,
 )
 from .rcnn import FasterRCNN, FasterRCNNTargetLoss, RPN  # noqa: F401
 from .ssd import SSD, SSDTargetLoss, ssd_300  # noqa: F401

@@ -12,8 +12,9 @@ the shared ``decoder_tied_weight``, prefix names such as
 so ``.params`` files move between the two packages and
 ``convert.params_from_jax`` maps weights one to one. The model runs on
 tensors (serving, ``ShardedTrainer``) or on NDArrays (the Gluon loop).
-:func:`bert_pretrain_loss` is the MLM + NSP loss of the pretraining step.
-Remat and the sharding rules come with later slices.
+:func:`bert_pretrain_loss` is the MLM + NSP loss of the pretraining step;
+:func:`bert_sharding_rules` is the JAX package's tensor-parallel table for
+``parallel.ShardedTrainer``. Remat is not ported.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from ..nn import Dense, Dropout, Embedding, LayerNorm
 from .transformer import TransformerEncoderCell
 
 __all__ = ["BERTEncoder", "BERTModel", "get_bert", "bert_pretrain_loss",
-           "BERT_CONFIGS"]
+           "BERT_CONFIGS", "bert_sharding_rules"]
 
 #: GluonNLP model-name convention: bert_<layers>_<units>_<heads>
 #: (JAX counterpart: ``models/bert.py:28``)
@@ -197,6 +198,24 @@ def get_bert(name_or_cfg="bert_12_768_12", vocab_size: int = 30522,
     model.initialize(Xavier(generator=generator),
                      ctx=Context.from_device(dev))
     return model
+
+
+def bert_sharding_rules(extra=()):
+    """Megatron-style ``tp`` rules for ``parallel.ShardedTrainer`` (JAX
+    counterpart: ``models/bert.py:226-242``): dense weights are (out, in);
+    qkv and ffn1 split the output dim, proj and ffn2 the input dim, the
+    word embedding its vocabulary dim. Each rank stores its block; the
+    port's compute stays replicated over ``tp``."""
+    from ..parallel.sharding import P, ShardingRules
+    return ShardingRules(list(extra) + [
+        (r".*qkv_weight", P("tp", None)),
+        (r".*qkv_bias", P("tp")),
+        (r".*(proj|ffn2)_weight", P(None, "tp")),
+        (r".*ffn1_weight", P("tp", None)),
+        (r".*ffn1_bias", P("tp")),
+        (r".*word_embed_weight", P("tp", None)),
+        (r".*decoder_bias", P("tp")),
+    ])
 
 
 @_nd_op

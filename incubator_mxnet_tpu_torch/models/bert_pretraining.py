@@ -16,10 +16,15 @@ card::
     python3 -m incubator_mxnet_tpu_torch.models.bert_pretraining \\
         --model bert_12_768_12 --seq-len 512 --batch-size 8 --ckpt-dir D
 
-On one card the mesh is 1x1x1: ``--dp``/``--tp``/``--sp`` above 1 need the
-multi-GPU slice, and ``--remat`` per-layer rematerialisation, which
-``get_bert`` does not have; both raise. ``--zero1`` shards optimizer
-states over ``dp``, which is 1 here: it changes nothing.
+``--dp``/``--tp``/``--sp`` lay the ranks out on a mesh
+(``parallel.make_mesh``) after ``parallel.dist.initialize()``, which reads
+the launcher's ``DMLC_*`` variables (one rank per process; ``python -m
+incubator_mxnet_tpu_torch.tools.launch -n 4 python -m
+incubator_mxnet_tpu_torch.models.bert_pretraining --dp 2 --tp 2``): the
+trainer takes ``bert_sharding_rules()`` and, with ``--sp``, the sequence
+axis; the primary prints. On one card the mesh is 1x1x1. ``--zero1``
+shards the optimizer states over ``dp``. ``--remat`` (per-layer
+rematerialisation, which ``get_bert`` does not have) raises.
 
 A length-bucketed corpus for the same step: :class:`SyntheticCorpus`
 (token sequences of given lengths, each sample drawn from its own seed,
@@ -157,7 +162,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="rematerialise each encoder layer (not in the "
                          "port's get_bert: raises)")
     ap.add_argument("--zero1", action="store_true",
-                    help="shard optimizer states over dp (dp is 1 here)")
+                    help="shard optimizer states over dp (ZeRO-1)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="mx.fault checkpoint directory: resumes from the "
                          "newest verified step on start, saves every "
@@ -173,16 +178,11 @@ def build(args: argparse.Namespace, device=None, **trainer_kw) -> tuple:
     card): the model seeded from ``--seed``, the fused ``ShardedTrainer``
     (AdamW with fp32 masters; ``trainer_kw`` such as ``guard=`` and
     ``watchdog=`` go to it) and the synthetic batch as numpy arrays."""
-    from .. import random
+    from .. import parallel, random
     from ..context import resolve_device
     from ..parallel import ShardedTrainer
-    from .bert import bert_pretrain_loss, get_bert
+    from .bert import bert_pretrain_loss, bert_sharding_rules, get_bert
 
-    if args.dp * args.tp * args.sp > 1:
-        raise MXNetError(
-            f"--dp {args.dp} --tp {args.tp} --sp {args.sp}: a mesh over more "
-            "than one card comes with the multi-GPU slice; this build trains "
-            "on one card (1x1x1)")
     if args.remat:
         raise MXNetError("--remat: the port's get_bert has no per-layer "
                          "rematerialisation")
@@ -190,6 +190,11 @@ def build(args: argparse.Namespace, device=None, **trainer_kw) -> tuple:
         else int(os.environ.get("MXNET_TEST_SEED", "42"))
     random.seed(seed)
     dev = resolve_device(device)
+    # a mesh over exactly the ranks the axes need (1x1x1: this process)
+    parallel.dist.initialize(device=dev)
+    n = args.dp * args.tp * args.sp
+    mesh = parallel.make_mesh(devices=list(range(n)), dp=args.dp,
+                              tp=args.tp, sp=args.sp)
     vocab = 1000 if args.model == "bert_2_128_2" else 30522
     P = max(1, round(0.15 * args.seq_len))
     net = get_bert(args.model, vocab_size=vocab, max_length=args.seq_len,
@@ -198,7 +203,8 @@ def build(args: argparse.Namespace, device=None, **trainer_kw) -> tuple:
     trainer = ShardedTrainer(
         net, bert_pretrain_loss, "adamw",
         {"learning_rate": args.lr, "multi_precision": True}, device=dev,
-        n_labels=3, seed=seed, **trainer_kw)
+        n_labels=3, seed=seed, mesh=mesh, rules=bert_sharding_rules(),
+        seq_axis=1 if args.sp > 1 else None, zero1=args.zero1, **trainer_kw)
     rng = onp.random.RandomState(0)
     batch = synthetic_batch(rng, args.batch_size, args.seq_len, P, vocab)
     return net, trainer, batch
@@ -206,7 +212,7 @@ def build(args: argparse.Namespace, device=None, **trainer_kw) -> tuple:
 
 def main(argv=None, device=None) -> Optional[float]:
     """Run the example (module docstring); returns the last printed loss."""
-    from .. import fault
+    from .. import fault, parallel
 
     args = parse_args(argv)
     _, trainer, batch = build(args, device)
@@ -231,7 +237,8 @@ def main(argv=None, device=None) -> Optional[float]:
             trainer.save_checkpoint(args.ckpt_dir)
         if step % 5 == 0 or step == args.steps - 1:
             last = float(loss)
-            print(f"step {step:4d}  loss {last:.4f}")
+            if parallel.is_primary():
+                print(f"step {step:4d}  loss {last:.4f}")
     return last
 
 

@@ -46,7 +46,8 @@ __all__ = ["TransformerEncoder", "TransformerDecoder", "NMTModel",
            "source_mask", "label_smoothed_ce", "beam_search",
            "beam_search_reference", "incremental_decode_params",
            "cross_attention_kv", "nmt_step", "nmt_paged_step",
-           "make_mt_batch", "mt_example", "MT_CONFIG"]
+           "make_mt_batch", "mt_example", "MT_CONFIG",
+           "transformer_sharding_rules"]
 
 #: LayerNorm epsilon of the NMT layers and of the decode step's
 #: normalisation (``nn.LayerNorm``'s default, ``nmt.py:208``)
@@ -629,3 +630,17 @@ def mt_example(steps: int = 300, net: Optional[NMTModel] = None,
     return {"losses": [float(x) for x in losses],
             "accuracy": float((best == label[:, :seq_len]).all(axis=1)
                               .mean())}
+
+
+def transformer_sharding_rules(extra=()):
+    """The JAX package's ``tp`` rules of the NMT Transformer for
+    ``parallel.ShardedTrainer`` (``models/nmt.py:192``)."""
+    from ..parallel.sharding import P, ShardingRules
+    return ShardingRules(list(extra) + [
+        (r".*(qkv|query|kv)_weight", P("tp", None)),
+        (r".*(qkv|query|kv)_bias", P("tp")),
+        (r".*(proj|ffn2)_weight", P(None, "tp")),
+        (r".*ffn1_weight", P("tp", None)),
+        (r".*ffn1_bias", P("tp")),
+        (r".*embed_weight", P("tp", None)),
+    ])

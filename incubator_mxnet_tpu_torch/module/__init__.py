@@ -10,8 +10,10 @@ Counterpart: the JAX package's ``module/__init__.py`` (``BaseModule`` at
 ``install_monitor``. ``update`` steps every parameter at once through
 ``Optimizer.update_multi``, as ``gluon.Trainer`` does, with the numbers of
 the JAX Module's per-parameter ``update`` loop. One context: a list of
-contexts takes its first, and the kvstore may be ``local`` or ``device``
-(the others come with ROADMAP queue A, item 6). On the card the Executor
+contexts takes its first. ``init_optimizer(kvstore=)`` takes every name
+the JAX Module takes; a store other than ``local``/``device`` (a type name
+or a ``KVStore``) sums the gradients across ranks before each update, the
+key batch in one ``push``/``pull``. On the card the Executor
 replays one CUDA graph for the training forward and backward and one for
 the scoring forward (``Executor.captures``).
 """
@@ -161,6 +163,8 @@ class Module(BaseModule):
         self._exec = None
         self._optimizer = None
         self._opt_states: Dict[int, tuple] = {}
+        self._kvstore = None
+        self._kv_keys: Optional[List[int]] = None
         self._arg_names: List[str] = []
         self._preloaded = None
 
@@ -226,10 +230,13 @@ class Module(BaseModule):
         """An optimizer from the registry (or the one given). The
         executor's backward yields batch-summed gradients, so
         ``rescale_grad`` is ``1 / batch_size`` unless given."""
-        if kvstore not in (None, "local", "device"):
-            raise MXNetError(f"kvstore {kvstore!r} needs the kvstore port "
-                             "(ROADMAP queue A, item 6); one card takes "
-                             "'local' or 'device'")
+        from .. import kvstore as kv
+        if isinstance(kvstore, str):
+            self._kvstore = (None if kvstore in ("local", "device")
+                             else kv.create(kvstore))
+        else:
+            self._kvstore = kvstore
+        self._kv_keys = None
         if isinstance(optimizer, str):
             params = dict(optimizer_params)
             if "rescale_grad" not in params:
@@ -270,6 +277,14 @@ class Module(BaseModule):
             idx.append(i)
             weights.append(w)
             grads.append(g._data)
+        if idx and self._kvstore is not None:
+            # every rank's gradients summed, the key batch at once
+            if self._kv_keys != idx:
+                self._kvstore.init(idx, [NDArray(w) for w in weights])
+                self._kv_keys = list(idx)
+            nds = [NDArray(g) for g in grads]
+            self._kvstore.push(idx, nds)
+            self._kvstore.pull(idx, out=nds)
         if idx:
             opt.update_multi(idx, weights, grads,
                              [self._opt_states[i] for i in idx])

@@ -7,7 +7,8 @@ Pallas forward kernel ``_fwd_kernel`` (``:181``) launched by ``_fwd``
 ``_bwd_dkv_kernel`` (``:299``) and ``_bwd_dq_kernel`` (``:359``) launched
 by ``_bwd`` (``:410``, ``pl.pallas_call`` at ``:450`` and ``:487``), the
 custom VJP ``_flash`` (``:507-525``) and the public ``flash_attention``
-(``:556``). The kernels are ``csrc/flash_attention_fwd.cu``,
+(``:556``), and the ring's block entry ``flash_block`` (``:533-553``).
+The kernels are ``csrc/flash_attention_fwd.cu``,
 ``csrc/flash_attention_bwd_dkv.cu`` and ``csrc/flash_attention_bwd_dq.cu``;
 their sources note what bounds them and how they are laid out.
 
@@ -46,7 +47,8 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_bwd_dq_reference", "flash_supported",
            "FlashAttentionFunction", "flash_attention_fwd", "KERNEL",
            "KERNEL_BWD_DKV", "KERNEL_BWD_DQ", "KERNELS",
-           "SUPPORTED_HEAD_DIMS", "MAX_TILE", "launches"]
+           "SUPPORTED_HEAD_DIMS", "MAX_TILE", "launches", "flash_block",
+           "FlashBlockFunction"]
 
 _NEG = -1e30
 KERNEL = "flash_attention_fwd"
@@ -431,6 +433,44 @@ class FlashAttentionFunction(torch.autograd.Function):
         dq, dk, dv = _bwd(q, k, v, key_mask, ctx.causal, ctx.scale,
                           ctx.window, lse, do, _delta(o, do))
         return dq, dk, dv, None, None, None, None
+
+
+class FlashBlockFunction(torch.autograd.Function):
+    """One K/V block's attention as ``(o, lse)``, differentiable in both
+    (JAX counterpart: the custom VJP ``flash_block``,
+    ``flash_attention.py:533-553``): the lse cotangent enters the score
+    gradient as ``dS += p * dlse``, a shift of ``delta``, so the backward
+    passes ``rowsum(dO * o) - dlse`` to the same two kernels (``_bwd``,
+    ``:417-422``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, scale):
+        o, lse = _fwd(q, k, v, key_mask, causal, scale)
+        ctx.save_for_backward(q, k, v, key_mask, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do, dlse):
+        q, k, v, key_mask, o, lse = ctx.saved_tensors
+        do = torch.zeros_like(o) if do is None else do.to(q.dtype)
+        do = do.contiguous()
+        delta = _delta(o, do)
+        if dlse is not None:
+            delta = (delta - dlse.float()).contiguous()
+        dq, dk, dv = _bwd(q, k, v, key_mask, ctx.causal, ctx.scale, None,
+                          lse, do, delta)
+        return dq, dk, dv, None, None, None
+
+
+def flash_block(q, k, v, key_mask, causal: bool, scale: float):
+    """``(o, lse)`` of ``q`` over one K/V block, ``key_mask`` (B, Lk) or
+    None: the unit ring attention merges per hop (same contract as
+    :func:`flash_attention`; no window). On the card the kernels launch or
+    raise; on the CPU the plain versions run."""
+    return FlashBlockFunction.apply(q, k, v, key_mask, bool(causal),
+                                    float(scale))
 
 
 def flash_attention(q, k, v, mask=None, causal: bool = False,

@@ -1,5 +1,5 @@
-"""Single-device training step over a ``torch.nn.Module``, fused into one
-CUDA graph.
+"""Training step over a ``torch.nn.Module``: on one device fused into one
+CUDA graph, on a mesh of ranks sharded by rule.
 
 Counterpart: the JAX package's ``parallel/trainer.py`` (``ShardedTrainer``,
 ``:73-515``), the subset one device runs: forward on the data arguments,
@@ -8,9 +8,8 @@ norm in fp32 (``:390-395``), the finite verdict (``:492-497``) and the
 optimizer update, on an fp32 master copy where the weight is
 float16/bfloat16 and ``multi_precision`` is set (``:471-481``); the learning
 rate is the optimizer's before the step and its schedule position is the
-step count less one (``:425-448``, ``:611-633``). The mesh, sharding,
-ZeRO-1, the kvstore fallback, numerics and autotune come with later
-slices.
+step count less one (``:425-448``, ``:611-633``). The kvstore fallback,
+numerics and autotune are not ported.
 
 Every parameter of the module goes through the optimizer, as in the JAX
 trainer (its ``_params`` is the whole ``collect_params()``, ``:216-218``):
@@ -74,6 +73,39 @@ Fault tolerance (``mx.fault``; JAX counterpart ``:733-796``, ``:953-1065``,
   ``rng:torch:<k>`` (the JAX package's threefry key, ``rng:base_key``,
   has no counterpart here and is not carried over).
 
+The mesh (``mesh=``, ``rules=``, ``zero1=``, ``seq_axis=``; JAX counterpart
+``:83-112``, ``:169-290``): one process per rank (:mod:`.dist`), the
+default mesh a pure-``dp`` one over every rank. A one-rank mesh is the
+mesh-less path above, bit for bit. On more ranks the step is the eager one
+(``fused=None``; ``fused=True`` raises: captured NCCL collectives cannot be
+verified on a one-card chip), and:
+
+- every rank receives the global batch and takes its ``dp`` rows
+  (``B % dp`` must be 0, as the JAX placement demands); the loss is the
+  mean over the global batch (the ``dp`` mean of the ranks' means: exact
+  for a loss that is a mean over rows of equal count), and the gradients
+  are averaged over ``dp`` before the norm, so the guard sees the global
+  norm;
+- a parameter that a rule shards (:class:`~.sharding.ShardingRules`, first
+  match) is **stored as this rank's block only**, in the module's own
+  parameter, and so are its optimizer states; before the forward it is
+  gathered over its axes by :func:`~.collectives.replicated_gather` (its
+  gradient comes back as this rank's slice, without a sum) and handed to
+  the block in its place (a Gluon block's alias table, else
+  ``torch.func.functional_call``). The compute is replicated over ``tp``
+  and ``sp``; under an ``sp`` axis attention lowers to ring attention
+  (``ops/attention.py``); the Megatron compute split waits for a later
+  slice;
+- ``zero1`` (default: on when ``dp > 1``) partitions the weight-shaped
+  optimizer states and fp32 masters over ``dp`` on the first axis with
+  room (JAX ``_zero1_spec``, ``:269-290``): the gradients are
+  reduce-scattered into the rank's slice, the update runs on it, and the
+  new weights are all-gathered;
+- ``save_checkpoint``/``restore_checkpoint`` write and read the global
+  arrays under the JAX keys (each rank writes a share of them as its
+  shard of the multi-host layout; the primary commits), so a checkpoint
+  moves between the packages and between meshes.
+
 Restore and rollback write into the live tensors (``copy_``), never
 rebinding them: the captured graph updates the very parameters and
 states it was captured over, and a parameter's new storage would only
@@ -104,6 +136,10 @@ from ..ops.cuda import graphs
 from ..ops.optimizer_ops import sum_sq_total
 from ..optimizer.optimizer import _uses_master
 from ..util import getenv
+from . import collectives
+from .mesh import Mesh, active_mesh, default_mesh
+from .sharding import NamedSharding, P, ShardingRules, data_sharding
+from .sharding import spec_axes as _spec_axes
 
 __all__ = ["ShardedTrainer"]
 
@@ -170,22 +206,44 @@ class ShardedTrainer:
     ``fused`` picks the path (module docstring): ``None`` is the fused step
     on the card unless ``MXTPU_FUSED_STEP=0``, the eager one on the CPU.
     ``guard`` (a ``fault.StepGuard``) and ``watchdog`` (a
-    ``fault.Watchdog``) are optional (module docstring).
+    ``fault.Watchdog``) are optional (module docstring). ``mesh``,
+    ``rules``, ``zero1`` and ``seq_axis`` are the JAX trainer's (module
+    docstring); ``seq_axis`` names the batch's sequence dimension, which
+    must divide by ``sp`` (every rank keeps the whole sequence: the ring
+    cuts its own blocks).
     """
 
     def __init__(self, block: nn.Module, loss_fn: Callable, optimizer,
                  optimizer_params: Optional[dict] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  n_labels: int = 1, seed: int = 0,
-                 fused: Optional[bool] = None, guard=None, watchdog=None):
+                 fused: Optional[bool] = None, guard=None, watchdog=None,
+                 mesh: Optional[Mesh] = None,
+                 rules: Optional[ShardingRules] = None,
+                 zero1: Optional[bool] = None,
+                 seq_axis: Optional[int] = None):
         self._device = resolve_device(device)
+        self._mesh = mesh if mesh is not None else default_mesh()
+        self._rules = rules if rules is not None else ShardingRules()
+        self._seq_axis = seq_axis
+        #: ZeRO-1 (JAX ``:97-104``): on by default when ``dp > 1``
+        self._zero1 = (self._mesh.axis_size("dp") > 1 if zero1 is None
+                       else bool(zero1))
+        #: more than one rank: the sharded eager step (module docstring)
+        self._multi = self._mesh.size > 1
         if fused is None:
             fused = (getenv("MXTPU_FUSED_STEP") == "1"
-                     and self._device.type == "cuda")
+                     and self._device.type == "cuda" and not self._multi)
         elif fused and self._device.type != "cuda":
             raise MXNetError("fused=True captures the step in a CUDA graph: "
                              f"it needs a card, not {self._device}; pass "
                              "fused=None or False on the CPU")
+        elif fused and self._multi:
+            raise MXNetError(
+                f"fused=True on a mesh of {self._mesh.size} ranks would "
+                "capture NCCL collectives in the step's CUDA graph, which "
+                "cannot be verified on a one-card chip; pass fused=None "
+                "(the eager step) on a mesh of more than one rank")
         self._fused = bool(fused)
         self._block = block.to(self._device)
         self._loss_fn = loss_fn
@@ -216,10 +274,20 @@ class ShardedTrainer:
         self.last_step_graphs = 0
         #: ``"fused"`` or ``"eager"``: the path the last ``step()`` took
         self.last_path: Optional[str] = None
+        #: per parameter: its rule's sharding, the axis its ZeRO-1 slice
+        #: cuts (or None), its global shape, which states are weight-shaped
+        self._shardings: List[NamedSharding] = []
+        self._zaxis: List[Optional[int]] = []
+        self._full_shapes: List[tuple] = []
+        self._wshaped: List[List[bool]] = []
 
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def mesh(self) -> Mesh:
+        return self._mesh
 
     @property
     def fused(self) -> bool:
@@ -293,11 +361,20 @@ class ShardedTrainer:
         self._params = [p for _, p in named]
         self._indices = list(range(len(self._params)))
         opt.idx2name = {i: name for i, (name, _) in enumerate(named)}
+        self._shard_params(named)
         self._states = [opt.create_state_multi_precision(i, p.detach())
                         for i, p in enumerate(self._params)]
         #: which parameters update through an fp32 master
         self._mp = [_uses_master(opt.multi_precision, p, s)
                     for p, s in zip(self._params, self._states)]
+        self._wshaped = [[tuple(a.shape) == tuple(p.shape) for a in st]
+                         for p, st in zip(self._params, self._states)]
+        if self._multi:
+            # ZeRO-1: the weight-shaped states keep this rank's dp slice
+            self._states = [tuple(self._zslice(i, a) if w else a
+                                  for a, w in zip(st, ws))
+                            for i, (st, ws) in enumerate(
+                                zip(self._states, self._wshaped))]
         sched = opt.lr_scheduler
         self._lr_fold = bool(sched is not None and hasattr(sched, "torch_lr"))
 
@@ -306,6 +383,213 @@ class ShardedTrainer:
             return False
         return any(not p._initialized or p.grad_req == "null"
                    for p in self._block.collect_params().values())
+
+    # ------------------------------------------------------------------
+    # the mesh (module docstring)
+    # ------------------------------------------------------------------
+    def _shard_params(self, named) -> None:
+        """Each parameter's rule and ZeRO-1 layout; on a mesh of more than
+        one rank, a rule-sharded parameter keeps only this rank's block."""
+        mesh = self._mesh
+        self._shardings, self._zaxis, self._full_shapes = [], [], []
+        for name, p in named:
+            shape = tuple(p.shape)
+            sh = self._rules.sharding_for(name, mesh, shape)
+            if self._multi and mesh.axis_size("dp") > 1 \
+                    and "dp" in _spec_axes(sh.spec):
+                raise MXNetError(
+                    f"rule {tuple(sh.spec)} of {name!r} shards over dp: a "
+                    "rule over the data axis is not ported (its gradient "
+                    "needs a reduce-scatter over rows); dp partitions "
+                    "optimizer states through zero1")
+            self._shardings.append(sh)
+            self._full_shapes.append(shape)
+            self._zaxis.append(self._zero1_axis(sh.spec, shape)
+                               if self._zero1 else None)
+            if self._multi and not sh.is_replicated():
+                with torch.no_grad():
+                    p.data = sh.local(p.data).contiguous().clone()
+
+    def _zero1_spec(self, spec, shape):
+        """A weight's spec with a ``dp`` factor on the first axis that has
+        room: the optimizer-state layout of ZeRO stage 1 (JAX counterpart:
+        ``:269-290``)."""
+        mesh = self._mesh
+        dp = mesh.axis_size("dp")
+        if dp == 1:
+            return spec
+        entries = list(tuple(spec)) + [None] * (len(shape) - len(tuple(spec)))
+        for e in entries:
+            used = e if isinstance(e, tuple) else ((e,) if e else ())
+            if "dp" in used:
+                return P(*entries)      # already dp-partitioned by rule
+        for ax in range(len(shape)):
+            e = entries[ax]
+            used = tuple(e) if isinstance(e, tuple) else ((e,) if e else ())
+            cur = 1
+            for a in used:
+                cur *= mesh.axis_size(a)
+            if shape[ax] % (cur * dp) == 0:
+                entries[ax] = used + ("dp",)
+                return P(*entries)
+        return spec                     # nothing divisible: stay replicated
+
+    def _zero1_axis(self, spec, shape) -> Optional[int]:
+        """The axis of ``shape`` whose ``dp`` factor :meth:`_zero1_spec`
+        adds (None: no slice, or the rule already cuts over ``dp``)."""
+        z = tuple(self._zero1_spec(spec, shape))
+        for ax, e in enumerate(z):
+            old = tuple(spec)[ax] if ax < len(tuple(spec)) else None
+            if e != old:
+                return ax
+        return None
+
+    def _zslice(self, i: int, a: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO-1 slice of a tensor of parameter ``i``'s local
+        block (itself where the parameter has none)."""
+        ax = self._zaxis[i]
+        if ax is None or not self._multi:
+            return a
+        dp = self._mesh.axis_size("dp")
+        n = a.shape[ax] // dp
+        return a.narrow(ax, self._mesh.axis_index("dp") * n, n).clone()
+
+    def step_shardings(self, batch_ndims):
+        """``(in_shardings, out_shardings)`` of the step, laid out as the
+        JAX trainer's (``:310-341``): ``in`` = (parameters, optimizer
+        states, key, lr, t, *batch), ``out`` = (loss, grad norm,
+        parameters, states, effects, t + 1[, finite]). Parameters carry
+        their rule's spec, weight-shaped states the ZeRO-1 one, the batch
+        ``dp`` rows (and ``sp`` on ``seq_axis``), scalars are replicated.
+        Needs the trainer's state (one ``step()``)."""
+        if self._params is None:
+            raise MXNetError("step_shardings() needs the trainer's state: "
+                             "run step() once first")
+        mesh = self._mesh
+        repl = NamedSharding(mesh, P())
+        params = tuple(self._shardings)
+        states = tuple(
+            tuple(NamedSharding(mesh, self._zero1_spec(sh.spec, shape)
+                                if self._zero1 else sh.spec)
+                  if w else repl for w in ws)
+            for sh, shape, ws in zip(self._shardings, self._full_shapes,
+                                     self._wshaped))
+        batch = tuple(data_sharding(mesh, 0, self._seq_axis, nd)
+                      for nd in batch_ndims)
+        ins = (params, states, repl, repl, repl) + batch
+        outs = (repl, repl, params, states, repl, repl)
+        if self._fused:
+            outs = outs + (repl,)
+        return ins, outs
+
+    def _dp_rows(self, vals) -> tuple:
+        """This rank's ``dp`` rows of every batch argument."""
+        mesh = self._mesh
+        dp, di = mesh.axis_size("dp"), mesh.axis_index("dp")
+        sp = mesh.axis_size("sp")
+        out = []
+        for k, v in enumerate(vals):
+            if v.dim() == 0:
+                out.append(v)
+                continue
+            if v.shape[0] % dp:
+                raise MXNetError(
+                    f"batch argument {k} of shape {tuple(v.shape)}: its "
+                    f"dimension 0 is sharded over dp={dp}, so its size "
+                    f"should be divisible by {dp}, but it is {v.shape[0]}")
+            ax = self._seq_axis
+            if ax is not None and sp > 1 and ax < v.dim() \
+                    and v.shape[ax] % sp:
+                raise MXNetError(
+                    f"batch argument {k} of shape {tuple(v.shape)}: its "
+                    f"dimension {ax} is sharded over sp={sp}, so its size "
+                    f"should be divisible by {sp}, but it is {v.shape[ax]}")
+            n = v.shape[0] // dp
+            out.append(v.narrow(0, di * n, n))
+        return tuple(out)
+
+    @contextlib.contextmanager
+    def _gathered(self):
+        """Inside: the mesh is active and the block computes on each
+        rule-sharded parameter's global value, gathered from the blocks
+        (its gradient comes back as this rank's slice)."""
+        mesh = self._mesh
+        full = {}
+        for i, p in enumerate(self._params):
+            sh = self._shardings[i]
+            if sh.is_replicated():
+                continue
+            x = p
+            for d, e in enumerate(sh.spec):
+                axes = (e,) if isinstance(e, str) else tuple(e or ())
+                if any(mesh.axis_size(a) > 1 for a in axes):
+                    x = collectives.replicated_gather(x, axes, d, mesh=mesh)
+            full[id(p)] = x
+        with active_mesh(mesh):
+            if not full:
+                yield self._block
+            elif hasattr(self._block, "collect_params"):
+                from ..gluon.block import _ALIASES
+                prev = getattr(_ALIASES, "map", None)
+                gps = self._block.collect_params().values()
+                _ALIASES.map = {id(gp): full.get(id(gp._var), gp._var)
+                                for gp in gps}
+                try:
+                    yield self._block
+                finally:
+                    _ALIASES.map = prev
+            else:
+                from torch.func import functional_call
+                names = {id(p): n for n, p in self._block.named_parameters()}
+                subs = {names[k]: v for k, v in full.items()}
+                yield lambda *a: functional_call(self._block, subs, a)
+
+    def _reduce_grads(self, loss, grads):
+        """The exchange of a mesh of more than one rank (module docstring):
+        the loss and the gradients averaged over ``dp`` (ZeRO-1: a
+        gradient reduce-scattered into this rank's slice), and the global
+        norm of the gradients; returns ``(loss, grads, gnorm)``."""
+        mesh = self._mesh
+        dp = mesh.axis_size("dp")
+        params = self._params
+        loss = collectives.all_reduce(loss, "dp", "mean", mesh=mesh)
+        flat = [i for i, z in enumerate(self._zaxis) if z is None]
+        if flat and dp > 1:
+            # one all-reduce of every gradient without a ZeRO-1 slice
+            buf = torch.cat([grads[i].float().reshape(-1) for i in flat])
+            buf = collectives.all_reduce(buf, "dp", mesh=mesh) / dp
+            off = 0
+            for i in flat:
+                n = grads[i].numel()
+                grads[i] = buf[off:off + n].view_as(grads[i]).to(
+                    grads[i].dtype)
+                off += n
+        sq = torch.zeros((), dtype=torch.float32, device=self._device)
+        for i, z in enumerate(self._zaxis):
+            blocks = 1
+            for a in set(_spec_axes(self._shardings[i].spec)):
+                blocks *= mesh.axis_size(a)
+            if z is not None:
+                grads[i] = collectives.reduce_scatter(
+                    grads[i], "dp", scatter_axis=z, mesh=mesh) / dp
+                blocks *= dp
+            else:
+                params[i].grad = grads[i]
+            # each block of the gradient is held by size / blocks ranks
+            sq = sq + grads[i].float().square().sum() * (blocks / mesh.size)
+        gnorm = torch.sqrt(collectives.all_reduce(
+            sq, tuple(mesh.axis_names), mesh=mesh))
+        return loss, grads, gnorm
+
+    def _zgather(self, i: int, w: torch.Tensor) -> torch.Tensor:
+        """Parameter ``i``'s new local block from this rank's ZeRO-1 slice
+        of it (the inverse of :meth:`_zslice`; itself where there is no
+        slice)."""
+        ax = self._zaxis[i]
+        if ax is None or not self._multi:
+            return w
+        return collectives.all_gather(w.contiguous(), "dp", gather_axis=ax,
+                                      mesh=self._mesh)
 
     def place(self, *batch) -> tuple:
         """Batch arrays (numpy, tensors or NDArrays) as tensors on the
@@ -371,7 +655,14 @@ class ShardedTrainer:
         """The step in PyTorch's own way, each parameter updated by
         ``Optimizer.step`` (JAX counterpart: the same ``step`` math,
         ``:463-481``), on the host's learning rate and, as in the JAX
-        step, a device step count ``t`` (``:631-632``)."""
+        step, a device step count ``t`` (``:631-632``). On a mesh of more
+        than one rank (module docstring): this rank's ``dp`` rows, the
+        rule-sharded parameters gathered for the forward, the exchange of
+        :meth:`_reduce_grads`, the update on this rank's blocks and, under
+        ZeRO-1, the new weights gathered over ``dp``."""
+        multi = self._multi
+        if multi:
+            vals = self._dp_rows(vals)
         n_data = len(vals) - self._n_labels
         opt, params = self._optimizer, self._params
         lr = float(opt.learning_rate)
@@ -379,14 +670,20 @@ class ShardedTrainer:
         t = torch.full((), self._t, dtype=torch.int32, device=self._device)
         for p in params:
             p.grad = None
-        with autograd.train_mode():
-            out = self._block(*vals[:n_data])
+        fwd_ctx = (self._gathered() if multi
+                   else contextlib.nullcontext(self._block))
+        with fwd_ctx as fwd, autograd.train_mode():
+            out = fwd(*vals[:n_data])
             loss = torch.mean(self._loss_fn(out, *vals[n_data:]))
         loss.backward()
         with torch.no_grad():
+            loss = loss.detach()
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
-            gnorm = torch.sqrt(sum_sq_total(grads))
+            if multi:
+                loss, grads, gnorm = self._reduce_grads(loss, grads)
+            else:
+                gnorm = torch.sqrt(sum_sq_total(grads))
             finite = torch.isfinite(loss) & torch.isfinite(gnorm)
             for i, (p, g) in enumerate(zip(params, grads)):
                 s = self._states[i]
@@ -395,22 +692,21 @@ class ShardedTrainer:
                 if self._mp[i]:
                     master, rest = opt.step(s[0], g.float(), s[1:], lr_i,
                                             wd_i, t)
-                    p.copy_(master)
-                    new = (master,) + tuple(rest)
+                    new_w, new = master, (master,) + tuple(rest)
                 else:
-                    new_w, rest = opt.step(p, g.to(p.dtype), s, lr_i, wd_i,
-                                           t)
-                    p.copy_(new_w)
+                    new_w, rest = opt.step(self._zslice(i, p.detach()),
+                                           g.to(p.dtype), s, lr_i, wd_i, t)
                     new = tuple(rest)
+                p.copy_(self._zgather(i, new_w))
                 # states are written in place, as the fused step writes
                 # them: each lives as long as the trainer (restore and
                 # rollback copy into it)
                 for dst, src in zip(s, new):
                     dst.copy_(src)
         opt.num_update = self._t
-        self._last = (loss.detach(), gnorm, finite)
+        self._last = (loss, gnorm, finite)
         self.last_path, self.last_step_graphs = "eager", 0
-        return loss.detach()
+        return loss
 
     def _fused_step(self, vals, capture: bool) -> torch.Tensor:
         """The fused step (module docstring); ``capture=False`` runs its
@@ -465,7 +761,9 @@ class ShardedTrainer:
         return gens
 
     def sync_to_block(self) -> None:
-        """Nothing to write back: the parameters are the module's own."""
+        """Nothing to write back: the parameters are the module's own (on a
+        mesh of more than one rank a rule-sharded one holds this rank's
+        block; ``save_checkpoint`` writes the global values)."""
 
     # ------------------------------------------------------------------
     # fault tolerance (``mx.fault``)
@@ -581,17 +879,27 @@ class ShardedTrainer:
                              "once so the parameter state exists")
         opt = self._optimizer
         arrays: Dict[str, onp.ndarray] = {}
+        from . import dist
+        rank, count = dist.world()
         for i, p in enumerate(self._params):
-            arrays[f"param:{i:04d}"] = to_host(p)
+            # on a mesh every rank gathers every array (collectives), and
+            # writes a share of them: its shard of the multi-host layout
+            mine = not self._multi or i % count == rank
+            v = self._global_param(i)
+            if mine:
+                arrays[f"param:{i:04d}"] = to_host(v)
             for j, s in enumerate(self._states[i]):
-                arrays[f"opt:{i:04d}:{j}"] = to_host(s)
+                v = self._global_state(i, j)
+                if mine:
+                    arrays[f"opt:{i:04d}:{j}"] = to_host(v)
         gens = self._generators()
-        for k, gen in enumerate(gens):
-            arrays[f"rng:torch:{k}"] = gen.get_state().numpy().copy()
+        if not self._multi or rank == 0:
+            for k, gen in enumerate(gens):
+                arrays[f"rng:torch:{k}"] = gen.get_state().numpy().copy()
         meta = {
             "trainer": "ShardedTrainer", "format": self._CKPT_FORMAT,
             "t": self._t, "num_update": opt.num_update,
-            "lr": float(opt.learning_rate), "zero1": False,
+            "lr": float(opt.learning_rate), "zero1": self._zero1,
             "optimizer": type(opt).__name__, "rng_impl": "torch",
             "param_names": [opt.idx2name[i]
                             for i in range(len(self._params))],
@@ -599,8 +907,43 @@ class ShardedTrainer:
         }
         if data_state is not None:
             meta["data_state"] = dict(data_state)
-        return ckpt.save_checkpoint(root, arrays, meta, step=self._t,
+        path = ckpt.save_checkpoint(root, arrays, meta, step=self._t,
                                     keep=keep)
+        if self._multi:
+            # the primary has committed when every rank returns
+            collectives.all_reduce(torch.zeros((), device=self._device),
+                                   tuple(self._mesh.axis_names),
+                                   mesh=self._mesh)
+        return path
+
+    def _global_param(self, i: int) -> torch.Tensor:
+        """Parameter ``i``'s global value (gathered from the rule's
+        blocks on a mesh)."""
+        p = self._params[i].detach()
+        return self._shardings[i].gather(p) if self._multi else p
+
+    def _global_state(self, i: int, j: int) -> torch.Tensor:
+        """State ``j`` of parameter ``i``, global: the ZeRO-1 slices and
+        the rule's blocks gathered."""
+        s = self._states[i][j]
+        if not (self._multi and self._wshaped[i][j]):
+            return s
+        if self._zaxis[i] is not None:
+            s = collectives.all_gather(s, "dp", gather_axis=self._zaxis[i],
+                                       mesh=self._mesh)
+        return self._shardings[i].gather(s)
+
+    def _local_of(self, i: int, v, zero1: bool):
+        """This rank's block of a global array of parameter ``i``'s shape
+        (``zero1``: its ZeRO-1 slice of that block)."""
+        if not self._multi:
+            return v
+        v = self._shardings[i].local(v)
+        if zero1 and self._zaxis[i] is not None:
+            ax, di = self._zaxis[i], self._mesh.axis_index("dp")
+            n = v.shape[ax] // self._mesh.axis_size("dp")
+            v = onp.take(v, range(di * n, (di + 1) * n), axis=ax)
+        return onp.ascontiguousarray(v)
 
     def restore_checkpoint(self, root: str,
                            step: Optional[int] = None) -> int:
@@ -645,13 +988,17 @@ class ShardedTrainer:
             except (KeyError, IndexError) as e:
                 raise MXNetError(f"checkpoint step {step} is missing "
                                  f"array {e}") from e
-            if tuple(v.shape) != tuple(p.shape) \
+            if tuple(v.shape) != self._full_shapes[i] \
                     or _name(v) != dtype_name(p.dtype):
                 raise MXNetError(
                     f"checkpoint array for parameter {names[i]!r} is "
                     f"{_name(v)}{tuple(v.shape)}, live parameter is "
-                    f"{dtype_name(p.dtype)}{tuple(p.shape)}")
+                    f"{dtype_name(p.dtype)}{self._full_shapes[i]}")
             live = self._states[i]
+            v = self._local_of(i, v, False)
+            if len(st) == len(live):
+                st = [self._local_of(i, a, True) if w else a
+                      for a, w in zip(st, self._wshaped[i])]
             if len(st) != len(live) or any(
                     tuple(a.shape) != tuple(s.shape)
                     or _name(a) != dtype_name(s.dtype)

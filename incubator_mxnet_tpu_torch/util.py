@@ -96,7 +96,13 @@ ENV_VARS: Dict[str, tuple] = {
                          "prices the decode engine's KV pool. Unset = no "
                          "memory pricing (capacity = max batch)."),
     "MXTPU_ATTN_IMPL": ("", "Overrides dot_product_attention's impl "
-                        "(auto|xla|flash); unset = the caller's impl."),
+                        "(auto|xla|flash|ring); unset = the caller's impl."),
+    "MXTPU_RING_IMPL": ("", "xla = ring attention's hops on the plain "
+                        "path; unset = the flash kernels where they take "
+                        "the shapes."),
+    "MXTPU_ELASTIC_COMMIT_TIMEOUT_S": ("60", "Seconds the primary waits for "
+                                       "every rank's commit marker in a "
+                                       "multi-process checkpoint save."),
     "MXTPU_FLASH_BQ": ("", "Query rows per flash-attention tile, 1..64; "
                        "unset = 64."),
     "MXTPU_FLASH_BK": ("", "Keys per flash-attention K/V tile, 1..64; "

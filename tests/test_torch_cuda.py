@@ -36,7 +36,11 @@ with ``grad_req="add"``), and negative-step indexing card = CPU; the
 deploy path: an artifact exported on the card launching the forward kernel
 through ``mxtpu::flash_attention_fwd`` (eager and in a ``CompiledModel``'s
 graphs, bitwise the eager forward, weights from ``set_weights`` with no
-capture), and one exported on the CPU moved to the card.
+capture), and one exported on the CPU moved to the card; several ranks:
+``flash_block`` (the ring's hop) on the card against its plain version
+under both cotangents, and a one-rank NCCL group carrying the collectives,
+``mx.kv``'s ``nccl`` store and a ``ShardedTrainer`` on a one-rank mesh
+bitwise the mesh-less one.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -1416,3 +1420,78 @@ def test_cpu_export_loads_on_card(tmp_path):
                                      cpu_only[1], ctx=mx.gpu(0))
     with pytest.raises(MXNetError, match="'cuda'"):
         only(*(nd.array(a, ctx=mx.gpu(0), dtype=a.dtype) for a in args))
+
+
+@pytest.mark.cuda
+def test_flash_block_matches_plain_version_on_card():
+    """``flash_block``'s ``o`` and ``lse`` and its gradients under an lse
+    cotangent (``delta - dlse`` into the two backward kernels) against the
+    plain versions, at a hop of a ragged key mask with a row that has no
+    key in the block; each kernel launches once per call."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for dtype, (atol, rtol) in TOL.items():
+        q, k, v, do = (torch.randn(2, 4, 128, 64, device="cuda",
+                                   generator=g).to(dtype) for _ in range(4))
+        dlse = torch.randn(2, 4, 128, device="cuda", generator=g)
+        km = (torch.rand(2, 128, device="cuda", generator=g) > 0.5).int()
+        km[1] = 0
+        for causal in (False, True):
+            outs = []
+            for dev in ("cuda", "cpu"):
+                a, b, c = (t.detach().to(dev).requires_grad_(True)
+                           for t in (q, k, v))
+                before = dict(fa.launches)
+                o, lse = fa.flash_block(a, b, c, km.to(dev), causal, 0.125)
+                ((o.float() * do.to(dev).float()).sum()
+                 + (lse * dlse.to(dev)).sum()).backward()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    assert all(fa.launches[n] == before[n] + 1
+                               for n in fa.KERNELS)
+                outs.append([t.detach().float().cpu() for t in
+                             (o, lse, a.grad, b.grad, c.grad)])
+            live = km.cpu()[:, None, :].any(-1).expand(2, 4)
+            for i, (got, want) in enumerate(zip(*outs)):
+                if i == 1:
+                    got, want = got[live], want[live]
+                    assert (outs[0][1][~live] < -1e29).all()
+                torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group_on_card():
+    """``parallel.dist.initialize(backend="nccl")`` makes a one-rank group:
+    the collectives over it run on CUDA tensors, a ``nccl`` store pushes
+    and pulls through it, and a ``ShardedTrainer`` on a one-rank mesh
+    takes the fused step, bitwise the mesh-less one (at one rank
+    ``rules`` and ``zero1`` keep every parameter and state whole: no
+    multi-rank step runs here)."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import bench, models, parallel
+    parallel.initialize(backend="nccl")
+    try:
+        x = torch.arange(6.0, device="cuda")
+        assert torch.equal(parallel.all_reduce(x, None), x)
+        assert torch.equal(parallel.all_gather(x, None), x)
+        kv = mx.kv.create("nccl")
+        kv.init(0, mx.nd.zeros((6,), ctx=mx.gpu(0)))
+        kv.push(0, [mx.nd.array(x.cpu().numpy(), ctx=mx.gpu(0))] * 2)
+        assert torch.equal(kv.pull(0)._data, 2 * x)
+        batch = bench.make_batch(2, 64, vocab=100)
+        losses = []
+        for mesh in (None, parallel.make_mesh()):
+            net = models.get_bert("bert_2_128_2", vocab_size=100,
+                                  max_length=64, dropout=0.0, device="cuda",
+                                  generator=torch.Generator().manual_seed(0))
+            kw = {} if mesh is None else dict(
+                mesh=mesh, rules=models.bert_sharding_rules(), zero1=True)
+            tr = parallel.ShardedTrainer(net, models.bert_pretrain_loss,
+                                         "adam", {"learning_rate": 1e-3},
+                                         n_labels=3, **kw)
+            losses.append([tr.step(*batch).item() for _ in range(3)])
+            assert tr.last_path == "fused" and tr.last_step_graphs == 1
+        assert losses[0] == losses[1]
+    finally:
+        parallel.finalize()

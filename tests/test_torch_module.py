@@ -215,7 +215,8 @@ def test_seams_raise_naming_their_items():
     as ``contrib.nd``'s) and its control flow raises naming item 7c;
     ``optimize_for`` with a backend nobody registered raises the JAX
     "unknown subgraph backend" error; a Monitor on a Gluon block names
-    item 8; a distributed kvstore names item 6; ``autograd.get_symbol``
+    item 8; a distributed kvstore is taken as the JAX Module takes it;
+    ``autograd.get_symbol``
     raises as in the JAX package; ``Parameter.var()`` is the JAX
     variable."""
     boxes = onp.random.RandomState(5).rand(1, 6, 6).astype("float32")
@@ -236,8 +237,11 @@ def test_seams_raise_naming_their_items():
         monitor.Monitor().install(gluon.nn.Dense(2))
     mod = mx.module.Module(_mlp(mx), context=mx.cpu())
     mod.bind([("data", (4, 20))], [("softmax_label", (4,))])
-    with pytest.raises(MXNetError, match="item 6"):
-        mod.init_optimizer(kvstore="dist_sync")
+    jmod = jmx.module.Module(_mlp(jmx), context=jmx.cpu())
+    jmod.bind([("data", (4, 20))], [("softmax_label", (4,))])
+    for m in (jmod, mod):
+        m.init_optimizer(kvstore="dist_sync")
+        assert m.optimizer_initialized
     with pytest.raises(MXNetError, match="get_symbol"):
         mx.autograd.get_symbol(mx.nd.ones((2,)))
     p = gluon.Parameter("w", shape=(3, 4))

@@ -108,8 +108,10 @@ def test_nd_contrib_box_nms_in_hybrid_forward_matches_jax():
 
 def test_trainer_takes_update_on_kvstore_and_compression():
     """The JAX ``Trainer`` signature (``gluon/trainer.py:26-28``), in its
-    positional order; ``update_on_kvstore=False``/``None`` train as before
-    and ``True`` or any compression raises naming ROADMAP item 6."""
+    positional order; ``update_on_kvstore=False``/``None`` train as before,
+    and ``True`` or a compression are taken as the JAX Trainer takes them:
+    the update runs in the Trainer, a compression routes the gradients
+    through a store with it."""
     names = list(inspect.signature(gluon.Trainer).parameters)
     assert names == list(inspect.signature(jgluon.Trainer).parameters)
     net = gluon.nn.Dense(2, in_units=3)
@@ -127,10 +129,24 @@ def test_trainer_takes_update_on_kvstore_and_compression():
     tr = gluon.Trainer(net.collect_params(), "sgd", None, "device", None,
                        False)
     assert tr._update_on_kvstore is False
+    jnet = jgluon.nn.Dense(2, in_units=3)
+    jnet.initialize()
     for kw in ({"update_on_kvstore": True},
                {"compression_params": {"type": "2bit", "threshold": 0.5}}):
-        with pytest.raises(MXNetError, match="item 6"):
-            gluon.Trainer(net.collect_params(), "sgd", {}, **kw)
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.1}, **kw)
+        jtr = jgluon.Trainer(jnet.collect_params(), "sgd",
+                             {"learning_rate": 0.1}, **kw)
+        jtr._init_kvstore()
+        before = net.weight.data().asnumpy()
+        with autograd.record():
+            loss = net(nd.ones((4, 3))).sum()
+        loss.backward()
+        tr.step(4)
+        assert not onp.array_equal(before, net.weight.data().asnumpy())
+        assert (tr._kvstore is None) == (jtr._kvstore is None)
+        if jtr._kvstore is not None:
+            assert tr._kvstore._compression == jtr._kvstore._compression
 
 
 def test_layernorm_axis_matches_jax():
