@@ -366,7 +366,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (rows with a key; the others at about -1e30) and dq/dk/dv under a
     non-zero lse cotangent against the plain versions, with the forward
     and backward kernels' ms (CUDA events, and device time from
-    ``torch.profiler``) beside the plain versions'; (b) the 4-hop ring
+    ``torch.profiler``) beside the plain versions', the least time of
+    the hop's work (each kernel's, as in phase 3) and one SDPA call's
+    device time on the same inputs (forward; forward + backward less
+    forward); (b) the 4-hop ring
     schedule run serially in one process at the train shape (8, 12, 512,
     64): each of the 4 ranks' query blocks meets the K/V blocks in the
     order that rank sees them, through the port's own ``ring._hop_attn``
@@ -388,6 +391,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
     trainer takes the fused path): (c) shows that a one-rank mesh is the
     mesh-less path on the card, and runs none of the multi-rank step,
     which the CPU tests hold against the JAX package on gloo ranks.
+30. parallel2: the rest of the multi-rank path at one rank, on the card.
+    (a) ``parallel.MoEFFN`` at Switch-Base's expert widths (Fedus et al.,
+    *Switch Transformers*, JMLR 2022: 768 units, 3072 hidden, 8 experts,
+    capacity factor 1.25) on a (8, 512, 768) float32 input whose tokens
+    share a direction (so the router drops some): one forward on
+    the card against the CPU's float64 forward of the same weights
+    (within 1e-4 of the largest value, the same count of dropped tokens,
+    more than 0), then three AdamW steps through a one-rank
+    ``ShardedTrainer``, fused and eager in turns under deterministic
+    algorithms (weights and losses within 1e-5), the step's ms on each
+    path (3 steps, twice in turns, the faster) and one profiled step of
+    each (device idle share); no attention kernel launches here
+    (``launches_by_path["parallel2"]``). (b) ``pipeline_apply`` over a
+    one-rank ``pp`` group: ``StackedTransformerEncoder``'s BERT-base stack
+    (12 layers, 768/3072, 12 heads) on (8, 512) in 4 microbatches against
+    its plain layer loop on the whole batch (within 1e-5 of the largest
+    value), both timed. (c) an elastic drill on the real store: one NCCL
+    rank whose process group rendezvous at a ``tcp://`` address, with
+    ``MXTPU_ELASTIC=1`` (a 10 s lease, a 0.1 s beat), is configured as
+    member 0 of 2 (``elastic.StoreTransport`` over the group's
+    ``TCPStore``); a fresh lease for member 1 is banked, BERT ``bert_2_128_2`` trains 2 AdamW
+    steps and saves a checkpoint, member 1's lease is made stale, the
+    lease daemon finds it, the next ``step`` raises ``HostLossError([1])``,
+    the survivor becomes a pod of one, ``elastic.recover`` restores the
+    checkpoint in place, and steps 3 and 4 give the losses of an
+    uninterrupted run bitwise (deterministic algorithms).
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -7013,8 +7042,31 @@ def par_flash_block() -> dict:
             out[f"{dtype_name(dtype)}_{name}_ms"] = cuda_ms(kern)
             out[f"{dtype_name(dtype)}_{name}_device_ms"] = device_ms(kern)
             out[f"{dtype_name(dtype)}_{name}_plain_ms"] = cuda_ms(plain)
+        # the least time of the hop's work (the pairs its key mask keeps)
+        # and one SDPA call on the same inputs, in device time (its
+        # backward: forward + backward less forward), as in phase 3
+        pairs = visible_pairs(B, L, L, km, False, None, "cuda")
+        b_ms, b_by = bound_ms(B, H, L, L, D, dtype, pairs, True)
+        bwd = bwd_bound_ms(B, H, L, L, D, dtype, pairs, True)
+        out[f"{dtype_name(dtype)}_fwd_bound_ms"] = [b_ms, b_by]
+        out[f"{dtype_name(dtype)}_bwd_bound_ms"] = {
+            n: list(v) for n, v in bwd.items()}
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        mask = km.bool()[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def sdpa_fwd():
+            return sdpa(*leaves, attn_mask=mask, scale=scale)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), leaves, do)
+
+        fwd_dev = device_ms(sdpa_fwd)
+        out[f"{dtype_name(dtype)}_fwd_sdpa_device_ms"] = fwd_dev
+        out[f"{dtype_name(dtype)}_bwd_sdpa_device_ms"] = (
+            device_ms(sdpa_fwd_bwd) - fwd_dev)
     print(f"parallel (a): flash_block {PAR_HOP} vs plain: " + ", ".join(
-        f"{k} {v if isinstance(v, dict) else round(v, 4)}"
+        f"{k} {round(v, 4) if isinstance(v, float) else v}"
         for k, v in out.items()), flush=True)
     return out
 
@@ -7186,6 +7238,299 @@ def phase_parallel() -> dict:
     return res
 
 
+# -- parallel2: MoE at Switch-Base widths, the pipeline, an elastic drill --
+# Switch-Base's expert layer (Fedus et al., Switch Transformers, JMLR 2022:
+# d_model 768, d_ff 3072, 8 experts, capacity factor 1.25) on (8, 512)
+MOE_CFG = dict(units=768, hidden=3072, num_experts=8, capacity_factor=1.25)
+MOE_SHAPE = (8, 512)
+MOE_SKEW = 0.5
+# fused vs eager AdamW steps (float32, no TF32): the same ops in the same
+# order, so within 1e-5 of the largest value, per tensor
+MOE_FUSED_TOL = 1e-5
+# the card's float32 forward vs the CPU's float64 one on the same weights
+MOE_F64_TOL = 1e-4
+# pipeline_apply on one rank vs the plain layer loop: 4 microbatches
+# through the same 12 layers, GEMMs of another batch size
+PIPE_TOL = 1e-5
+PIPE_MICRO = 4
+
+
+def _moe_weights(seed: int) -> list:
+    """Seeded ``MoEFFN`` weights at Switch-Base's widths, made on the CPU
+    (sorted-name order)."""
+    with mx.cpu():
+        mx.random.seed(seed)
+        blk = parallel.MoEFFN(**MOE_CFG)
+        blk.initialize()
+        return [p.data()._data for _, p in
+                sorted(blk.collect_params().items())]
+
+
+def _moe_block(weights, ctx, dtype="float32"):
+    with ctx:
+        blk = parallel.MoEFFN(**MOE_CFG)
+        blk.initialize()
+        for (_, p), w in zip(sorted(blk.collect_params().items()), weights):
+            p.set_data(nd.NDArray(w.to(ctx.torch_device)))
+        if dtype != "float32":
+            blk.cast(dtype)
+    return blk
+
+
+def _moe_dropped(blk, x: torch.Tensor) -> int:
+    """Tokens past their expert's capacity in ``blk``'s forward on ``x``."""
+    from incubator_mxnet_tpu_torch.parallel.moe import _acc, moe_dispatch
+    B, L, C = x.shape
+    T, E = B * L, MOE_CFG["num_experts"]
+    cap = min(T, max(1, int(MOE_CFG["capacity_factor"] * T / E)))
+    tokens = x.reshape(T, C)
+    gate = torch.matmul(_acc(tokens), _acc(blk.router.data()._data).t())
+    keep = moe_dispatch(tokens, gate, E, cap)[4]
+    return int((~keep).sum())
+
+
+def par2_moe(steps: int = 3) -> dict:
+    """(a): ``MoEFFN`` at Switch-Base widths (module docstring, phase
+    30)."""
+    B, L = MOE_SHAPE
+    C = MOE_CFG["units"]
+    weights = _moe_weights(30)
+    g = torch.Generator(device="cuda").manual_seed(30)
+    # the tokens share a direction (half a normal vector added to each),
+    # as hidden states do: the router loads the experts unevenly and the
+    # capacity drops some (without it, 4,096 tokens over 8 experts stay
+    # below the 640 a expert takes)
+    x = (torch.randn(B, L, C, device="cuda", generator=g)
+         + MOE_SKEW * torch.randn(C, device="cuda", generator=g))
+    y = torch.randn(B, L, C, device="cuda", generator=g)
+    res = {"config": dict(MOE_CFG), "shape": [B, L, C]}
+    # one forward on the card against the CPU's float64 forward
+    card = _moe_block(weights, mx.gpu(0))
+    host = _moe_block(weights, mx.cpu(), "float64")
+    with torch.no_grad():
+        got = card(nd.NDArray(x)).asnumpy()
+        want = host(nd.NDArray(x.cpu().double())).asnumpy()
+    err = float(onp.abs(got - want).max())
+    scale = float(onp.abs(want).max())
+    res["f64"] = {"max_abs_err": err, "max_abs": scale,
+                  "dropped_card": _moe_dropped(card, x),
+                  "dropped_cpu": _moe_dropped(host, x.cpu().double())}
+    check(err <= MOE_F64_TOL * scale, f"parallel2 (a): the card's MoE "
+          f"forward is {err} from the CPU's float64 one (largest {scale})")
+    check(res["f64"]["dropped_card"] == res["f64"]["dropped_cpu"] > 0,
+          f"parallel2 (a): dropped tokens {res['f64']}")
+    del card, host
+    # three AdamW steps, fused and eager in turns, from the same weights
+    trainers = []
+    for fused in (True, False):
+        blk = _moe_block(weights, mx.gpu(0))
+        trainers.append(parallel.ShardedTrainer(
+            blk, lambda o, t: ((o - t) ** 2).mean(), "adamw",
+            {"learning_rate": 1e-4, "wd": 0.01}, device="cuda", n_labels=1,
+            fused=fused, mesh=parallel.make_mesh(devices=[0])))
+    cuda_ops.reset_launches()
+    losses = [[], []]
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(steps):
+            for k, tr in enumerate(trainers):
+                losses[k].append(float(tr.step(x, y)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    launches = cuda_ops.launch_counts()
+    check(not any(launches.values()), f"parallel2 (a): the MoE steps "
+          f"launched attention kernels: {launches}")
+    fused, eager = trainers
+    check(fused.last_path == "fused" and fused.captures == 1
+          and fused.last_step_graphs == 1 and eager.last_path == "eager",
+          "parallel2 (a): the fused trainer did not replay one graph")
+    worst = 0.0
+    for a, b in zip(fused._params, eager._params):
+        d = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        worst = max(worst, d)
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    check(worst <= MOE_FUSED_TOL and lerr <= MOE_FUSED_TOL,
+          f"parallel2 (a): fused vs eager: weights rel {worst}, losses "
+          f"rel {lerr} ({losses})")
+    check(all(onp.isfinite(losses[0])) and losses[0][-1] < losses[0][0],
+          f"parallel2 (a): losses {losses[0]}")
+    placed = fused.place(x, y)
+    timed = {}
+    for tag, tr in (("fused", fused), ("eager", eager), ("fused2", fused),
+                    ("eager2", eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tr.step(*placed)
+        torch.cuda.synchronize()
+        timed.setdefault(tag.rstrip("2"), []).append(
+            (time.perf_counter() - t0) * 1e3 / 3)
+    res.update(losses=losses[0], losses_eager=losses[1],
+               fused_vs_eager_rel=worst, launches=launches,
+               step_ms={k: min(v) for k, v in timed.items()})
+    res["profile"] = profiled_step(fused, placed, "parallel2 (a) fused")
+    res["profile_eager"] = profiled_step(eager, placed, "parallel2 (a) eager")
+    print(f"parallel2 (a): MoEFFN {MOE_CFG} on {res['shape']}: card vs "
+          f"CPU float64 {err:.3e} (largest {scale:.3f}), dropped "
+          f"{res['f64']['dropped_card']} tokens on both; AdamW losses "
+          f"{losses[0]}, fused vs eager rel {worst:.3e}; step ms "
+          f"{res['step_ms']}, idle share fused "
+          f"{res['profile']['device_idle_share']:.1%} eager "
+          f"{res['profile_eager']['device_idle_share']:.1%}", flush=True)
+    del trainers, fused, eager
+    gc.collect()
+    return res
+
+
+def par2_pipeline() -> dict:
+    """(b): ``pipeline_apply`` on one rank at BERT-base widths (module
+    docstring, phase 30)."""
+    from incubator_mxnet_tpu_torch.parallel.pipeline import pipeline_apply
+    B, L, C = 8, 512, 768
+    with mx.gpu(0):
+        mx.random.seed(31)
+        enc = models.StackedTransformerEncoder(12, C, 3072, 12,
+                                               n_micro=PIPE_MICRO)
+        enc.initialize()
+    tree = {n: getattr(enc, n).data()._data for n in enc._KINDS}
+    x = torch.randn(B, L, C, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(31))
+    mesh = parallel.make_mesh(pp=1, devices=[0])
+    xm = x.reshape(PIPE_MICRO, B // PIPE_MICRO, L, C)
+    with torch.no_grad():
+        def piped():
+            return pipeline_apply({n: v[None] for n, v in tree.items()}, xm,
+                                  enc._stack, axis="pp", mesh=mesh)
+
+        def plain():
+            return enc._stack(tree, x)
+
+        got, want = piped().reshape(B, L, C), plain()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        piped_ms, plain_ms = cuda_ms(piped, 200.0), cuda_ms(plain, 200.0)
+    check(err <= PIPE_TOL * scale, f"parallel2 (b): pipeline_apply vs the "
+          f"layer loop: {err} (largest {scale})")
+    res = {"shape": [B, L, C], "layers": 12, "n_micro": PIPE_MICRO,
+           "max_abs_err": err, "max_abs": scale, "pipeline_ms": piped_ms,
+           "plain_ms": plain_ms}
+    print(f"parallel2 (b): pipeline_apply on a one-rank pp group, "
+          f"BERT-base stack on {res['shape']} in {PIPE_MICRO} microbatches: "
+          f"{err:.3e} from the layer loop (largest {scale:.3f}); "
+          f"{piped_ms:.3f} ms vs {plain_ms:.3f} ms", flush=True)
+    del enc, tree
+    gc.collect()
+    return res
+
+
+def _drill_trainer():
+    net = models.get_bert("bert_2_128_2", vocab_size=bench.VOCAB,
+                          max_length=128, dropout=0.0, device="cuda",
+                          generator=torch.Generator().manual_seed(32))
+    return parallel.ShardedTrainer(net, models.bert_pretrain_loss, "adamw",
+                                   {"learning_rate": 1e-3}, device="cuda",
+                                   n_labels=3)
+
+
+def par2_elastic(root: str) -> dict:
+    """(c): the elastic drill on the real store (module docstring, phase
+    30)."""
+    import socket
+    from incubator_mxnet_tpu_torch.parallel import elastic
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    knobs = {"MXTPU_ELASTIC": "1", "MXTPU_ELASTIC_LEASE_S": "10",
+             "MXTPU_ELASTIC_HEARTBEAT_S": "0.1"}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    batches = [bench.make_batch(8, 128)] * 4
+    res = {}
+    parallel.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    torch.use_deterministic_algorithms(True)
+    try:
+        # a member of two over the process group's TCPStore
+        elastic.configure(transport=elastic.StoreTransport(index=0,
+                                                           count=2))
+        check(elastic.start() and elastic.active(),
+              "parallel2 (c): the lease daemon did not start")
+        store = elastic.StoreTransport(index=1, count=2)
+        store.put("mxtpu/elastic/0/lease/1", json.dumps(
+            {"t": time.time(), "step": None, "beats": 1, "pid": 0,
+             "generation": 0, "collective_ms": 0.0}))
+        ref = _drill_trainer()
+        res["uninterrupted"] = [float(ref.step(*b)) for b in batches]
+        del ref
+        tr = _drill_trainer()
+        res["before"] = [float(tr.step(*b)) for b in batches[:2]]
+        tr.save_checkpoint(root)
+        check(elastic.snapshot()["lost"] == [],
+              "parallel2 (c): a fresh peer was taken for lost")
+        # the peer's lease goes stale: older than the 10 s lease
+        store.put("mxtpu/elastic/0/lease/1", json.dumps(
+            {"t": time.time() - 60.0, "step": None, "beats": 1, "pid": 0,
+             "generation": 0, "collective_ms": 0.0}))
+        t0 = time.perf_counter()
+        while not elastic.snapshot()["lost"] \
+                and time.perf_counter() - t0 < 30:
+            time.sleep(0.01)
+        res["detect_s"] = time.perf_counter() - t0
+        try:
+            tr.step(*batches[2])
+            raised = None
+        except elastic.HostLossError as e:
+            raised = e.lost
+        check(raised == [1], f"parallel2 (c): the step after the stale "
+              f"lease raised {raised!r}, not HostLossError([1])")
+        # the survivor restarts as a pod of one and recovers
+        elastic.configure(transport=elastic.StoreTransport(index=0,
+                                                           count=1))
+        res["restored_step"] = elastic.recover(tr, root)
+        res["generation"] = elastic.generation()
+        res["after"] = [float(tr.step(*b)) for b in batches[2:]]
+        res["meta_elastic"] = tr.last_restore_meta.get("elastic")
+        check(res["before"] == res["uninterrupted"][:2]
+              and res["after"] == res["uninterrupted"][2:]
+              and res["restored_step"] == 2 and res["generation"] == 1,
+              f"parallel2 (c): the resumed run differs from the "
+              f"uninterrupted one: {res}")
+        check(res["meta_elastic"] == {"generation": 0, "process_count": 2},
+              f"parallel2 (c): checkpoint meta {res['meta_elastic']}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        elastic.reset()
+        parallel.finalize()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"parallel2 (c): elastic drill on the TCPStore: the stale lease "
+          f"found in {res['detect_s']:.3f} s, HostLossError([1]) at the "
+          f"next step, recovered step {res['restored_step']} (generation "
+          f"{res['generation']}); losses {res['after']} bitwise the "
+          f"uninterrupted run's", flush=True)
+    return res
+
+
+def phase_parallel2() -> dict:
+    """Phase 30 (module docstring)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"moe": par2_moe(), "pipeline": par2_pipeline()}
+    with tempfile.TemporaryDirectory() as root:
+        res["elastic"] = par2_elastic(root)
+    res["launches"] = res["moe"]["launches"]
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card_line()
+    print(f"parallel2: phase {res['seconds']:.1f} s on {res['card']}",
+          flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -7245,6 +7590,7 @@ def main(argv=None) -> int:
     sym_res = phase_symbol()
     art_res = phase_artifacts(args.seed)
     par_res = phase_parallel()
+    par2_res = phase_parallel2()
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -7314,7 +7660,8 @@ def main(argv=None) -> int:
                                  "artifacts": art_res["launches"][name],
                                  "parallel": par_res["launches"][name],
                                  "parallel_trainer": par_res["nccl"][
-                                     "launches"][name]},
+                                     "launches"][name],
+                                 "parallel2": par2_res["launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -7340,7 +7687,7 @@ def main(argv=None) -> int:
                        "gluon_rest": rest, "fault": fault_res,
                        "data": data_res, "serve_tier": tier_res,
                        "symbol": sym_res, "artifacts": art_res,
-                       "parallel": par_res,
+                       "parallel": par_res, "parallel2": par2_res,
                        "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,11 @@
 Counterpart: the JAX package's ``context.py`` (``Context`` at ``:79``,
 ``cpu``/``gpu`` at ``:176-191``, ``current_context`` at ``:198``,
 ``num_gpus`` at ``:216``). ``gpu(i)`` is ``torch.device("cuda", i)``. The
-CPU is one device, ``cpu(0)``: as in the JAX package (``context.py:121-127``,
-``Context.jax_device``), any context may be constructed, and one whose
+CPU is one torch device; ``cpu(0)`` names it, and so does ``cpu(i)`` for
+``i < MXTPU_CPU_DEVICES`` (default 1), the contexts of a parameter's
+replicas in host memory (:func:`cpu_devices`). As in the JAX package
+(``context.py:121-127``, ``Context.jax_device``), any context may be
+constructed, and one whose
 ``device_id`` is out of range raises "device_id out of range" when it is
 first used (``torch_device``: arrays, parameters, generators). The
 default context is ``gpu(0)``, and the default device of the entry points
@@ -37,8 +40,18 @@ __all__ = ["DEFAULT_DEVICE", "resolve_device", "Context", "cpu", "gpu",
            "as_context", "gpu_memory_info", "memory_stats"]
 
 DEFAULT_DEVICE = "cuda"
-#: CPU devices a context may name: torch has one
-CPU_DEVICES = 1
+
+
+def cpu_devices() -> int:
+    """The CPU contexts one may name, ``cpu(0)`` to ``cpu(n - 1)``
+    (``MXTPU_CPU_DEVICES``, default 1): torch has one CPU device, and
+    contexts past ``cpu(0)`` hold replicas in host memory (the JAX
+    package counts the host platform's devices, which
+    ``--xla_force_host_platform_device_count`` sets)."""
+    try:
+        return max(1, int(os.environ.get("MXTPU_CPU_DEVICES", "1")))
+    except ValueError:
+        return 1
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -98,9 +111,10 @@ class Context:
         a ``device_id`` out of range (JAX counterpart: ``context.py:121``).
         """
         if self.device_type != "gpu":
-            if not 0 <= self.device_id < CPU_DEVICES:
+            n = cpu_devices()
+            if not 0 <= self.device_id < n:
                 raise MXNetError(
-                    f"{self}: device_id out of range, only {CPU_DEVICES} "
+                    f"{self}: device_id out of range, only {n} "
                     "device(s) of this type are visible")
             return torch.device("cpu")
         return resolve_device(torch.device("cuda", self.device_id))

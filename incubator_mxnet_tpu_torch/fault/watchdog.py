@@ -25,8 +25,9 @@ does this itself)::
     if wd.flags: ...
 
 The JAX watchdog also publishes each flag as a telemetry event and writes
-a flight bundle with the elastic membership: the telemetry and elastic
-subsystems are not ported yet.
+a flight bundle holding the elastic membership (``parallel.elastic.
+snapshot()`` here): events and flight bundles are telemetry, which is not
+ported yet (queue A, item 8).
 """
 from __future__ import annotations
 

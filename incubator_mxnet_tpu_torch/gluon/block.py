@@ -91,7 +91,8 @@ from ..ndarray import NDArray
 from ..ndarray.op import _has_nd, _unwrap, _wrap
 from ..ops.cuda import graphs
 from ..symbol import Symbol
-from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, replica_scope)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock",
            "register_subgraph_backend"]
@@ -430,19 +431,10 @@ class HybridBlock(Block):
     def forward(self, *args):
         if _has_nd(args):
             self._last_sig = _signature(args)
-            if self._sg_graph is not None and self._active:
-                # optimize_for installed a partitioned graph: while
-                # hybridized it is the compute; hybridize(False) goes back
-                # to the block's own forward (JAX ``gluon/block.py:471``)
-                return self._forward_partitioned(*args)
-            if self._active:
-                op = self._cached_op(args)
-                if op is not None:
-                    return op(self, args)
-            args = _unwrap(args)
-            with torch.set_grad_enabled(autograd.is_recording()):
-                return _wrap(self.hybrid_forward(F, *args,
-                                                 **self._fetch_params(args)))
+            ctx = self._last_sig[3]
+            with replica_scope(ctx):
+                out = self._forward_nd(args, ctx)
+            return _on_context(out, ctx)
         if args and isinstance(args[0], Symbol):
             # the Symbol path (JAX ``gluon/block.py:482``): parameters as
             # their variables, ``F`` the symbol namespace
@@ -452,17 +444,35 @@ class HybridBlock(Block):
                              for name, p in self._reg_params.items()})
         return self.hybrid_forward(F, *args, **self._fetch_params(args))
 
+    def _forward_nd(self, args, ctx: Context):
+        """The forward on arrays, each parameter read on ``ctx``, the
+        arguments' context (JAX ``gluon/block.py:479``)."""
+        if self._sg_graph is not None and self._active:
+            # optimize_for installed a partitioned graph: while
+            # hybridized it is the compute; hybridize(False) goes back
+            # to the block's own forward (JAX ``gluon/block.py:471``)
+            return self._forward_partitioned(*args)
+        if self._active:
+            op = self._cached_op(args, ctx)
+            if op is not None:
+                return op(self, args)
+        args = _unwrap(args)
+        with torch.set_grad_enabled(autograd.is_recording()):
+            return _wrap(self.hybrid_forward(F, *args,
+                                             **self._fetch_params(args)))
+
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
 
     # ------------------------------------------------------------------
     # the cached op (JAX counterpart: ``_call_cached_op``, ``:531-591``)
     # ------------------------------------------------------------------
-    def _cached_op(self, args) -> Optional["_CachedOp"]:
+    def _cached_op(self, args, ctx: Context) -> Optional["_CachedOp"]:
         """The cached op of this call's signature, or None when this call
         runs eagerly: the first of its signature, or one the graphs do not
         take (CPU arrays). Arguments may nest arrays in lists and tuples
-        (an RNN layer's states); the nesting is part of the signature."""
+        (an RNN layer's states); the nesting is part of the signature, and
+        so is the context (whose parameter replicas the graphs read)."""
         leaves, spec = _flatten(args)
         skeleton, tensors = [str(spec)], []
         for a in leaves:
@@ -478,17 +488,18 @@ class HybridBlock(Block):
         if not tensors or params is None:
             return None
         recording = autograd.is_recording()
-        sig = (autograd.is_training(), recording, tuple(skeleton),
-               tuple(p._var.requires_grad for p in params))
+        sig = (ctx, autograd.is_training(), recording, tuple(skeleton),
+               tuple(p._replica(ctx).requires_grad for p in params))
         op = self._cached_ops.get(sig)
         if op is not None and op.fwd is not None and op.storage != tuple(
-                p._var.data_ptr() for p in params):
+                p._replica(ctx).data_ptr() for p in params):
             # a parameter got new storage (re-initialised, cast): the
             # graphs read the old one, so every graph of the block goes
             self._clear_cached_op()
             return None
         if op is None:
-            self._cached_ops[sig] = _CachedOp(recording, tensors[0].device)
+            self._cached_ops[sig] = _CachedOp(recording, tensors[0].device,
+                                              ctx)
             return None
         return op
 
@@ -695,9 +706,11 @@ class _CachedOp:
     """One signature's graphs: the forward, and under ``record()`` the
     backward, over static input buffers and aliases of the parameters."""
 
-    def __init__(self, recording: bool, device: torch.device):
+    def __init__(self, recording: bool, device: torch.device,
+                 ctx: Context):
         self.recording = recording
         self.device = device
+        self.ctx = ctx               # the context of the replicas read
         self.fwd: Optional[graphs.Graph] = None
         self.bwd: Optional[graphs.Graph] = None
         self.params: List[Parameter] = []
@@ -714,7 +727,7 @@ class _CachedOp:
             self._capture(block, args, tensors)
         if self.recording:
             outs = _CachedOpFunction.apply(
-                self, *tensors, *(p._var for p in self.params))
+                self, *tensors, *(p._replica(self.ctx) for p in self.params))
         else:
             self._replay_forward(tensors)
             outs = [o.clone() for o in self.static_out]
@@ -733,9 +746,10 @@ class _CachedOp:
         from ..nn import Dropout
         rec = self.recording
         self.params = block._cached_params
-        self.storage = tuple(p._var.data_ptr() for p in self.params)
-        aliases = [p._var.detach().requires_grad_(rec and p._var.requires_grad)
-                   for p in self.params]
+        datas = [p._replica(self.ctx) for p in self.params]
+        self.storage = tuple(t.data_ptr() for t in datas)
+        aliases = [t.detach().requires_grad_(rec and t.requires_grad)
+                   for t in datas]
         self.static_in = [t.detach().clone().requires_grad_(
             rec and t.requires_grad) for t in tensors]
         training = autograd.is_training()
@@ -771,7 +785,8 @@ class _CachedOp:
         # the warm run is not a call: the running statistics it moved
         # (aux parameters, ``grad_req="null"``) go back, so that this call
         # moves them once, by its replay
-        aux = [p._var for p in self.params if p.grad_req == "null"]
+        aux = [t for p, t in zip(self.params, datas)
+               if p.grad_req == "null"]
         saved = [t.detach().clone() for t in aux]
 
         def warm():
@@ -878,12 +893,28 @@ def _rebuild_args(skeleton, it) -> list:
 
 def _signature(args) -> tuple:
     """``HybridBlock._last_sig`` of a call (JAX counterpart:
-    ``gluon/block.py:526-528``)."""
-    arrays = [_unwrap(a) for a in _flatten(args)[0]
+    ``gluon/block.py:526-528``); its context is the first array's."""
+    leaves = [a for a in _flatten(args)[0]
               if isinstance(a, (NDArray, torch.Tensor))]
+    arrays = [_unwrap(a) for a in leaves]
+    first = next((a for a in leaves if isinstance(a, NDArray)), None)
     return (_strip_arrays(args), len(arrays),
             [(tuple(t.shape), dtype_name(t.dtype)) for t in arrays],
-            Context.from_device(arrays[0].device))
+            first.context if first is not None
+            else Context.from_device(arrays[0].device))
+
+
+def _on_context(out, ctx: Context):
+    """A forward's NDArrays marked as on ``ctx`` where their device does
+    not name it (a CPU replica's context past ``cpu(0)``)."""
+    if ctx.device_type != "cpu" or not ctx.device_id:
+        return out
+    if isinstance(out, NDArray):
+        out._ctx = ctx
+    elif isinstance(out, (list, tuple)):
+        for o in out:
+            _on_context(o, ctx)
+    return out
 
 
 def _flatten_out(outs) -> Tuple[list, list]:

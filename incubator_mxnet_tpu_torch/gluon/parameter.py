@@ -18,11 +18,24 @@ materialised in place on the chosen device (the same object throughout).
 ``.grad``. An aux parameter (BatchNorm's running statistics:
 ``grad_req="null"``, ``differentiable=False``) has no gradient and no
 ``gluon.Trainer`` update; its layer writes it in place, and ``.params``
-files and ``cast`` carry it like any other. One device per parameter:
-replicas on several contexts come with the multi-GPU slice.
+files and ``cast`` carry it like any other.
+
+A parameter may live on several contexts (``initialize(ctx=[...])``, JAX
+``gluon/parameter.py:138-158``), MXNet's single-process data parallelism:
+the torch parameter is the replica on the first context, and each other
+context holds a replica of its own (a tensor with its own gradient),
+initialised to the same values. A block's forward reads the replica on
+its input's context (:func:`replica_scope`; ``data(ctx)``, ``grad(ctx)``,
+``list_data``, ``list_grad``, ``list_ctx``), and ``gluon.Trainer`` sums the
+replicas' gradients, updates once and copies the weight to every replica.
+The CPU is one torch device: ``cpu(i)`` contexts (as many as
+``MXTPU_CPU_DEVICES`` allows) are replicas in host memory, and an
+``NDArray`` placed on one remembers its context.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from collections import OrderedDict
 from typing import List, Optional
 
@@ -37,7 +50,7 @@ from ..ndarray import NDArray
 from ..ndarray.ndarray import array
 
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
-           "ParameterDict"]
+           "ParameterDict", "replica_scope"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -48,13 +61,57 @@ def _shape_complete(shape) -> bool:
     return shape is not None and all(int(s) > 0 for s in shape)
 
 
-def _one_context(ctx) -> Context:
-    if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise MXNetError(f"parameters live on one device in this port; "
-                             f"got contexts {list(ctx)}")
-        ctx = ctx[0]
-    return as_context(ctx)
+def _contexts(ctx) -> List[Context]:
+    """``ctx`` (a context, a list of them, or None: the current one) as a
+    list without repeats."""
+    if ctx is None:
+        return [current_context()]
+    if not isinstance(ctx, (list, tuple)):
+        return [as_context(ctx)]
+    out: List[Context] = []
+    for c in ctx:
+        c = as_context(c)
+        if c not in out:
+            out.append(c)
+    if not out:
+        raise MXNetError("a parameter needs at least one context")
+    return out
+
+
+#: the context of the forward running in this thread (its input's)
+_REPLICA = threading.local()
+
+
+@contextlib.contextmanager
+def replica_scope(ctx: Optional[Context]):
+    """Inside: parameters read their replica on ``ctx`` (a block's
+    forward on an input of that context)."""
+    prev = getattr(_REPLICA, "ctx", None)
+    _REPLICA.ctx = ctx
+    try:
+        yield
+    finally:
+        _REPLICA.ctx = prev
+
+
+class _Replica:
+    """A parameter's replica on a context past its first: its own tensor
+    and gradient, a variable of the autograd registry as the parameter
+    itself is."""
+
+    def __init__(self, param: "Parameter", tensor: torch.Tensor):
+        self._param = param
+        self.tensor = tensor
+        self._fresh_grad = False
+        autograd._register(self)
+
+    @property
+    def _autograd_leaf(self):
+        return self.tensor if self._param._grad_req != "null" else None
+
+    @property
+    def _autograd_req(self) -> str:
+        return self._param._grad_req
 
 
 class Parameter:
@@ -79,8 +136,14 @@ class Parameter:
         self._owned = False          # registered with torch by a block yet
         self._sym_var = None         # var(): its symbol variable
         self._ctx: Optional[Context] = None
+        #: the replicas on the contexts past the first (module docstring)
+        self._replicas: "OrderedDict[Context, _Replica]" = OrderedDict()
         self._deferred_init = ()     # (init, ctx, default_init, data)
         self._fresh_grad = False
+        #: the mesh axis over which the block that owns this parameter
+        #: takes its own block of dimension 0 (``parallel.ShardedTrainer``
+        #: hands it over ungathered), or None
+        self.local_axis: Optional[str] = None
         self._grad_req = None
         self.grad_req = "null" if not differentiable else grad_req
         autograd._register(self)
@@ -98,9 +161,10 @@ class Parameter:
         if req not in ("write", "add", "null"):
             raise ValueError(f"grad_req must be write/add/null, got {req}")
         self._grad_req = req
-        self._var.requires_grad = req != "null"
-        if req == "null" and self._initialized:
-            self._var.grad = None
+        for t in self._tensors():
+            t.requires_grad = req != "null"
+            if req == "null" and self._initialized:
+                t.grad = None
 
     @property
     def _initialized(self) -> bool:
@@ -139,16 +203,21 @@ class Parameter:
     # ------------------------------------------------------------------
     # initialisation
     # ------------------------------------------------------------------
+    def _tensors(self) -> List[torch.Tensor]:
+        """The data tensor of every context, the first context's first."""
+        return [self._var] + [r.tensor for r in self._replicas.values()]
+
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit: bool = False) -> None:
-        """Create the data on ``ctx`` (default: the current context), or
-        defer that to the first forward while the shape is unknown. An
-        initialised parameter is left alone unless ``force_reinit``."""
+        """Create the data on ``ctx`` (a context or a list of them;
+        default: the current context), or defer that to the first forward
+        while the shape is unknown. An initialised parameter is left alone
+        unless ``force_reinit``."""
         if default_init is None:
             default_init = init_mod.Xavier()
         if self._initialized and not force_reinit:
             return
-        ctx = _one_context(ctx)
+        ctx = _contexts(ctx)
         if init is None:
             init = self.init if self.init is not None else default_init
         if not _shape_complete(self._shape):
@@ -161,8 +230,11 @@ class Parameter:
                 "or specify in_units/in_channels.")
         self._init_impl(init, ctx)
 
-    def _init_impl(self, init, ctx: Context, data=None) -> None:
-        dev, dt = ctx.torch_device, torch_dtype(self.dtype)
+    def _init_impl(self, init, ctx: List[Context], data=None) -> None:
+        """The data on the contexts ``ctx``: ``init`` (or ``data``) on the
+        first, copied to the others."""
+        devs = [c.torch_device for c in ctx]
+        dev, dt = devs[0], torch_dtype(self.dtype)
         if self._initialized:
             self._var.data = torch.empty(self._shape, dtype=dt, device=dev)
             self._var.grad = None
@@ -173,7 +245,12 @@ class Parameter:
                 init_mod.create(init)(self.name, self._var)
             else:
                 self._var.copy_(getattr(data, "_data", data))
-        self._ctx = ctx
+        req = self._grad_req != "null" and dt.is_floating_point
+        self._replicas = OrderedDict(
+            (c, _Replica(self, self._var.detach().to(d, copy=True)
+                         .requires_grad_(req)))
+            for c, d in zip(ctx[1:], devs[1:]))
+        self._ctx = ctx[0]
         self._deferred_init = ()
 
     def _finish_deferred_init(self) -> None:
@@ -208,8 +285,7 @@ class Parameter:
             return
         if self._deferred_init:
             ctx = self._deferred_init[1]
-        self._init_impl(None, _one_context(ctx if ctx is not None
-                                           else current_context()), data)
+        self._init_impl(None, _contexts(ctx), data)
 
     # ------------------------------------------------------------------
     # access
@@ -227,39 +303,75 @@ class Parameter:
             "initialize parameters and create a Trainer first, then use "
             ".data()/.grad() to access them.")
 
-    def _tensor(self) -> torch.Tensor:
-        """The data tensor a forward uses (raises as :meth:`data`)."""
+    def _replica(self, ctx: Optional[Context]) -> torch.Tensor:
+        """The data tensor on ``ctx`` (None: the forward's context, else
+        the current one, when there are several; JAX counterpart:
+        ``_check_and_get``, ``gluon/parameter.py:196``)."""
         if not self._initialized:
             self._check_initialized()
-        return self._var
+        if not self._replicas:
+            return self._var
+        if ctx is None:
+            ctx = getattr(_REPLICA, "ctx", None) or current_context()
+        ctx = as_context(ctx)
+        if ctx == self._ctx:
+            return self._var
+        rep = self._replicas.get(ctx)
+        if rep is not None:
+            return rep.tensor
+        for c, t in zip(self.list_ctx(), self._tensors()):
+            if c.device_type == ctx.device_type:
+                return t
+        raise RuntimeError(
+            f"Parameter '{self.name}' was not initialized on context {ctx}. "
+            f"It was only initialized on {self.list_ctx()}.")
+
+    def _tensor(self) -> torch.Tensor:
+        """The data tensor a forward uses: the replica on the forward's
+        context (raises as :meth:`data`)."""
+        return self._replica(None)
 
     def data(self, ctx=None) -> NDArray:
-        return NDArray(self._tensor())
+        t = self._replica(ctx)
+        return NDArray(t, self._ctx_of(t))
+
+    def _ctx_of(self, t: torch.Tensor) -> Optional[Context]:
+        if t is self._var:
+            return self._ctx
+        return next(c for c, r in self._replicas.items() if r.tensor is t)
 
     def grad(self, ctx=None) -> NDArray:
-        """The gradient buffer (zeros until a backward writes it)."""
+        """The gradient buffer on ``ctx`` (zeros until a backward writes
+        it)."""
         self._check_initialized()
         if self._grad_req == "null":
             raise RuntimeError(f"Cannot get gradient array for Parameter "
                                f"'{self.name}' because grad_req='null'")
-        if self._var.grad is None:
-            self._var.grad = torch.zeros_like(self._var)
-        return NDArray(self._var.grad)
+        t = self._replica(ctx)
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
+        return NDArray(t.grad, self._ctx_of(t))
 
     def list_data(self) -> List[NDArray]:
-        """The data on each context: one here (JAX counterpart:
+        """The data on each context (JAX counterpart:
         ``gluon/parameter.py:240``)."""
-        return [self.data()]
+        return [self.data(c) for c in self.list_ctx()]
 
     def list_grad(self) -> List[NDArray]:
-        """The gradient on each context: one here (JAX counterpart:
+        """The gradient on each context (JAX counterpart:
         ``gluon/parameter.py:250``)."""
-        return [self.grad()]
+        return [self.grad(c) for c in self.list_ctx()]
+
+    def _variables(self) -> list:
+        """The autograd variable of each context: the parameter itself,
+        then its replicas."""
+        return [self] + list(self._replicas.values())
 
     def reset_ctx(self, ctx) -> None:
-        """Move the data (or the deferred initialisation) to ``ctx``,
-        keeping its value (JAX counterpart: ``gluon/parameter.py:301``)."""
-        ctx = _one_context(ctx)
+        """Move the data (or the deferred initialisation) to ``ctx`` (a
+        context or a list of them), keeping its value (JAX counterpart:
+        ``gluon/parameter.py:301``)."""
+        ctx = _contexts(ctx)
         if self._initialized:
             self._init_impl(None, ctx, data=self._var.detach().clone())
         elif self._deferred_init:
@@ -281,9 +393,9 @@ class Parameter:
 
     def list_ctx(self) -> List[Context]:
         if self._initialized:
-            return [self._ctx]
+            return [self._ctx] + list(self._replicas)
         if self._deferred_init:
-            return [self._deferred_init[1]]
+            return list(self._deferred_init[1])
         raise RuntimeError(f"Parameter '{self.name}' has not been "
                            "initialized")
 
@@ -297,20 +409,25 @@ class Parameter:
             self._deferred_init = self._deferred_init[:3] + (data,)
             return
         with torch.no_grad():
-            self._var.copy_(getattr(data, "_data", data))
+            for t in self._tensors():
+                t.copy_(getattr(data, "_data", data))
 
     def zero_grad(self) -> None:
-        if self._initialized and self._var.grad is not None:
-            self._var.grad.zero_()
+        if not self._initialized:
+            return
+        for t in self._tensors():
+            if t.grad is not None:
+                t.grad.zero_()
 
     def cast(self, dtype) -> None:
         self.dtype = dtype_name(dtype)
         if not self._initialized:
             return          # materialised in self.dtype
         dt = torch_dtype(dtype)
-        self._var.data = self._var.data.to(dt)
-        if self._var.grad is not None:
-            self._var.grad = self._var.grad.to(dt)
+        for t in self._tensors():
+            t.data = t.data.to(dt)
+            if t.grad is not None:
+                t.grad = t.grad.to(dt)
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self._shape}, " \

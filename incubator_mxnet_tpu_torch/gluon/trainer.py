@@ -9,12 +9,17 @@ since the last update raises ``UserWarning``, or is skipped under
 ``save_states``/``load_states``. Each parameter is updated once, even when
 several blocks hold it (a tied weight). The kvstore seam is the JAX
 package's (``_init_kvstore``, ``:27-90``), resolved at the first step:
-``None``/``"local"``/``"device"``/``"nccl"`` exchange nothing (one device
-holds one replica of each parameter); ``compression_params`` with one of
+with ``None``/``"local"``/``"device"``/``"nccl"`` the gradients of a
+parameter on several contexts are summed here, the replicas in context
+order, and the sum written into each (JAX ``:124-164``); a parameter on
+one context has nothing to exchange. ``compression_params`` with one of
 them, any other type name (``"dist_sync"``: sums across the ranks of the
 process group) or a ``KVStore`` object route every gradient through the
-store, the key batch in one ``push``/``pull``. ``update_on_kvstore`` is
-kept as the JAX Trainer keeps it: the update runs here either way.
+store, each key's replica list and the key batch in one ``push``/``pull``.
+The update then runs once, on the first context's replica, and its new
+weight is copied to the other replicas (JAX ``:185-216``).
+``update_on_kvstore`` is kept as the JAX Trainer keeps it: the update
+runs here either way.
 
 The update is multi-tensor: the parameters with a fresh gradient are
 grouped by (device, dtype, fp32 master or not) and each group is one
@@ -38,6 +43,8 @@ from __future__ import annotations
 import os
 import pickle
 from typing import Dict, List, Optional
+
+import torch
 
 from .. import optimizer as opt_mod
 from ..base import MXNetError
@@ -122,21 +129,33 @@ class Trainer:
         self._kv_initialized = True
 
     def allreduce_grads(self) -> None:
-        """Exchange the gradients through the kvstore: every key with a
-        gradient in one ``push`` and one ``pull`` (the store sums them in
-        one collective); without a store one device holds one replica and
-        there is nothing to do."""
+        """Sum the gradients over each parameter's replicas (module
+        docstring): through the kvstore, every key with a gradient in one
+        ``push`` and one ``pull`` (the store sums them in one collective);
+        without a store, here, for the parameters on several contexts."""
         if not self._kv_initialized:
             self._init_kvstore()
-        if self._kvstore is None:
+        live = [(i, p) for i, p in enumerate(self._params)
+                if p.grad_req != "null" and p._initialized]
+        if self._kvstore is not None:
+            items = [(i, p.list_grad() if p._replicas else p.grad())
+                     for i, p in live]
+            if items:
+                keys = [i for i, _ in items]
+                grads = [g for _, g in items]
+                self._kvstore.push(keys, grads)
+                self._kvstore.pull(keys, out=grads)
             return
-        items = [(i, p.grad()) for i, p in enumerate(self._params)
-                 if p.grad_req != "null" and p._initialized]
-        if items:
-            keys = [i for i, _ in items]
-            grads = [g for _, g in items]
-            self._kvstore.push(keys, grads)
-            self._kvstore.pull(keys, out=grads)
+        with torch.no_grad():
+            for _, p in live:
+                if not p._replicas:
+                    continue
+                grads = [g._data for g in p.list_grad()]
+                total = grads[0]
+                for g in grads[1:]:
+                    total = total + g.to(total.device, total.dtype)
+                for g in grads:
+                    g.copy_(total)
 
     def step(self, batch_size: int, ignore_stale_grad: bool = False) -> None:
         """Reduce the gradients and update every parameter, the gradients
@@ -159,7 +178,7 @@ class Trainer:
         for i, param in enumerate(self._params):
             if param.grad_req == "null" or not param._initialized:
                 continue
-            if not param._fresh_grad:
+            if not all(v._fresh_grad for v in param._variables()):
                 if not ignore_stale_grad:
                     raise UserWarning(
                         f"Gradient of Parameter `{param.name}` on context "
@@ -188,8 +207,14 @@ class Trainer:
                              lr=[lrs[k] for k in group],
                              wd=[wds[k] for k in group],
                              t=[ts[k] for k in group])
-        for i in fresh:
-            self._params[i]._fresh_grad = False
+        with torch.no_grad():
+            for i in fresh:
+                param = self._params[i]
+                # replicas share one update: the first's weight, copied
+                for r in param._replicas.values():
+                    r.tensor.copy_(param._var)
+                for v in param._variables():
+                    v._fresh_grad = False
 
     def save_states(self, fname: str) -> None:
         """Write the update count and the optimizer states in the JAX

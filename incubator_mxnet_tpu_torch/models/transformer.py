@@ -161,9 +161,19 @@ class StackedTransformerEncoder(HybridBlock):
     written: plain scores in float32 over all keys (no mask), softmax,
     exact GELU, post-LN with epsilon ``layer_norm_eps``. The JAX package
     computes it outside the flash kernels, so it is plain torch products
-    here. The JAX block's pipeline schedule (a mesh with a ``pp`` axis,
-    ``n_micro`` microbatches) comes with the multi-GPU slice; on one card
-    the stack runs whole, as the JAX block does without ``pp``."""
+    here.
+
+    Under an active mesh whose ``pp`` is more than 1 and divides the
+    layers, with ``B`` divisible by ``n_micro`` (a ``ShardedTrainer``
+    step), the stack is ``pp`` stages of ``N/pp`` layers and the forward
+    runs the GPipe schedule (:func:`~..parallel.pipeline.pipeline_apply`)
+    on ``n_micro`` microbatches of this rank's rows (JAX ``:241-285``).
+    Every parameter's ``local_axis`` is ``pp``: under a rule that cuts the
+    layer axis over ``pp`` the trainer hands over this rank's layers
+    ungathered, and their gradients stay this rank's. A stack given whole
+    is cut to this rank's stage by
+    :func:`~..parallel.collectives.replicated_slice`; one given as a stage
+    where the schedule does not apply is gathered."""
 
     _KINDS = ("qkv_w", "qkv_b", "proj_w", "proj_b", "ffn1_w", "ffn1_b",
               "ffn2_w", "ffn2_b", "ln1_g", "ln1_b", "ln2_g", "ln2_b")
@@ -208,6 +218,8 @@ class StackedTransformerEncoder(HybridBlock):
                              dtype=dtype)
             self.ln2_b = get("ln2_beta", shape=(N, C), init="zeros",
                              dtype=dtype)
+        for n in self._KINDS:
+            getattr(self, n).local_axis = "pp"
 
     def _ln(self, v, g, b):
         mu = v.mean(-1, keepdim=True)
@@ -238,7 +250,31 @@ class StackedTransformerEncoder(HybridBlock):
         f = torch.matmul(h, p["ffn2_w"].t()) + p["ffn2_b"]
         return self._ln(x + f, p["ln2_g"], p["ln2_b"])
 
-    def hybrid_forward(self, F, x, **kw):
-        for i in range(self._N):
-            x = self._layer({n: kw[n][i] for n in self._KINDS}, x)
+    def _stack(self, p, x):
+        for i in range(next(iter(p.values())).shape[0]):
+            x = self._layer({n: v[i] for n, v in p.items()}, x)
         return x
+
+    def hybrid_forward(self, F, x, **kw):
+        from ..parallel import collectives
+        from ..parallel.mesh import current_active_mesh
+        from ..parallel.pipeline import pipeline_apply
+        tree = {n: kw[n] for n in self._KINDS}
+        mesh = current_active_mesh()
+        pp = mesh.axis_size("pp") if mesh is not None else 1
+        staged = tree["qkv_w"].shape[0] != self._N
+        if pp > 1 and self._N % pp == 0 \
+                and x.shape[0] % self._n_micro == 0:
+            if not staged:
+                tree = {n: collectives.replicated_slice(v, "pp", 0,
+                                                        mesh=mesh)
+                        for n, v in tree.items()}
+            M, B = self._n_micro, x.shape[0]
+            xm = x.reshape((M, B // M) + tuple(x.shape[1:]))
+            out = pipeline_apply({n: v[None] for n, v in tree.items()}, xm,
+                                 self._stack, axis="pp", mesh=mesh)
+            return out.reshape(x.shape)
+        if staged:
+            tree = {n: collectives.replicated_gather(v, "pp", 0, mesh=mesh)
+                    for n, v in tree.items()}
+        return self._stack(tree, x)

@@ -116,17 +116,22 @@ def _negative_steps(key, shape: tuple):
 class NDArray:
     """An n-dimensional array on a device :class:`~..context.Context`."""
 
-    __slots__ = ("_data", "_grad_req", "_fresh_grad", "_tape",
+    __slots__ = ("_data", "_grad_req", "_fresh_grad", "_tape", "_ctx",
                  "__weakref__")
 
     # numpy interop priority (so ndarray.__add__ defers to us)
     __array_priority__ = 1000.0
 
-    def __init__(self, data: torch.Tensor):
+    def __init__(self, data: torch.Tensor, ctx: Optional[Context] = None):
         if not isinstance(data, torch.Tensor):
             raise TypeError(f"NDArray holds a torch.Tensor, got "
                             f"{type(data).__name__}; use nd.array()")
         self._data = data
+        # the context, where its device does not name it: a CPU context
+        # past cpu(0) (replicas of a parameter on several CPU contexts)
+        self._ctx = (ctx if ctx is not None and ctx.device_type == "cpu"
+                     and ctx.device_id and data.device.type == "cpu"
+                     else None)
         self._grad_req = "null"
         # set by a backward that deposits into this array's gradient,
         # cleared by an optimizer update
@@ -148,6 +153,8 @@ class NDArray:
 
     @property
     def context(self) -> Context:
+        if self._ctx is not None:
+            return self._ctx
         return Context.from_device(self._data.device)
 
     ctx = context
@@ -294,7 +301,7 @@ class NDArray:
             return other
         ctx = as_context(other)
         with torch.set_grad_enabled(autograd.is_recording()):
-            return NDArray(ctx.place(self._data))
+            return NDArray(ctx.place(self._data), ctx)
 
     def copy(self) -> "NDArray":
         with torch.set_grad_enabled(autograd.is_recording()):
@@ -580,7 +587,7 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
     if isinstance(source_array, (NDArray, torch.Tensor)):
         t = _unwrap(source_array).detach()
         dt = torch_dtype(dtype) if dtype is not None else t.dtype
-        return NDArray(ctx.place(t, dt))
+        return NDArray(ctx.place(t, dt), ctx)
     a = onp.asarray(source_array)
     if a.dtype == BFLOAT16:
         t = torch.from_numpy(a.view("<i2").copy()).view(torch.bfloat16)
@@ -597,7 +604,7 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
     else:
         t = torch.from_numpy(onp.array(a, dtype=dtype_name(dt), order="C"))
     return NDArray(ctx.place(t) if ctx.device_type == "cpu_pinned"
-                   else t.to(dev))
+                   else t.to(dev), ctx)
 
 
 from . import op as _op  # noqa: E402  (the op namespace uses NDArray)

@@ -4,10 +4,10 @@ One process per rank under ``torch.distributed`` (NCCL on the card, gloo
 on the CPU): :mod:`.dist` joins the processes, :mod:`.mesh` lays the ranks
 out on named axes, :mod:`.sharding` maps parameter names to blocks,
 :mod:`.collectives` runs the verbs over an axis's process group,
-:mod:`.ring` is ring attention over ``sp`` on the flash kernels, and
-:mod:`.trainer`'s ``ShardedTrainer`` trains over a mesh. Pipeline
-parallelism, mixture-of-experts and the elastic control plane come with a
-later slice.
+:mod:`.ring` is ring attention over ``sp`` on the flash kernels,
+:mod:`.pipeline` the GPipe schedule over ``pp``, :mod:`.moe` the switch
+mixture-of-experts over ``ep``, :mod:`.elastic` the lease-based membership
+of the ranks, and :mod:`.trainer`'s ``ShardedTrainer`` trains over a mesh.
 """
 from .mesh import (  # noqa: F401
     MeshConfig, make_mesh, default_mesh, set_default_mesh, local_mesh,
@@ -26,3 +26,7 @@ from .dist import (  # noqa: F401
 )
 from .trainer import ShardedTrainer  # noqa: F401
 from .ring import ring_attention, ring_attention_sharded  # noqa: F401
+from . import elastic  # noqa: F401
+from .elastic import HostLossError  # noqa: F401
+from .pipeline import pipeline_apply, pipeline_sharded  # noqa: F401
+from .moe import moe_dispatch, MoEFFN  # noqa: F401

@@ -11,15 +11,19 @@ means every rank of the world (on one rank with a group, a real
 collective over it). A size-1 axis issues nothing.
 
 The verbs are functions of values, as in JAX: they return new tensors and
-leave their input alone. Only :func:`ppermute` records a backward
-(:class:`_PPermute`: the cotangent travels along the inverse permutation,
-as JAX differentiates ``lax.ppermute``). The other verbs are not
-differentiable: where a computation is replicated over an axis, use the
-conjugate pairs :func:`replicated_gather` (gather forward, this rank's
-slice backward) and :func:`replicated_slice` (slice forward, gather
-backward). ``torch.distributed.nn.functional.all_gather`` reduce-scatters
-in its backward, which multiplies the gradient of a replicated
-computation by the axis size.
+leave their input alone. :func:`ppermute` and :func:`all_to_all` record a
+backward, as JAX differentiates ``lax.ppermute`` and ``lax.all_to_all``:
+the cotangent travels along the inverse permutation (:class:`_PPermute`),
+or through the reverse exchange, split and concatenation axes swapped
+(:class:`_AllToAll`). The other verbs are not differentiable: where a
+computation is replicated over an axis, use the conjugate pairs
+:func:`replicated_gather` (gather forward, this rank's slice backward) and
+:func:`replicated_slice` (slice forward, gather backward);
+``torch.distributed.nn.functional.all_gather`` reduce-scatters in its
+backward, which multiplies the gradient of a replicated computation by
+the axis size. Where the cotangents differ over an axis (``dp``: each rank
+its own rows of the batch), :func:`varying_gather` gathers forward and
+sums over that axis backward.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from .mesh import Mesh, current_active_mesh, default_mesh
 __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
            "ppermute", "all_to_all", "axis_index", "axis_size",
            "psum_scatter", "run_all_reduce", "replicated_gather",
-           "replicated_slice"]
+           "replicated_slice", "varying_gather"]
 
 Axis = Union[str, Sequence[str], None]
 
@@ -192,24 +196,46 @@ def ppermute(x: torch.Tensor, axis: str, perm: Sequence[tuple],
                            m.axis_index(axis), perm)
 
 
+def _all_to_all(x: torch.Tensor, group, n: int, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    if x.shape[split_axis] % n:
+        raise MXNetError(f"dimension {split_axis} of size "
+                         f"{x.shape[split_axis]} does not split over {n}")
+    src = torch.stack(torch.chunk(x, n, dim=split_axis)).contiguous()
+    dst = torch.empty_like(src)
+    tdist.all_to_all_single(dst, src, group=group)
+    return torch.cat(list(dst.unbind(0)), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``lax.all_to_all`` with its derivative: the reverse exchange, which
+    splits the cotangent along ``concat_axis`` and concatenates along
+    ``split_axis``."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, split_axis, concat_axis):
+        ctx.args = (group, n, split_axis, concat_axis)
+        return _all_to_all(x.detach(), group, n, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split_axis, concat_axis = ctx.args
+        return (_all_to_all(g, group, n, concat_axis, split_axis),
+                None, None, None, None)
+
+
 def all_to_all(x: torch.Tensor, axis: str, split_axis: int,
                concat_axis: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Block ``j`` of ``x`` along ``split_axis`` goes to the axis's rank
     ``j``; what arrives from rank ``i`` is block ``i`` along
-    ``concat_axis`` (``lax.all_to_all(..., tiled=True)``)."""
+    ``concat_axis`` (``lax.all_to_all(..., tiled=True)``; over a leading
+    axis of size ``n`` with ``split_axis = concat_axis = 0`` it is also
+    JAX's ``tiled=False``, the blocks being of size 1). Differentiable."""
     lines = _lines(axis, mesh)
     if not lines:
-        return x.detach().clone()
+        return x.clone()
     group, ranks = lines[0]
-    n = len(ranks)
-    src = torch.stack(torch.chunk(x.detach(), n, dim=split_axis))
-    if src.shape[0] != n or x.shape[split_axis] % n:
-        raise MXNetError(f"dimension {split_axis} of size "
-                         f"{x.shape[split_axis]} does not split over {n}")
-    src = src.contiguous()
-    dst = torch.empty_like(src)
-    tdist.all_to_all_single(dst, src, group=group)
-    return torch.cat(list(dst.unbind(0)), dim=concat_axis)
+    return _AllToAll.apply(x, group, len(ranks), split_axis, concat_axis)
 
 
 def axis_index(axis: str, mesh: Optional[Mesh] = None) -> int:
@@ -293,3 +319,41 @@ def replicated_slice(x: torch.Tensor, axis, dim: int = 0,
     if not names:
         return x
     return _ReplicatedSlice.apply(x, names, dim, m)
+
+
+class _VaryingGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, names, dim, varying, mesh):
+        ctx.args = (names, dim, varying, mesh)
+        return all_gather(x, names, gather_axis=dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        names, dim, varying, mesh = ctx.args
+        if names[0] == varying:
+            # the varying axis is the outermost: a reduce-scatter over it
+            # leaves this rank the sum of its run of the inner blocks
+            g = reduce_scatter(g.contiguous(), varying, scatter_axis=dim,
+                               mesh=mesh)
+            names = names[1:]
+        else:
+            g = all_reduce(g, varying, mesh=mesh)
+        if names:
+            i, n = _index(mesh, names)
+            g = _chunk(g, n, i, dim)
+        return g.contiguous(), None, None, None, None
+
+
+def varying_gather(x: torch.Tensor, axis, dim: int = 0,
+                   varying: str = "dp",
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Gather the blocks of ``x`` over ``axis`` along ``dim``, as
+    :func:`replicated_gather` does, for a computation whose cotangents
+    differ over the axis ``varying`` (one of ``axis``): the backward sums
+    the cotangents over ``varying`` (a reduce-scatter where it is the
+    outermost axis) and keeps this rank's block."""
+    m = _mesh(mesh)
+    names = tuple(a for a in _names(axis) if m.axis_size(a) > 1)
+    if varying not in names:
+        return replicated_gather(x, names, dim, mesh=m)
+    return _VaryingGather.apply(x, names, dim, varying, m)

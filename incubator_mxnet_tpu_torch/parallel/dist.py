@@ -22,8 +22,11 @@ of the port's :mod:`~..tools.launch`), as the JAX package does
 
 One process with no coordinator is a no-op, as in the JAX package; with
 an explicit ``backend`` it makes a one-rank group (an in-process store),
-so that NCCL runs on one card. The elastic membership hooks of the JAX
-``initialize`` (``:80-87``) are not ported.
+so that NCCL runs on one card. As the JAX ``initialize`` does
+(``:83-91``), :func:`initialize` ends by starting the elastic lease
+daemon (:func:`.elastic.start`: a no-op unless ``MXTPU_ELASTIC=1`` and
+the pod has more than one member), and :func:`finalize` begins by
+stopping it.
 """
 from __future__ import annotations
 
@@ -37,10 +40,14 @@ import torch.distributed as tdist
 from ..base import MXNetError
 
 __all__ = ["initialize", "finalize", "process_count", "process_index",
-           "world", "is_primary", "process_namespace", "initialized"]
+           "world", "is_primary", "process_namespace", "initialized",
+           "store_address"]
 
 #: seconds a collective or the rendezvous waits before it raises
 TIMEOUT_S = 300
+
+#: ``(host, port)`` of the process group's TCP store, once initialised
+_STORE_ADDR: list = [None]
 
 
 def initialized() -> bool:
@@ -73,6 +80,7 @@ def initialize(coordinator_address: Optional[str] = None,
     no explicit ``backend``."""
     if initialized():
         return
+    from . import elastic
     if coordinator_address is None:
         uri = os.environ.get("DMLC_PS_ROOT_URI")
         port = os.environ.get("DMLC_PS_ROOT_PORT", "9000")
@@ -94,21 +102,36 @@ def initialize(coordinator_address: Optional[str] = None,
         # one rank, no peer to meet: an in-process store
         tdist.init_process_group(be, store=tdist.HashStore(), rank=0,
                                  world_size=1, timeout=timeout)
-        return
-    addr = coordinator_address
-    if "://" not in addr:
-        addr = f"tcp://{addr}"
-    tdist.init_process_group(be, init_method=addr, rank=rank, world_size=n,
-                             timeout=timeout)
+    else:
+        addr = coordinator_address
+        if "://" not in addr:
+            addr = f"tcp://{addr}"
+        tdist.init_process_group(be, init_method=addr, rank=rank,
+                                 world_size=n, timeout=timeout)
+        if addr.startswith("tcp://"):
+            host, _, port = addr[len("tcp://"):].rpartition(":")
+            _STORE_ADDR[0] = (host, int(port))
+    # membership is explicit from here on: a rank that dies later is a
+    # detected loss (HostLossError at the next step), not a peer blocked
+    # in a collective (one environment read when elastic is off)
+    elastic.start()
 
 
 def finalize() -> None:
     """Leave the process group (a no-op outside one). Meshes built on it
     are dead afterwards."""
-    from . import mesh
+    from . import elastic, mesh
+    elastic.stop()
     mesh.set_default_mesh(None)
+    _STORE_ADDR[0] = None
     if initialized():
         tdist.destroy_process_group()
+
+
+def store_address() -> Optional[Tuple[str, int]]:
+    """``(host, port)`` of the process group's TCP store, or None (no
+    group, or a one-rank group's in-process store)."""
+    return _STORE_ADDR[0] if initialized() else None
 
 
 def world() -> Tuple[int, int]:

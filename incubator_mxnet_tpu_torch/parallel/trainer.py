@@ -94,8 +94,14 @@ verified on a one-card chip), and:
   the block in its place (a Gluon block's alias table, else
   ``torch.func.functional_call``). The compute is replicated over ``tp``
   and ``sp``; under an ``sp`` axis attention lowers to ring attention
-  (``ops/attention.py``); the Megatron compute split waits for a later
-  slice;
+  (``ops/attention.py``). Two exceptions: a Gluon parameter whose
+  ``local_axis`` is the one axis its rule cuts dimension 0 over (the
+  stacked encoder's layers over ``pp``, the MoE experts over ``ep``) is
+  handed over as this rank's block, ungathered, and its gradient stays
+  this rank's; a rule over ``dp`` is gathered by
+  :func:`~.collectives.varying_gather`, whose backward reduce-scatters the
+  ranks' cotangents over ``dp`` into this rank's rows (then the ``dp``
+  mean, as every gradient);
 - ``zero1`` (default: on when ``dp > 1``) partitions the weight-shaped
   optimizer states and fp32 masters over ``dp`` on the first axis with
   room (JAX ``_zero1_spec``, ``:269-290``): the gradients are
@@ -104,7 +110,13 @@ verified on a one-card chip), and:
 - ``save_checkpoint``/``restore_checkpoint`` write and read the global
   arrays under the JAX keys (each rank writes a share of them as its
   shard of the multi-host layout; the primary commits), so a checkpoint
-  moves between the packages and between meshes.
+  moves between the packages and between meshes; the meta carries the
+  elastic membership (``"elastic"``: generation and process count, JAX
+  ``:1211-1214``).
+
+Every ``step()`` begins with ``elastic.poll()`` (JAX ``:737-742``), on the
+host, fused or eager: a host loss the lease watchdog detected since the
+last step raises :class:`~.elastic.HostLossError` there.
 
 Restore and rollback write into the live tensors (``copy_``), never
 rebinding them: the captured graph updates the very parameters and
@@ -136,12 +148,24 @@ from ..ops.cuda import graphs
 from ..ops.optimizer_ops import sum_sq_total
 from ..optimizer.optimizer import _uses_master
 from ..util import getenv
-from . import collectives
+from . import collectives, elastic
 from .mesh import Mesh, active_mesh, default_mesh
 from .sharding import NamedSharding, P, ShardingRules, data_sharding
 from .sharding import spec_axes as _spec_axes
 
 __all__ = ["ShardedTrainer"]
+
+
+def _local_block(spec, axis: Optional[str], mesh: Mesh) -> bool:
+    """Does a parameter whose block takes its own ``local_axis`` block
+    (``axis``) get it ungathered under ``spec``: the spec cuts dimension 0
+    over that axis alone, and no other dimension?"""
+    if axis is None or mesh.axis_size(axis) == 1:
+        return False
+    cut = [(d, a) for d, e in enumerate(tuple(spec))
+           for a in ((e,) if isinstance(e, str) else tuple(e or ()))
+           if mesh.axis_size(a) > 1]
+    return cut == [(0, axis)]
 
 
 class _FusedStep:
@@ -280,6 +304,8 @@ class ShardedTrainer:
         self._zaxis: List[Optional[int]] = []
         self._full_shapes: List[tuple] = []
         self._wshaped: List[List[bool]] = []
+        #: per parameter: handed to the block as this rank's block
+        self._local: List[bool] = []
 
     @property
     def device(self) -> torch.device:
@@ -392,16 +418,16 @@ class ShardedTrainer:
         one rank, a rule-sharded parameter keeps only this rank's block."""
         mesh = self._mesh
         self._shardings, self._zaxis, self._full_shapes = [], [], []
+        local_axis = {}
+        if hasattr(self._block, "collect_params"):
+            local_axis = {id(gp._var): gp.local_axis
+                          for gp in self._block.collect_params().values()}
+        self._local = []
         for name, p in named:
             shape = tuple(p.shape)
             sh = self._rules.sharding_for(name, mesh, shape)
-            if self._multi and mesh.axis_size("dp") > 1 \
-                    and "dp" in _spec_axes(sh.spec):
-                raise MXNetError(
-                    f"rule {tuple(sh.spec)} of {name!r} shards over dp: a "
-                    "rule over the data axis is not ported (its gradient "
-                    "needs a reduce-scatter over rows); dp partitions "
-                    "optimizer states through zero1")
+            self._local.append(self._multi and _local_block(
+                sh.spec, local_axis.get(id(p)), mesh))
             self._shardings.append(sh)
             self._full_shapes.append(shape)
             self._zaxis.append(self._zero1_axis(sh.spec, shape)
@@ -512,18 +538,21 @@ class ShardedTrainer:
     def _gathered(self):
         """Inside: the mesh is active and the block computes on each
         rule-sharded parameter's global value, gathered from the blocks
-        (its gradient comes back as this rank's slice)."""
+        (its gradient comes back as this rank's slice; summed over ``dp``
+        for a rule over ``dp``), or on this rank's block where the block
+        takes it so (module docstring)."""
         mesh = self._mesh
         full = {}
         for i, p in enumerate(self._params):
             sh = self._shardings[i]
-            if sh.is_replicated():
+            if sh.is_replicated() or self._local[i]:
                 continue
             x = p
             for d, e in enumerate(sh.spec):
                 axes = (e,) if isinstance(e, str) else tuple(e or ())
                 if any(mesh.axis_size(a) > 1 for a in axes):
-                    x = collectives.replicated_gather(x, axes, d, mesh=mesh)
+                    x = collectives.varying_gather(x, axes, d, "dp",
+                                                   mesh=mesh)
             full[id(p)] = x
         with active_mesh(mesh):
             if not full:
@@ -553,7 +582,14 @@ class ShardedTrainer:
         dp = mesh.axis_size("dp")
         params = self._params
         loss = collectives.all_reduce(loss, "dp", "mean", mesh=mesh)
-        flat = [i for i, z in enumerate(self._zaxis) if z is None]
+        # a rule over dp: the gather's backward has summed over dp already
+        summed = [dp > 1 and "dp" in _spec_axes(sh.spec)
+                  for sh in self._shardings]
+        for i in range(len(grads)):
+            if summed[i]:
+                grads[i] = grads[i] / dp
+        flat = [i for i, z in enumerate(self._zaxis)
+                if z is None and not summed[i]]
         if flat and dp > 1:
             # one all-reduce of every gradient without a ZeRO-1 slice
             buf = torch.cat([grads[i].float().reshape(-1) for i in flat])
@@ -629,6 +665,10 @@ class ShardedTrainer:
         n_data = len(batch) - self._n_labels
         if n_data < 1:
             raise MXNetError("step() needs at least one data argument")
+        # a host loss the lease watchdog found since the last step raises
+        # here (one list read while the pod is healthy); note_step drives
+        # the host_kill/host_stall chaos knobs
+        elastic.poll()
         inject.note_step(self._t + 1)
         if inject.active() is not None:
             batch = self._chaos_batch(batch, n_data)
@@ -907,6 +947,9 @@ class ShardedTrainer:
         }
         if data_state is not None:
             meta["data_state"] = dict(data_state)
+        _, count = elastic.membership()
+        meta["elastic"] = {"generation": elastic.generation(),
+                           "process_count": count}
         path = ckpt.save_checkpoint(root, arrays, meta, step=self._t,
                                     keep=keep)
         if self._multi:

@@ -100,6 +100,24 @@ ENV_VARS: Dict[str, tuple] = {
     "MXTPU_RING_IMPL": ("", "xla = ring attention's hops on the plain "
                         "path; unset = the flash kernels where they take "
                         "the shapes."),
+    "MXTPU_ELASTIC": ("0", "Master switch of the elastic control plane "
+                      "(parallel.elastic): 1 starts the heartbeat-lease "
+                      "daemon at dist.initialize(), so a rank that dies "
+                      "is a detected loss (HostLossError at the next "
+                      "step) instead of peers blocked in a collective."),
+    "MXTPU_ELASTIC_LEASE_S": ("10", "Heartbeat-lease validity window: a "
+                              "pod member whose newest lease is older "
+                              "than this is a detected host loss."),
+    "MXTPU_ELASTIC_HEARTBEAT_S": ("", "Beat interval of the lease daemon; "
+                                  "unset = a third of the lease."),
+    "MXTPU_ELASTIC_GENERATION": ("0", "Restore-generation counter stamped "
+                                 "by the launcher on each elastic "
+                                 "restart: namespaces the lease keys and "
+                                 "rides the checkpoint meta."),
+    "MXTPU_CPU_DEVICES": ("1", "CPU contexts one may name (cpu(0) .. "
+                          "cpu(n-1)): torch has one CPU device, and the "
+                          "contexts past cpu(0) hold parameter replicas "
+                          "in host memory."),
     "MXTPU_ELASTIC_COMMIT_TIMEOUT_S": ("60", "Seconds the primary waits for "
                                        "every rank's commit marker in a "
                                        "multi-process checkpoint save."),

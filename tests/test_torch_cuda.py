@@ -40,7 +40,9 @@ capture), and one exported on the CPU moved to the card; several ranks:
 ``flash_block`` (the ring's hop) on the card against its plain version
 under both cotangents, and a one-rank NCCL group carrying the collectives,
 ``mx.kv``'s ``nccl`` store and a ``ShardedTrainer`` on a one-rank mesh
-bitwise the mesh-less one.
+bitwise the mesh-less one; and ``parallel.MoEFFN`` (tokens dropped) and
+``pipeline_apply`` over a one-rank ``pp`` group, forward and backward,
+card against CPU.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -1495,3 +1497,94 @@ def test_one_rank_nccl_group_on_card():
         assert losses[0] == losses[1]
     finally:
         parallel.finalize()
+
+
+def _moe_pair(cfg):
+    """One ``MoEFFN`` on the card and one on the CPU, with the CPU one's
+    seeded weights."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import parallel
+    blks = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        with ctx:
+            mx.random.seed(3)
+            blk = parallel.MoEFFN(**cfg)
+            blk.initialize()
+            if blks:
+                for (_, p), (_, q) in zip(
+                        sorted(blk.collect_params().items()),
+                        sorted(blks[0].collect_params().items())):
+                    p.set_data(mx.nd.NDArray(q.data()._data.cuda()))
+        blks.append(blk)
+    return blks
+
+
+@pytest.mark.cuda
+def test_moe_ffn_on_card_matches_cpu():
+    """``parallel.MoEFFN`` (8 experts, capacity factor 1.25, tokens
+    dropped) forward and backward on the card against the CPU on the same
+    weights, float32 without TF32: output and every gradient within 1e-5
+    of the largest value."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu, card = _moe_pair(dict(units=64, hidden=256, num_experts=8,
+                                   capacity_factor=1.25))
+        rng = onp.random.RandomState(0)
+        x = rng.randn(4, 32, 64).astype("float32")
+        cot = rng.randn(4, 32, 64).astype("float32")
+        outs = []
+        for blk, ctx in ((cpu, mx.cpu()), (card, mx.gpu(0))):
+            xa = mx.nd.array(x, ctx=ctx)
+            with mx.autograd.record():
+                out = blk(xa)
+                loss = (out * mx.nd.array(cot, ctx=ctx)).sum()
+            loss.backward()
+            outs.append([out.asnumpy()] + [
+                p.grad().asnumpy() for _, p in
+                sorted(blk.collect_params().items())])
+        assert (onp.abs(outs[0][0]).sum(-1) == 0).any()   # a dropped token
+        for got, want in zip(outs[1], outs[0]):
+            assert onp.abs(got - want).max() <= 1e-5 * onp.abs(want).max()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_pipeline_apply_on_card_matches_cpu():
+    """``parallel.pipeline_apply`` over a one-rank ``pp`` group on the card
+    (a 2-layer ``StackedTransformerEncoder`` stack as the stage, 4
+    microbatches) against the CPU, forward and the stage parameters'
+    gradients under a random cotangent, float32 without TF32: each within
+    1e-5 of its largest value."""
+    _card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import models, parallel
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with mx.cpu():
+            mx.random.seed(4)
+            enc = models.StackedTransformerEncoder(2, 64, 128, 4, n_micro=4)
+            enc.initialize()
+        g = torch.Generator().manual_seed(5)
+        x = torch.randn(8, 16, 64, generator=g)
+        cot = torch.randn(4, 2, 16, 64, generator=g)
+        mesh = parallel.make_mesh(pp=1, devices=[0])
+        outs = []
+        for dev in ("cpu", "cuda"):
+            tree = {n: getattr(enc, n).data()._data.to(dev).detach()
+                    .requires_grad_(True) for n in enc._KINDS}
+            y = parallel.pipeline_apply(
+                {n: v[None] for n, v in tree.items()},
+                x.to(dev).reshape(4, 2, 16, 64), enc._stack, mesh=mesh)
+            (y * cot.to(dev)).sum().backward()
+            outs.append([y.detach().cpu()] + [tree[n].grad.cpu()
+                                              for n in enc._KINDS])
+        for i, (got, want) in enumerate(zip(outs[1], outs[0])):
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            assert err <= 1e-5, (i, err)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -60,10 +60,13 @@ def _entry(fn_name, rank, world, port, args, out_dir):
             pickle.dump(("error", traceback.format_exc()), f)
 
 
-def run_ranks(fn_name: str, world: int, *args, timeout: float = None):
+def run_ranks(fn_name: str, world: int, *args, timeout: float = None,
+              may_die=()):
     """Run ``fn_name(rank, world, *args)`` in ``world`` spawned ranks;
     returns the ranks' results in rank order, or raises AssertionError
-    with the first failing rank's traceback."""
+    with the first failing rank's traceback. A rank in ``may_die`` (a
+    chaos drill's victim) may die without a result: its result is its
+    exit code."""
     timeout = JOIN_TIMEOUT_S if timeout is None else timeout
     ctx = mp.get_context("spawn")
     port = free_port()
@@ -87,6 +90,9 @@ def run_ranks(fn_name: str, world: int, *args, timeout: float = None):
         results = []
         for r in range(world):
             path = os.path.join(out_dir, f"rank{r}.pkl")
+            if not os.path.exists(path) and r in may_die:
+                results.append(procs[r].exitcode)
+                continue
             if not os.path.exists(path):
                 raise AssertionError(f"rank {r} of {fn_name} died with exit "
                                      f"code {procs[r].exitcode}")
@@ -391,4 +397,235 @@ def dist_sync_case(rank, world):
         mod.backward()
         mod.update()
         out["module"] = mod.get_params()[0]["fc_weight"].asnumpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pipeline (tests/test_torch_pipeline.py)
+# ---------------------------------------------------------------------------
+def mlp_stage(p, x):
+    """The JAX test's stage: ``tanh(x @ w + b)``."""
+    import torch
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def encoder_losses(arrays, x, y, mesh, rules, steps=3):
+    """``steps`` SGD steps (lr 0.05, L2 loss) of a 4-layer
+    ``StackedTransformerEncoder`` (16 units, 4 microbatches) from
+    ``arrays`` (its weights in sorted-name order) on ``mesh``: the losses,
+    and the local shapes of its layer stack."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, models, parallel
+    with mx.cpu():
+        enc = models.StackedTransformerEncoder(
+            num_layers=4, units=16, hidden_size=32, num_heads=2, n_micro=4)
+        enc.initialize()
+        for (_, p), a in zip(sorted(enc.collect_params().items()), arrays):
+            p.set_data(mx.nd.array(a))
+        loss_fn = gluon.loss.L2Loss()
+        tr = parallel.ShardedTrainer(
+            enc, lambda o, t: loss_fn(o, t).mean(), "sgd",
+            {"learning_rate": 0.05}, device="cpu", n_labels=1, mesh=mesh,
+            rules=rules)
+        losses = [float(tr.step(x, y)) for _ in range(steps)]
+    return losses, sorted({tuple(p.shape) for p in tr._params})
+
+
+def pipeline_case(rank, world, w4, b4, x4, w2, b2, x2, wg, bg, xg, enc_arrays,
+                  ex, ey):
+    """Every multi-rank check of ``tests/test_torch_pipeline.py`` in one
+    world of four: ``pipeline_sharded`` on pp=4 and on pp2 x dp2, the
+    gradients of ``pipeline_apply`` on pp=4, and the stacked encoder's SGD
+    steps on pp2 x dp2 (rule ``.*`` over pp) and on one rank."""
+    import torch
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.parallel import collectives as C
+    pp4 = parallel.make_mesh(pp=4, dp=1)
+    pp2 = parallel.make_mesh(pp=2, dp=2)
+    out = {"pp4": parallel.pipeline_sharded(
+        pp4, {"w": _t(w4), "b": _t(b4)}, _t(x4), mlp_stage,
+        n_micro=4).numpy()}
+    out["pp2dp2"] = parallel.pipeline_sharded(
+        pp2, {"w": _t(w2), "b": _t(b2)}, _t(x2), mlp_stage, n_micro=4,
+        batch_axis="dp").numpy()
+    # the backward pipeline: pipeline_apply on this rank's stage, the
+    # stack sliced from a global parameter (its gradient gathered back)
+    gp = {"w": _t(wg).requires_grad_(True), "b": _t(bg).requires_grad_(True)}
+    local = {k: C.replicated_slice(v, "pp", 0, mesh=pp4)
+             for k, v in gp.items()}
+    xm = _t(xg.reshape((4, -1) + xg.shape[1:])).requires_grad_(True)
+    y = parallel.pipeline_apply(local, xm, mlp_stage, mesh=pp4)
+    (y ** 2).sum().backward()
+    out["grads"] = {k: v.grad.numpy() for k, v in gp.items()}
+    out["grad_x"] = xm.grad.numpy()
+    rules = parallel.ShardingRules([(r".*", parallel.sharding.P("pp"))])
+    out["enc_piped"] = encoder_losses(enc_arrays, ex, ey, pp2, rules)
+    out["enc_single"] = encoder_losses(enc_arrays, ex, ey,
+                                       parallel.make_mesh(devices=[rank]),
+                                       None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts (tests/test_torch_moe.py)
+# ---------------------------------------------------------------------------
+def moe_block_losses(arrays, x, y, mesh, rules, steps=2):
+    """``steps`` SGD steps (lr 0.05, L2 loss) of ``parallel.MoEFFN(4, 16,
+    8, capacity_factor=100)`` from ``arrays`` (sorted-name order) on
+    ``mesh``: the losses and the local shapes of its parameters."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, parallel
+    with mx.cpu():
+        blk = parallel.MoEFFN(num_experts=4, hidden=16, units=8,
+                              capacity_factor=100.0)
+        blk.initialize()
+        for (_, p), a in zip(sorted(blk.collect_params().items()), arrays):
+            p.set_data(mx.nd.array(a))
+        loss_fn = gluon.loss.L2Loss()
+        tr = parallel.ShardedTrainer(
+            blk, lambda o, t: loss_fn(o, t).mean(), "sgd",
+            {"learning_rate": 0.05}, device="cpu", n_labels=1, mesh=mesh,
+            rules=rules)
+        losses = [float(tr.step(x, y)) for _ in range(steps)]
+    names = tr._optimizer.idx2name
+    return losses, {names[i].rsplit("_", 1)[-1]: tuple(p.shape)
+                    for i, p in enumerate(tr._params)}
+
+
+def moe_case(rank, world, params, x, gate, drop_params, drop_x, drop_gate,
+             cot, blk_arrays, bx, by):
+    """Every multi-rank check of ``tests/test_torch_moe.py`` in one world
+    of two (ep=2): ``moe_ffn_sharded`` without drops, with drops, and its
+    gradients under the cotangent ``cot``; the ``all_to_all`` backward;
+    and two SGD steps of ``MoEFFN`` with its experts over ep and on one
+    rank."""
+    import torch
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.parallel import collectives as C
+    from incubator_mxnet_tpu_torch.parallel.moe import moe_ffn_sharded
+    mesh = parallel.make_mesh(ep=2, dp=1)
+    T = x.shape[0]
+    tp = {k: _t(v) for k, v in params.items()}
+    out = {"ffn": moe_ffn_sharded(mesh, tp, _t(x), _t(gate),
+                                  capacity=T).numpy()}
+    out["drops"] = moe_ffn_sharded(
+        mesh, {k: _t(v) for k, v in drop_params.items()}, _t(drop_x),
+        _t(drop_gate), capacity=1).numpy()
+    gp = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    xt = _t(x).requires_grad_(True)
+    y = moe_ffn_sharded(mesh, gp, xt, _t(gate), capacity=T)
+    (y * _t(cot)).sum().backward()
+    out["grads"] = {k: v.grad.numpy() for k, v in gp.items()}
+    out["grad_x"] = xt.grad.numpy()
+    # all_to_all's backward is the reverse exchange
+    a = (torch.arange(16.0).reshape(2, 4, 2) + 100 * rank).requires_grad_()
+    b = C.all_to_all(a, "ep", 1, 0, mesh=mesh)
+    (b * (torch.arange(b.numel()).reshape(b.shape) + 1.0)).sum().backward()
+    out["a2a"] = (b.detach().numpy(), a.grad.numpy())
+    rules = parallel.ShardingRules(
+        [(r".*(w1|w2|b1|b2|router)", parallel.sharding.P("ep"))])
+    out["block_ep"] = moe_block_losses(blk_arrays, bx, by, mesh, rules)
+    out["block_single"] = moe_block_losses(
+        blk_arrays, bx, by, parallel.make_mesh(devices=[rank]), None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# elastic drill (tests/test_torch_elastic.py)
+# ---------------------------------------------------------------------------
+def _drill_trainer(arrays, mesh):
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, parallel
+    with mx.cpu():
+        net = gluon.nn.Dense(4, in_units=6, prefix="drill_")
+        net.initialize()
+        for (_, p), a in zip(sorted(net.collect_params().items()), arrays):
+            p.set_data(mx.nd.array(a))
+        loss_fn = gluon.loss.L2Loss()
+        return parallel.ShardedTrainer(
+            net, lambda o, t: loss_fn(o, t).mean(), "sgd",
+            {"learning_rate": 0.1}, device="cpu", n_labels=1, mesh=mesh)
+
+
+def elastic_drill_case(rank, world, arrays, batches, root):
+    """The two-rank drill over the process group's ``TCPStore`` (elastic
+    on through the environment): four uninterrupted dp=2 steps; then a
+    fresh run that checkpoints after step 2, where rank 1's ``host_kill``
+    fires at step 3; rank 0 waits for the lease watchdog, takes
+    ``HostLossError`` at its next step, leaves the group and recovers at
+    one rank from the checkpoint, then runs steps 3 and 4."""
+    import time
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.fault import inject
+    from incubator_mxnet_tpu_torch.parallel import dist, elastic
+    out = {"active": elastic.active(),
+           "transport": type(elastic._transport()).__name__}
+    mesh = parallel.make_mesh(dp=2)
+    tr = _drill_trainer(arrays, mesh)
+    out["uninterrupted"] = [float(tr.step(*b)) for b in batches]
+    tr = _drill_trainer(arrays, mesh)
+    out["before"] = [float(tr.step(*b)) for b in batches[:2]]
+    tr.save_checkpoint(root)
+    if rank == 1:
+        inject.enable(seed=0, host_kill=3)
+        tr.step(*batches[2])             # SIGKILL before its collectives
+        raise AssertionError("host_kill did not fire")
+    deadline = time.time() + 60
+    while not elastic.snapshot()["lost"] and time.time() < deadline:
+        time.sleep(0.05)
+    out["snapshot"] = elastic.snapshot()
+    try:
+        tr.step(*batches[2])
+        out["raised"] = None
+    except elastic.HostLossError as e:
+        out["raised"] = (e.lost, e.generation, str(e))
+    # restart on the survivor: a world of one
+    dist.finalize()
+    tr1 = _drill_trainer(arrays, parallel.make_mesh())
+    tr1.step(*batches[0])
+    out["restored_step"] = elastic.recover(tr1, root)
+    out["generation"] = elastic.generation()
+    out["meta"] = tr1.last_restore_meta
+    out["after"] = [float(tr1.step(*b)) for b in batches[2:]]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# a rule over dp (tests/test_torch_multi_context.py)
+# ---------------------------------------------------------------------------
+def mlp_net(mx, arrays, prefix="mlp_"):
+    """Dense(8, relu) -> Dense(3) on 6 inputs, weights from ``arrays``
+    (sorted-name order)."""
+    net = mx.gluon.nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(8, in_units=6, activation="relu"))
+        net.add(mx.gluon.nn.Dense(3, in_units=8))
+    net.initialize()
+    for (_, p), a in zip(sorted(net.collect_params().items()), arrays):
+        p.set_data(mx.nd.array(a))
+    return net
+
+
+def dp_rule_case(rank, world, arrays, batches, pattern):
+    """Three SGD-with-momentum steps of :func:`mlp_net` under a rule that
+    shards the parameters matching ``pattern`` over dp=2, and on one rank:
+    losses, global weights, and the local shapes of parameters and
+    states."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import parallel
+    out = {}
+    for tag, mesh, rules in (
+            ("dp", parallel.make_mesh(dp=2),
+             parallel.ShardingRules([(pattern, parallel.sharding.P("dp"))])),
+            ("one", parallel.make_mesh(devices=[rank]), None)):
+        with mx.cpu():
+            net = mlp_net(mx, arrays)
+            loss_fn = mx.gluon.loss.L2Loss()
+            tr = parallel.ShardedTrainer(
+                net, lambda o, t: loss_fn(o, t).mean(), "sgd",
+                {"learning_rate": 0.1, "momentum": 0.9}, device="cpu",
+                n_labels=1, mesh=mesh, rules=rules)
+            losses = [float(tr.step(*b)) for b in batches]
+        out[tag] = dict(trainer_state(tr), losses=losses,
+                        gnorm=tr.last_grad_norm)
     return out
