@@ -417,6 +417,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
     the survivor becomes a pod of one, ``elastic.recover`` restores the
     checkpoint in place, and steps 3 and 4 give the losses of an
     uninterrupted run bitwise (deterministic algorithms).
+31. surface: the rest of the surface, part 1, on the card. (a) the
+    ``interleaved_matmul_*`` ops at BERT-base's widths (8 x 512, 768
+    units, 12 heads, float32): ``selfatt_qk`` -> a softmax masked by a
+    ragged ``valid_length`` -> ``selfatt_valatt`` against
+    ``dot_product_attention`` on the same q, k and v (one launch of the
+    flash forward kernel), within 1e-3 of the largest value, and the
+    ``encdec`` pair at Transformer-big's cross shape (32 pairs, 16 heads,
+    112 queries over 128 keys, 1,024 units). (b) an ``mx.autotune``
+    entry banked for the bench's BERT-base on this card's ``chip_kind()``
+    with ``MXTPU_FLASH_BQ`` = ``MXTPU_FLASH_BK`` = 32: the bench's fused
+    ``ShardedTrainer`` built under ``MXTPU_AUTOTUNE_DIR`` consults it and
+    launches (first step) and captures (second) all three kernels with
+    those tiles, an untuned twin with the kernels' own; the first step's
+    loss and gradient norm of the two within 1e-4 relative; both step
+    times in turns; an entry of 128 refused at the consult of a trainer's
+    first step, before any capture or launch. (c) ``mx.profiler`` around
+    one uncounted step, an idle gap and 3 replayed steps of the untuned
+    trainer, then of the tuned one (the slice's main path; CUPTI can miss
+    a profile's first ~2 ms of device work): the device events after the
+    gap in each dumped chrome trace name the three kernels as often as
+    the launch tally
+    counted (36 each: ``launches_by_path["surface"]``; a trace that lost
+    an event is taken again, at most 3 times), each kernel's
+    device ms a launch from the trace, and ``step_report()`` has 3 step
+    frames with place, dispatch and device-wait segments. (d) a
+    hybridized ``foreach`` over an ``LSTMCell`` at the PTB "medium"
+    widths (650 units, 35 steps, batch 20), captured, against the eager
+    block and the unrolled loop (outputs and gradients within 1e-5); a
+    hybridized ``while_loop`` (rows after the 5 executed steps of 8 are
+    zero, the rest as eager); a hybridized ``cond`` whose untaken
+    branch's gradient is NaN: finite gradients of the taken branch only,
+    both predicates through one captured graph. (e) a ``Custom`` op eager,
+    recorded and inside a hybridized block, card against CPU within 1e-5;
+    the block captures nothing. (f) ``mx.np`` functions and
+    ``sparse.dot`` (csr, csr over row-sparse, transposed, a vector) card
+    against CPU; ``runtime.Features()``.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -7531,6 +7567,598 @@ def phase_parallel2() -> dict:
     return res
 
 
+# -- surface: control flow, Custom, interleaved ops, sparse, mx.np, runtime,
+# the profiler and the autotune cache on BERT-base's fused step --
+# BERT-base self-attention (8 x 512, 768 units, 12 heads) and
+# Transformer-big's cross-attention (32 pairs, 16 heads, 112 over 128)
+SURF_SELF = dict(B=8, L=512, units=768, heads=12)
+SURF_CROSS = dict(B=32, Lq=112, Lk=128, units=1024, heads=16)
+# interleaved products + softmax against the flash forward: of the largest
+# value
+SURF_ATT_TOL = 1e-3
+# the banked tiles; a fused step under them against one under the kernels'
+# own (the order of accumulation moves), relative
+SURF_TILE = 32
+SURF_TUNE_TOL = 1e-4
+SURF_PROFILED_STEPS = 3
+#: seconds the card idles between the uncounted step and the counted ones
+SURF_GAP_S = 0.05
+# PTB "medium" LSTM widths (Zaremba et al., 2014): 650 units, 35 steps,
+# batch 20
+SURF_LSTM = dict(units=650, steps=35, batch=20)
+SURF_CF_TOL = 1e-5
+SURF_CUSTOM_TOL = 1e-5
+
+
+def _rel_err(got, want) -> float:
+    """Largest difference over the largest magnitude of ``want`` (at least
+    1e-30)."""
+    g = got.detach().double().cpu() if isinstance(got, torch.Tensor) \
+        else torch.as_tensor(onp.asarray(got, dtype="float64"))
+    w = want.detach().double().cpu() if isinstance(want, torch.Tensor) \
+        else torch.as_tensor(onp.asarray(want, dtype="float64"))
+    return float((g - w).abs().max() / max(float(w.abs().max()), 1e-30))
+
+
+def _ragged_mask(B: int, L: int, rng) -> torch.Tensor:
+    """(B, L) key mask: row b keeps its first valid_length[b] keys."""
+    vl = rng.randint(L // 4, L + 1, size=B)
+    vl[0] = L
+    return torch.from_numpy(
+        (onp.arange(L)[None, :] < vl[:, None]).astype("float32")).cuda()
+
+
+def surf_interleaved(seed: int = 31) -> dict:
+    """(a) the interleaved products chained through a masked softmax
+    against ``dot_product_attention`` (the flash forward kernel)."""
+    rng = onp.random.RandomState(seed)
+    res = {}
+    with mx.gpu(0):
+        c = SURF_SELF
+        B, L, C, H = c["B"], c["L"], c["units"], c["heads"]
+        d = C // H
+        qkv = torch.from_numpy(rng.randn(L, B, 3 * C).astype("float32")
+                               ).cuda()
+        mask = _ragged_mask(B, L, rng)
+        bias = (1.0 - mask)[:, None, None, :] * -1e30
+        cuda_ops.reset_launches()
+        s = nd.interleaved_matmul_selfatt_qk(nd.NDArray(qkv), heads=H)
+        p = nd.softmax(nd.NDArray(s._data.reshape(B, H, L, L) + bias),
+                       axis=-1)
+        out = nd.interleaved_matmul_selfatt_valatt(
+            nd.NDArray(qkv), nd.NDArray(p._data.reshape(B * H, L, L)),
+            heads=H)._data
+        check(sum(cuda_ops.launch_counts().values()) == 0,
+              "surface: the interleaved ops launched a flash kernel")
+        x = qkv.reshape(L, B, H, 3, d)
+        q, k, v = (x[:, :, :, i, :].permute(1, 2, 0, 3).contiguous()
+                   for i in range(3))
+        ref = nd.dot_product_attention(
+            nd.NDArray(q), nd.NDArray(k), nd.NDArray(v),
+            mask=nd.NDArray(mask[:, None, None, :]))._data
+        launched = cuda_ops.launch_counts()[fa.KERNEL]
+        check(launched == 1, f"surface: dot_product_attention launched the "
+              f"forward kernel {launched} times, not once")
+        ref = ref.permute(2, 0, 1, 3).reshape(L, B, C)
+        res["selfatt"] = {"shape": [B, L, C, H], "rel_err": _rel_err(out,
+                                                                      ref),
+                          "flash_launches": launched}
+        c = SURF_CROSS
+        B, Lq, Lk, C, H = c["B"], c["Lq"], c["Lk"], c["units"], c["heads"]
+        d = C // H
+        qs = torch.from_numpy(rng.randn(Lq, B, C).astype("float32")).cuda()
+        kv = torch.from_numpy(rng.randn(Lk, B, 2 * C).astype("float32")
+                              ).cuda()
+        mask = _ragged_mask(B, Lk, rng)
+        bias = (1.0 - mask)[:, None, None, :] * -1e30
+        cuda_ops.reset_launches()
+        s = nd.interleaved_matmul_encdec_qk(nd.NDArray(qs), nd.NDArray(kv),
+                                            heads=H)
+        p = nd.softmax(nd.NDArray(s._data.reshape(B, H, Lq, Lk) + bias),
+                       axis=-1)
+        out = nd.interleaved_matmul_encdec_valatt(
+            nd.NDArray(kv), nd.NDArray(p._data.reshape(B * H, Lq, Lk)),
+            heads=H)._data
+        q = qs.reshape(Lq, B, H, d).permute(1, 2, 0, 3).contiguous()
+        x = kv.reshape(Lk, B, H, 2, d)
+        k, v = (x[:, :, :, i, :].permute(1, 2, 0, 3).contiguous()
+                for i in range(2))
+        ref = nd.dot_product_attention(
+            nd.NDArray(q), nd.NDArray(k), nd.NDArray(v),
+            mask=nd.NDArray(mask[:, None, None, :]))._data
+        launched = cuda_ops.launch_counts()[fa.KERNEL]
+        check(launched == 1, f"surface: cross dot_product_attention "
+              f"launched the forward kernel {launched} times, not once")
+        ref = ref.permute(2, 0, 1, 3).reshape(Lq, B, C)
+        res["encdec"] = {"shape": [B, Lq, Lk, C, H],
+                         "rel_err": _rel_err(out, ref),
+                         "flash_launches": launched}
+    for name, r in res.items():
+        print(f"surface (a): interleaved {name} {r['shape']} vs the flash "
+              f"forward: {r['rel_err']:.3e} of the largest value (gate "
+              f"{SURF_ATT_TOL})", flush=True)
+        check(r["rel_err"] <= SURF_ATT_TOL, f"surface: interleaved {name} "
+              f"{r['rel_err']:.3e} from the flash forward")
+    return res
+
+
+def _bank(root: str, key: str, env: dict) -> str:
+    return mx.autotune.AutotuneCache(root).put(
+        key, "single", mx.autotune.chip_kind(), {"env": env}, 0.0,
+        meta={"by": "chip_smoke.py phase 31"})
+
+
+def surf_autotune(root: str, seed: int = 0) -> dict:
+    """(b) BERT-base's bench step through ``ShardedTrainer(fused=True)``
+    with a banked entry of ``MXTPU_FLASH_BQ``/``BK`` = 32 and without:
+    the consult, the tiles at the launches, the first step's loss and
+    gradient norm, both step times; and an entry of 128 refused at the
+    consult, before any capture."""
+    from incubator_mxnet_tpu_torch import autotune
+    for k in autotune.TILE_ENV:
+        check(k not in os.environ, f"surface: {k} is set in the "
+              "environment; it would win over the banked entry")
+    tuned, batch, info = bench.build("cuda", fused=True)
+    plain, _, _ = bench.build("cuda", fused=True)
+    key = tuned._autotune_key
+    _bank(root, key, {"MXTPU_FLASH_BQ": SURF_TILE,
+                      "MXTPU_FLASH_BK": SURF_TILE})
+    placed = tuned.place(*batch)
+    res = {"key": key, "chip": autotune.chip_kind()}
+    firsts = {}
+    for name, tr in (("tuned", tuned), ("plain", plain)):
+        env = {"MXTPU_AUTOTUNE_DIR": root} if name == "tuned" else {}
+        with mock.patch.dict(os.environ, env):
+            cuda_ops.reset_launches()
+            tr.step(*placed)
+            torch.cuda.synchronize()
+            firsts[name] = (tr.last_loss, tr.last_grad_norm,
+                            dict(fa.last_tiles))
+            tr.step(*placed)         # captures under the overlay
+            torch.cuda.synchronize()
+            check(tr.captures == 1, f"surface: the {name} trainer made "
+                  f"{tr.captures} captures in 2 steps")
+            res[f"{name}_tiles"] = dict(fa.last_tiles)
+    want = (SURF_TILE, SURF_TILE)
+    check(tuned.autotune_entry is not None and
+          tuned.autotune_entry["config"]["env"]["MXTPU_FLASH_BQ"] == SURF_TILE,
+          f"surface: the tuned trainer consulted {tuned.autotune_entry}")
+    check(plain.autotune_entry is None, "surface: the plain trainer found "
+          "an entry")
+    for name in fa.KERNELS:
+        check(firsts["tuned"][2][name] == want
+              and res["tuned_tiles"][name] == want,
+              f"surface: {name} launched with tiles "
+              f"{firsts['tuned'][2][name]} / {res['tuned_tiles'][name]} "
+              f"under the entry, not {want}")
+        check(res["plain_tiles"][name] == (0, 0), f"surface: {name} "
+              f"launched with {res['plain_tiles'][name]} untuned")
+    res["loss"] = [firsts["tuned"][0], firsts["plain"][0]]
+    res["grad_norm"] = [firsts["tuned"][1], firsts["plain"][1]]
+    res["loss_rel"] = abs(res["loss"][0] - res["loss"][1]) / abs(
+        res["loss"][1])
+    res["grad_norm_rel"] = abs(res["grad_norm"][0] - res["grad_norm"][1]
+                               ) / abs(res["grad_norm"][1])
+    print(f"surface (b): first step loss tuned {res['loss'][0]:.6f} plain "
+          f"{res['loss'][1]:.6f} (rel {res['loss_rel']:.2e}), grad norm "
+          f"{res['grad_norm'][0]:.6f} / {res['grad_norm'][1]:.6f} (rel "
+          f"{res['grad_norm_rel']:.2e}; gate {SURF_TUNE_TOL})", flush=True)
+    check(res["loss_rel"] <= SURF_TUNE_TOL
+          and res["grad_norm_rel"] <= SURF_TUNE_TOL,
+          "surface: the tuned step's loss or gradient norm moved past "
+          f"{SURF_TUNE_TOL}")
+    # step times, in turns: plain, tuned, tuned, plain (10 replays each)
+    times = {"tuned": [], "plain": []}
+    for name in ("plain", "tuned", "tuned", "plain"):
+        tr = tuned if name == "tuned" else plain
+        times[name].append(synced_ms(lambda: tr.step(*placed), 10)[0])
+    res["step_ms"] = {k: min(v) for k, v in times.items()}
+    res["step_ms_runs"] = times
+    print(f"surface (b): fused step tuned ({SURF_TILE}x{SURF_TILE} tiles) "
+          f"{res['step_ms']['tuned']:.3f} ms, plain "
+          f"{res['step_ms']['plain']:.3f} ms (runs {times}) on "
+          f"{card_line()}", flush=True)
+    # a banked tile the kernels do not take: refused at the consult
+    small = models.get_bert("bert_2_128_2", vocab_size=bench.VOCAB,
+                            max_length=128, dropout=0.0, device="cuda",
+                            generator=torch.Generator().manual_seed(0))
+    bad = parallel.ShardedTrainer(small, models.bert_pretrain_loss, "adamw",
+                                  {"learning_rate": 1e-4}, device="cuda",
+                                  n_labels=3, fused=True,
+                                  autotune_key="bert_bad_tiles")
+    _bank(root, "bert_bad_tiles", {"MXTPU_FLASH_BK": 128})
+    cuda_ops.reset_launches()
+    with mock.patch.dict(os.environ, {"MXTPU_AUTOTUNE_DIR": root}):
+        try:
+            bad.step(*bench.make_batch(2, 128))
+            refused = None
+        except mx.MXNetError as e:
+            refused = str(e)
+    check(refused is not None and "MXTPU_FLASH_BK" in refused
+          and "1..64" in refused, f"surface: a banked tile of 128 was not "
+          f"refused at the consult: {refused}")
+    check(bad.captures == 0 and sum(cuda_ops.launch_counts().values()) == 0,
+          "surface: the refused trainer captured or launched")
+    res["refused"] = refused
+    print(f"surface (b): refused at the consult: {refused}", flush=True)
+    del small, bad
+    res["trainers"] = {"tuned": tuned, "plain": plain}
+    res["placed"] = placed
+    return res
+
+
+def surf_profiler(tr, placed, root: str, tag: str) -> dict:
+    """(c) ``mx.profiler`` over 3 fused steps of a trainer: the dumped
+    trace's device events name the three kernels, as many times as the
+    launch tally counted; ``step_report`` has the 3 step frames."""
+    groups = {fa.KERNEL: "flash_fwd_kernel",
+              fa.KERNEL_BWD_DKV: "flash_bwd_dkv_kernel",
+              fa.KERNEL_BWD_DQ: "flash_bwd_dq_kernel"}
+    path = os.path.join(root, "surface_trace.json")
+    prof = mx.profiler
+    prof.set_config(filename=path)
+    tries = []
+    for _ in range(3):
+        # CUPTI records nothing of a profile's first ~2 ms of device work
+        # on this card after an earlier profile (the first forward of the
+        # first traced step went missing): one step runs first in the
+        # profile, uncounted, then the card idles SURF_GAP_S, and the
+        # counted steps are the device events after that gap. A trace that
+        # still lost an event is taken again.
+        prof.reset_spans()
+        torch.cuda.synchronize()
+        prof.set_state("run")
+        tr.step(*placed)
+        torch.cuda.synchronize()
+        time.sleep(SURF_GAP_S)
+        prof.reset_spans()
+        cuda_ops.reset_launches()
+        for _ in range(SURF_PROFILED_STEPS):
+            tr.step(*placed)
+        prof.set_state("stop")
+        launched = cuda_ops.launch_counts()
+        prof.dump()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        dev = sorted((e for e in events if e.get("tid") == 2),
+                     key=lambda e: e["ts"])
+        after, end = 0, float("-inf")
+        for i, e in enumerate(dev):
+            if e["ts"] - end > SURF_GAP_S * 1e6 / 2:
+                after = i          # the last idle gap: the counted steps
+            end = max(end, e["ts"] + e["dur"])
+        dev = dev[after:]
+        counts, dms = {}, {}
+        for name, sub in groups.items():
+            hits = [e for e in dev if sub in e["name"]]
+            counts[name] = len(hits)
+            dms[name] = sum(e["dur"] for e in hits) / 1e3 / max(len(hits),
+                                                                 1)
+        tries.append({"device_events": len(dev), "kernel_events": counts})
+        if counts == launched:
+            break
+    per_step = SURF_PROFILED_STEPS * 12
+    report = prof.step_report()
+    card = card_line()
+    print(f"surface (c): {tag}: {len(dev)} device events in the trace "
+          f"(tries {tries}); launches {launched}; device ms a launch "
+          f"{({k: round(v, 4) for k, v in dms.items()})} on {card}",
+          flush=True)
+    for name in groups:
+        check(counts[name] == launched[name] == per_step,
+              f"surface: {name}: {counts[name]} device events, "
+              f"{launched[name]} launches, not {per_step}")
+    segs = report["segments"]
+    check(report["steps"] == SURF_PROFILED_STEPS
+          and all(segs.get(k, {}).get("count") == SURF_PROFILED_STEPS
+                  for k in ("place", "dispatch", "device_wait")),
+          f"surface: step_report {report['steps']} frames, segments "
+          f"{ {k: v.get('count') for k, v in segs.items()} }")
+    print(f"surface (c): {tag}: step_report {report['steps']} frames, "
+          f"{report['wall_ms_mean']:.3f} ms a frame, segments "
+          f"{ {k: v['mean_ms'] for k, v in segs.items()} }", flush=True)
+    return {"device_events": len(dev), "kernel_events": counts,
+            "launches": launched, "kernel_device_ms": dms,
+            "step_report": report, "tries": tries, "card": card}
+
+
+class _SurfLSTM(gluon.HybridBlock):
+    """``foreach`` over an ``LSTMCell``."""
+
+    def __init__(self, units: int):
+        super().__init__()
+        with self.name_scope():
+            self.cell = gluon.rnn.LSTMCell(units, input_size=units)
+
+    def hybrid_forward(self, F, x, h, c):
+        outs, st = F.contrib.foreach(lambda xt, s: self.cell(xt, s), x,
+                                     [h, c])
+        return outs, st[0], st[1]
+
+
+class _SurfWhile(gluon.HybridBlock):
+    """``while_loop`` of ``n`` steps, at most 8."""
+
+    def hybrid_forward(self, F, x, n):
+        outs, fin = F.contrib.while_loop(
+            cond=lambda i, v: i.sum() < n.sum(),
+            func=lambda i, v: (v * 2.0, [i + 1.0, F.tanh(v) + 0.5]),
+            loop_vars=[F.zeros_like(n), x], max_iterations=8)
+        return outs, fin[1]
+
+
+class _SurfCond(gluon.HybridBlock):
+    """``cond`` whose untaken branch has a NaN gradient."""
+
+    def hybrid_forward(self, F, x):
+        return F.contrib.cond(x.sum() > 0, lambda: F.sqrt(x) * 3.0,
+                              lambda: x * -2.0)
+
+
+def _grads(net) -> list:
+    return [p.grad()._data.clone() for _, p in
+            sorted(net.collect_params().items())]
+
+
+def surf_control_flow(seed: int = 3) -> dict:
+    """(d) hybridized ``foreach`` (captured), ``while_loop`` and ``cond``
+    on the card against their eager forms."""
+    rng = onp.random.RandomState(seed)
+    c = SURF_LSTM
+    H, T, B = c["units"], c["steps"], c["batch"]
+    res = {}
+    with mx.gpu(0):
+        net = _SurfLSTM(H)
+        net.initialize(mx.init.Xavier())
+        x, h0, c0 = (nd.array(rng.randn(*s).astype("float32") * 0.5)
+                     for s in ((T, B, H), (B, H), (B, H)))
+
+        def run(fn):
+            with autograd.record():
+                outs = fn()
+                loss = sum((o * o).sum() for o in outs)
+            loss.backward()
+            return [o._data.clone() for o in outs], _grads(net)
+
+        def unrolled():
+            h, cc, rows = h0, c0, []
+            for t in range(T):
+                o, (h, cc) = net.cell(x[t], [h, cc])
+                rows.append(o)
+            return [nd.stack(*rows), h, cc]
+
+        eager = run(lambda: net(x, h0, c0))
+        unroll = run(unrolled)
+        net.hybridize()
+        run(lambda: net(x, h0, c0))                 # first call: eager
+        hyb = run(lambda: net(x, h0, c0))           # captured, replayed
+        info = net.cache_info()
+        errs = [max(_rel_err(a, b) for a, b in zip(hyb[i], ref[i]))
+                for ref in (eager, unroll) for i in range(2)]
+        res["foreach"] = {"rel_err": {"eager_out": errs[0],
+                                      "eager_grad": errs[1],
+                                      "unrolled_out": errs[2],
+                                      "unrolled_grad": errs[3]},
+                          "cache": info}
+        check(info["captured"] == 1, f"surface: foreach block {info}")
+        check(max(errs) <= SURF_CF_TOL, f"surface: hybridized foreach "
+              f"{errs} from eager / unrolled")
+
+        wl = _SurfWhile()
+        xs = nd.array(rng.randn(B, H).astype("float32"))
+        n = nd.array([5.0])
+        e_out, e_fin = wl(xs, n)
+        wl.hybridize()
+        wl(xs, n)
+        h_out, h_fin = wl(xs, n)
+        ran = e_out.shape[0]
+        werr = max(_rel_err(h_out._data[:ran], e_out._data),
+                   _rel_err(h_fin._data, e_fin._data))
+        pad = float(h_out._data[ran:].abs().max())
+        res["while_loop"] = {"eager_rows": ran, "graph_rows": h_out.shape[0],
+                             "rel_err": werr, "pad_max": pad,
+                             "cache": wl.cache_info()}
+        check(ran == 5 and h_out.shape[0] == 8 and pad == 0.0
+              and werr <= SURF_CF_TOL and wl.cache_info()["captured"] == 1,
+              f"surface: while_loop {res['while_loop']}")
+
+        cb = _SurfCond()
+        cb.hybridize()
+        got = []
+        for sign in (-1.0, -1.0, 1.0):
+            v = nd.array(sign * (rng.rand(B, H).astype("float32") + 0.5))
+            v.attach_grad()
+            with autograd.record():
+                y = cb(v)
+            y.backward()
+            g = v.grad._data
+            want = (torch.full_like(g, -2.0) if sign < 0
+                    else 1.5 / torch.sqrt(v._data))
+            got.append(_rel_err(g, want))
+            check(bool(torch.isfinite(g).all()), "surface: cond's gradient "
+                  "is not finite: the untaken branch leaked")
+        res["cond"] = {"rel_err": got, "cache": cb.cache_info()}
+        check(max(got) <= SURF_CF_TOL and cb.cache_info()["captured"] == 1,
+              f"surface: cond {res['cond']}")
+    res["captures"] = sum(r["cache"]["captured"] for r in
+                          (res["foreach"], res["while_loop"], res["cond"]))
+    print(f"surface (d): foreach {res['foreach']['rel_err']}, while_loop "
+          f"{ran}/{h_out.shape[0]} rows err {werr:.2e}, cond grads "
+          f"{[f'{e:.1e}' for e in got]}, {res['captures']} captures",
+          flush=True)
+    return res
+
+
+@mx.operator.register("surf_scaled_square")
+class _SurfSquareProp(mx.operator.CustomOpProp):
+    """y = scale * x^2, dx = 2 * scale * x * dy on the host (JAX
+    ``tests/test_custom_op.py``)."""
+
+    def __init__(self, scale="1.0"):
+        super().__init__(need_top_grad=True)
+        self.scale = float(scale)
+
+    def create_operator(self, ctx, shapes, dtypes):
+        scale = self.scale
+
+        class _Op(mx.operator.CustomOp):
+            def forward(self, is_train, req, in_data, out_data, aux):
+                v = in_data[0].asnumpy()
+                self.assign(out_data[0], req[0],
+                            nd.array(scale * v * v, ctx=in_data[0].context))
+
+            def backward(self, req, out_grad, in_data, out_data, in_grad,
+                         aux):
+                v, g = in_data[0].asnumpy(), out_grad[0].asnumpy()
+                self.assign(in_grad[0], req[0],
+                            nd.array(2.0 * scale * v * g,
+                                     ctx=in_data[0].context))
+
+        return _Op()
+
+
+class _SurfCustomDense(gluon.HybridBlock):
+    def __init__(self):
+        super().__init__()
+        with self.name_scope():
+            self.dense = gluon.nn.Dense(16, in_units=32, flatten=False)
+
+    def hybrid_forward(self, F, x):
+        return F.Custom(self.dense(x), op_type="surf_scaled_square",
+                        scale=0.5)
+
+
+def surf_custom(seed: int = 5) -> dict:
+    """(e) a registered ``Custom`` op eager, under ``record`` and inside a
+    hybridized block, card against CPU; the block captures nothing."""
+    rng = onp.random.RandomState(seed)
+    xv = rng.randn(8, 32).astype("float32")
+    outs, weights = {}, None
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        with ctx:
+            x = nd.array(xv)
+            y0 = nd.Custom(x, op_type="surf_scaled_square", scale=3.0)
+            x.attach_grad()
+            with autograd.record():
+                y = nd.Custom(x, op_type="surf_scaled_square", scale=3.0)
+            y.backward()
+            net = _SurfCustomDense()
+            net.initialize(mx.init.Xavier(), ctx=ctx)
+            params = [p for _, p in sorted(net.collect_params().items())]
+            if weights is None:          # the CPU's, copied to the card
+                weights = [p.data().asnumpy() for p in params]
+            for p, w in zip(params, weights):
+                p.set_data(nd.array(w, ctx=ctx))
+            net.hybridize()
+            blk = []
+            for _ in range(2):
+                with autograd.record():
+                    z = net(x)
+                z.backward()
+                blk.append((z._data.clone(), _grads(net)))
+            outs[ctx.device_type] = {
+                "eager": y0._data, "recorded": y._data,
+                "grad": x.grad._data.clone(), "block": blk,
+                "cache": net.cache_info()}
+    g, c = outs["gpu"], outs["cpu"]
+    errs = [_rel_err(g[k], c[k]) for k in ("eager", "recorded", "grad")]
+    for (gz, gg), (cz, cg) in zip(g["block"], c["block"]):
+        errs.append(_rel_err(gz, cz))
+        errs += [_rel_err(a, b) for a, b in zip(gg, cg)]
+    res = {"max_rel_err": max(errs), "cache": g["cache"]}
+    print(f"surface (e): Custom card vs CPU {res['max_rel_err']:.2e} (gate "
+          f"{SURF_CUSTOM_TOL}); hybridized block {g['cache']}", flush=True)
+    check(max(errs) <= SURF_CUSTOM_TOL, f"surface: Custom card vs CPU {errs}")
+    check(g["cache"]["captured"] == 0 and g["cache"]["host_op_calls"] == 2,
+          f"surface: the Custom block {g['cache']}")
+    return res
+
+
+def surf_rest(seed: int = 7) -> dict:
+    """(f) ``mx.np`` functions and ``sparse.dot`` (csr, and csr over a
+    row-sparse right side) card against CPU; ``runtime.Features()``."""
+    rng = onp.random.RandomState(seed)
+    a = rng.randn(64, 128).astype("float32")
+    b = rng.randn(128, 32).astype("float32")
+    y = rng.rand(64, 128).astype("float32")
+    np_cases = {
+        "exp": lambda m, A, B, Y: m.exp(A),
+        "sum": lambda m, A, B, Y: m.sum(A, axis=1),
+        "matmul": lambda m, A, B, Y: m.matmul(A, B),
+        "trapz": lambda m, A, B, Y: m.trapz(Y),
+        "where": lambda m, A, B, Y: m.where(m.greater(A, 0), A, Y),
+        "logaddexp": lambda m, A, B, Y: m.logaddexp(A, Y),
+        "concatenate": lambda m, A, B, Y: m.concatenate([A, Y], axis=0),
+        "argmax": lambda m, A, B, Y: m.argmax(A, axis=1),
+    }
+    dense = rng.randn(64, 128).astype("float32")
+    dense[rng.rand(64, 128) < 0.9] = 0.0
+    rows = rng.randn(128, 32).astype("float32")
+    rows[rng.rand(128) < 0.5] = 0.0
+    vec = rng.randn(128).astype("float32")
+    lhs_t = rng.randn(64, 16).astype("float32")
+    got = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            A, B, Y = (mx.np.array(v) for v in (a, b, y))
+            out = {k: f(mx.np, A, B, Y)._data.cpu()
+                   for k, f in np_cases.items()}
+            csr = nd.sparse.csr_matrix(dense)
+            rsp = nd.sparse.row_sparse_array(rows)
+            out["csr_dot"] = nd.sparse.dot(csr, nd.array(rows))._data.cpu()
+            out["csr_dot_rsp"] = nd.sparse.dot(csr, rsp)._data.cpu()
+            out["csr_dot_t"] = nd.sparse.dot(csr, nd.array(lhs_t),
+                                             transpose_a=True)._data.cpu()
+            out["csr_dot_vec"] = nd.sparse.dot(csr, nd.array(vec)
+                                               )._data.cpu()
+            out["rsp_round_trip"] = rsp.tostype("default")._data.cpu()
+            got[ctx.device_type] = out
+    errs = {k: _rel_err(got["gpu"][k], got["cpu"][k]) for k in got["gpu"]}
+    feats = mx.runtime.Features()
+    print(f"surface (f): mx.np and sparse.dot card vs CPU, worst "
+          f"{max(errs.values()):.2e} ({max(errs, key=errs.get)}); "
+          f"runtime.Features() {feats}", flush=True)
+    check(max(errs.values()) <= 1e-5, f"surface: card vs CPU {errs}")
+    check(feats.is_enabled("CUDA") and feats.is_enabled("FLASH_ATTENTION")
+          and not feats.is_enabled("TPU") and not feats.is_enabled("XLA"),
+          f"surface: runtime.Features() {feats}")
+    return {"rel_err": errs,
+            "features": {k: f.enabled for k, f in feats.items()}}
+
+
+def phase_surface() -> dict:
+    """Phase 31 (module docstring)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mx.random.seed(0)
+    cuda_ops.reset_launches()
+    res = {}
+    with tempfile.TemporaryDirectory() as root:
+        res["interleaved"] = surf_interleaved()
+        tune = surf_autotune(root)
+        trainers, placed = tune.pop("trainers"), tune.pop("placed")
+        res["autotune"] = tune
+        # the tuned trainer's is the slice's main path; the plain one's
+        # gives the kernels' own tiles measured the same way
+        res["profiler_plain"] = surf_profiler(trainers["plain"], placed,
+                                              root, "plain")
+        res["profiler"] = surf_profiler(trainers["tuned"], placed, root,
+                                        "tuned")
+        del trainers, placed
+    res["control_flow"] = surf_control_flow()
+    res["custom"] = surf_custom()
+    res["rest"] = surf_rest()
+    # the slice's main path: the 3 profiled fused steps, counted from 0
+    # just before them
+    res["launches"] = res["profiler"]["launches"]
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card_line()
+    print(f"surface: phase {res['seconds']:.1f} s on {res['card']}",
+          flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -7591,6 +8219,7 @@ def main(argv=None) -> int:
     art_res = phase_artifacts(args.seed)
     par_res = phase_parallel()
     par2_res = phase_parallel2()
+    surf_res = phase_surface()
 
     def worst(name, dtype):
         return max(r["max_abs_err"] for r in results
@@ -7661,7 +8290,8 @@ def main(argv=None) -> int:
                                  "parallel": par_res["launches"][name],
                                  "parallel_trainer": par_res["nccl"][
                                      "launches"][name],
-                                 "parallel2": par2_res["launches"][name]},
+                                 "parallel2": par2_res["launches"][name],
+                                 "surface": surf_res["launches"][name]},
             "max_abs_err": worst(name, "float32"),
             "max_abs_err_bf16": worst(name, "bfloat16"),
             "ms": rec["ms"], "device_ms": rec["device_ms"],
@@ -7688,7 +8318,7 @@ def main(argv=None) -> int:
                        "data": data_res, "serve_tier": tier_res,
                        "symbol": sym_res, "artifacts": art_res,
                        "parallel": par_res, "parallel2": par2_res,
-                       "kernels": kernels},
+                       "surface": surf_res, "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

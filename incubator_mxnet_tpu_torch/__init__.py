@@ -38,8 +38,7 @@ casting the inputs of the matmul-class ops of ``mx.nd`` (the flash
 kernels then run in bf16), and ``quantization`` (calibration,
 ``quantize_net``, ``quantize_model``) on the int8 ops of
 ``ops/quantization.py`` (``torch._int_mm`` on the card); and the op
-surface: every op of the JAX registry but ``RNN``, ``CTCLoss``, ``Custom``
-and the ``interleaved_matmul_*`` ops, in one registry
+surface: every op of the JAX registry, in one registry
 (``ops/registry.py``; ``ops/tensor.py``, ``ops/nn.py``, ``ops/vision.py``)
 that ``mx.nd``, ``F`` and ``amp.init`` read, the samplers of
 ``mx.nd.random``, ``mx.waitall``, and the whole vision model zoo
@@ -65,7 +64,13 @@ sharding rules and collectives, ring attention over ``sp`` on the flash
 kernels (``ops.cuda.flash_attention.flash_block``), ``ShardedTrainer``
 over a mesh (rule-sharded parameters, ZeRO-1, checkpoints in the
 multi-host layout), ``mx.kv`` and the kvstore seams of ``gluon.Trainer``
-and ``Module``.
+and ``Module``; and the rest of the surface: control flow
+(``contrib.nd``/``contrib.sym`` ``foreach``, ``while_loop``, ``cond``),
+``mx.operator`` and ``mx.nd.Custom``, the ``interleaved_matmul_*`` ops,
+``nd.sparse``, ``mx.np``, ``mx.npx``, ``mx.util``'s numpy switches,
+``mx.test_utils``, ``mx.runtime``, ``mx.profiler`` (over
+``torch.profiler``) and ``mx.autotune`` (the flash tiles the trainer and
+``serve.CompiledModel`` apply).
 """
 from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
@@ -84,6 +89,10 @@ from . import (  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
+from . import (  # noqa: F401
+    operator, profiler, autotune, runtime, test_utils, util, numpy_extension,
+)
+from . import numpy as np  # noqa: F401
 
 from .engine import waitall  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
@@ -92,6 +101,7 @@ nd = ndarray
 init = initializer
 sym = symbol
 viz = visualization
+npx = numpy_extension
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "cpu_shared", "current_context", "num_gpus", "gpu_memory_info",
@@ -101,4 +111,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "metric", "io", "contrib", "image", "amp", "quantization",
            "fault", "lockcheck", "native", "recordio", "name", "attribute",
            "AttrScope", "symbol", "sym", "model", "callback", "module",
-           "monitor", "visualization", "viz", "subgraph"]
+           "monitor", "visualization", "viz", "subgraph", "operator",
+           "profiler", "autotune", "runtime", "test_utils", "util", "np",
+           "npx", "numpy_extension"]

@@ -6,8 +6,8 @@ FP16_FP32_FUNCS: the matmul- and convolution-class ops whose float32 inputs
 FP32_FUNCS: numerically sensitive ops kept in float32.
 WIDEST_TYPE_CASTS: ops that follow their widest input (torch's type
 promotion does that by itself; listed for parity).
-The names the port's ``mx.nd`` lacks (the ``interleaved_matmul_*`` ops)
-are skipped by ``init()``.
+``init()`` skips a name ``mx.nd`` lacks (every name of these lists is in
+it).
 """
 
 FP16_FP32_FUNCS = [

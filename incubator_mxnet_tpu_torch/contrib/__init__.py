@@ -8,19 +8,20 @@ port has: the detection ops (``box_nms``, ``MultiBoxPrior``, ``ROIAlign``,
 ``MultiProposal``, ``rpn_target`` ...), the int8 ops (``quantize``,
 ``quantized_fully_connected`` ...), ``boolean_mask``, ``index_copy``,
 ``index_array`` and the update ops ``adamw_update`` and
-``multi_sum_sq``. ``contrib.sym`` (JAX ``:38-50``) composes every
-``_contrib_*`` op of the registry symbolically under its short name; its
-control-flow entries (``foreach``, ``while_loop``, ``cond``) raise until
-``ops/control_flow.py`` is ported (ROADMAP queue A, item 7c), as do the
-``interleaved_matmul_*`` ops.
+``multi_sum_sq``, the ``interleaved_matmul_*`` ops, and the control flow
+of ``ops/control_flow.py`` (``foreach``, ``while_loop``, ``cond``; JAX
+``:31-34``). ``contrib.sym`` (JAX ``:38-53``) composes every
+``_contrib_*`` op of the registry symbolically under its short name, and
+its ``foreach``/``while_loop``/``cond`` build the subgraph nodes of
+``ops/control_flow.py``.
 """
 from __future__ import annotations
 
 import sys
 import types
 
-from ..base import MXNetError
 from ..ndarray import op as _op
+from ..ops import control_flow as _cf
 from ..ops.registry import OPS
 
 __all__ = ["nd", "sym"]
@@ -32,6 +33,9 @@ for _name in _op.__all__:
 for _name in ("adamw_update", "multi_sum_sq"):
     setattr(nd, _name, getattr(_op, _name))
 del _name
+nd.foreach = _cf.foreach
+nd.while_loop = _cf.while_loop
+nd.cond = _cf.cond
 sys.modules[nd.__name__] = nd
 
 
@@ -44,19 +48,12 @@ def _make_sym(opname: str):
     return sym_op
 
 
-def _control_flow(fname: str):
-    def op(*args, **kwargs):
-        raise MXNetError(f"contrib.sym.{fname} needs ops/control_flow.py, "
-                         "which comes with ROADMAP queue A, item 7c")
-    op.__name__ = fname
-    return op
-
-
 sym = types.ModuleType(__name__ + ".sym")
 for _name, _opdef in list(OPS.items()):
     if _name.startswith("_contrib_"):
         setattr(sym, _name[len("_contrib_"):], _make_sym(_opdef.name))
-for _name in ("foreach", "while_loop", "cond"):
-    setattr(sym, _name, _control_flow(_name))
 del _name, _opdef
+sym.foreach = _cf.sym_foreach
+sym.while_loop = _cf.sym_while_loop
+sym.cond = _cf.sym_cond
 sys.modules[sym.__name__] = sym

@@ -147,10 +147,22 @@ def list_checkpoints(root: str) -> List[int]:
 
 
 def _write_json(path: str, doc: dict) -> None:
-    with open(path, "w") as f:
-        json.dump(doc, f, indent=1, sort_keys=True)
-        f.flush()
-        os.fsync(f.fileno())
+    """Write ``doc`` under a temporary name and rename it to ``path``: a
+    rank's commit marker appears whole or not at all to the primary that
+    polls for it."""
+    tmp = f"{path}.tmp-{os.getpid()}"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
 
 
 def _finalize_rename(root: str, tmp: str, final: str) -> None:
@@ -207,6 +219,7 @@ def save_checkpoint(root: str, arrays: Dict[str, onp.ndarray],
     docstring); a rank other than the primary returns after its marker. A
     lone process with a non-zero rank writes nothing, as in the JAX
     package (only the primary writes)."""
+    t_save0 = time.perf_counter()
     meta = dict(meta or {})
     widx, wcount = _world()
     idx = widx if process_index is None else int(process_index)
@@ -244,6 +257,9 @@ def save_checkpoint(root: str, arrays: Dict[str, onp.ndarray],
             raise
     if keep is not None:
         _prune(root, keep)
+    from .. import profiler as _prof
+    _prof.record_span("checkpoint.save",
+                      (time.perf_counter() - t_save0) * 1e3, t0=t_save0)
     return final
 
 

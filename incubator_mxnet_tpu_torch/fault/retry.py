@@ -2,7 +2,7 @@
 
 The policy is explicit and read from the environment, as in the JAX
 package; the reconnecting ``dist_async`` kvstore client that uses it there
-is ROADMAP queue A item 7c:
+is ROADMAP queue A item 7c-2:
 
 ``MXNET_KVSTORE_RETRIES``      attempts after the first failure (default 5)
 ``MXNET_KVSTORE_RETRY_DELAY``  base backoff seconds (default 0.05; doubles

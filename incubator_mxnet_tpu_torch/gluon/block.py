@@ -67,6 +67,7 @@ count (JAX counterpart: ``gluon/block.py:357``); ``save_params`` and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -89,6 +90,8 @@ from .. import ndarray as F
 from .. import random as _random
 from ..ndarray import NDArray
 from ..ndarray.op import _has_nd, _unwrap, _wrap
+from ..operator import HOST_OPS
+from ..ops.control_flow import graph_form
 from ..ops.cuda import graphs
 from ..symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
@@ -389,6 +392,11 @@ class HybridBlock(Block):
         #: ``(partitioned symbol, data names)`` from a property backend of
         #: :meth:`optimize_for`, else None
         self._sg_graph = None
+        #: a ``Custom`` op ran in this hybridized block's forward: it runs
+        #: eagerly, never captured (``operator.py``); and how many of its
+        #: calls ran so
+        self._host_op = False
+        self._host_op_calls = 0
 
     def hybridize(self, active: bool = True, static_alloc: bool = False,
                   static_shape: bool = False, **kwargs) -> None:
@@ -407,6 +415,17 @@ class HybridBlock(Block):
         """Drop every captured graph of this block."""
         self._cached_ops = {}
         self._cached_params = None
+
+    def cache_info(self) -> Dict[str, int]:
+        """The cached op's counters: ``signatures`` seen while
+        hybridized, ``captured`` (their forward graphs), and
+        ``host_op_calls``, the calls that ran eagerly because the forward
+        runs a ``Custom`` op (``eager_host_op``)."""
+        return {"signatures": len(self._cached_ops),
+                "captured": sum(op.fwd is not None
+                                for op in self._cached_ops.values()),
+                "eager_host_op": self._host_op,
+                "host_op_calls": self._host_op_calls}
 
     def infer_shape(self, *args) -> None:
         """Resolve deferred parameter shapes from the inputs' shapes; layers
@@ -429,6 +448,12 @@ class HybridBlock(Block):
             return {name: p._tensor() for name, p in self._reg_params.items()}
 
     def forward(self, *args):
+        # a hybridized block's forward is the graph form of control flow
+        # (``ops/control_flow.py``), whatever it is given
+        with graph_form() if self._active else contextlib.nullcontext():
+            return self._forward_any(args)
+
+    def _forward_any(self, args):
         if _has_nd(args):
             self._last_sig = _signature(args)
             ctx = self._last_sig[3]
@@ -452,14 +477,22 @@ class HybridBlock(Block):
             # hybridized it is the compute; hybridize(False) goes back
             # to the block's own forward (JAX ``gluon/block.py:471``)
             return self._forward_partitioned(*args)
-        if self._active:
+        if self._active and not self._host_op:
             op = self._cached_op(args, ctx)
             if op is not None:
                 return op(self, args)
         args = _unwrap(args)
+        ran = HOST_OPS.count
         with torch.set_grad_enabled(autograd.is_recording()):
-            return _wrap(self.hybrid_forward(F, *args,
-                                             **self._fetch_params(args)))
+            out = _wrap(self.hybrid_forward(F, *args,
+                                            **self._fetch_params(args)))
+        if self._active and HOST_OPS.count != ran:
+            # a Custom op ran: its Python reads the host, so this block
+            # runs eagerly from now on and captures nothing
+            self._host_op = True
+            self._host_op_calls += 1
+            self._clear_cached_op()
+        return out
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

@@ -121,8 +121,20 @@ class Parameter:
     def __init__(self, name: str, grad_req: str = "write", shape=None,
                  dtype="float32", lr_mult: float = 1.0, wd_mult: float = 1.0,
                  init=None, allow_deferred_init: bool = False,
-                 differentiable: bool = True):
+                 differentiable: bool = True, stype: str = "default",
+                 grad_stype: str = "default"):
         self._name = name
+        # the storage types of the value and of the gradient (JAX
+        # ``gluon/parameter.py:49-64``): both packages keep them as given
+        # and hold the value and the gradient dense (``ndarray/sparse.py``
+        # is a dense facade); ``data().tostype(stype)`` gives the sparse
+        # view
+        for label, st in (("stype", stype), ("grad_stype", grad_stype)):
+            if st not in ("default", "row_sparse", "csr"):
+                raise ValueError(f"{label} must be 'default', 'row_sparse' "
+                                 f"or 'csr', got {st!r}")
+        self._stype = stype
+        self._grad_stype = grad_stype
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = dtype_name(dtype)
         self.lr_mult = lr_mult
@@ -151,6 +163,14 @@ class Parameter:
     @property
     def name(self) -> str:
         return self._name
+
+    @property
+    def stype(self) -> str:
+        return self._stype
+
+    @property
+    def grad_stype(self) -> str:
+        return self._grad_stype
 
     @property
     def grad_req(self) -> str:

@@ -15,7 +15,7 @@ collectives of ``torch.distributed`` (:mod:`..parallel.dist`):
                           process without a group: local semantics.
 ``create('dist_async')``  raises: the asynchronous parameter server
                           (the JAX package's ``async_ps.py``) is ROADMAP
-                          queue A item 7c.
+                          queue A item 7c-2.
 ========================  =================================================
 
 A push of a key batch sums every key's replica list locally, then all
@@ -99,7 +99,7 @@ def create(name: str = "local", **kwargs) -> "KVStoreBase":
         raise MXNetError(
             "kvstore 'dist_async' is the asynchronous parameter server "
             "(the JAX package's kvstore/async_ps.py), ROADMAP queue A item "
-            "7c: not ported yet; 'dist_sync' sums pushes across ranks")
+            "7c-2: not ported yet; 'dist_sync' sums pushes across ranks")
     if key in ("local", "device", "local_allreduce_cpu",
                "local_allreduce_device"):
         return KVStore(comm="local", **kwargs)

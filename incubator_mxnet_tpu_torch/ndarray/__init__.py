@@ -9,8 +9,8 @@ the samplers of :mod:`.random` under their flat names (``random_uniform``
 (:mod:`.op`), which are also the ``F`` of ``hybrid_forward``. Factories
 without ``ctx`` use the current context (``gpu(0)`` unless a ``with ctx:``
 says otherwise), which raises without a card. ``mx.nd.contrib`` is
-``mx.contrib.nd``. ``sparse`` (CSR and row-sparse arrays) is not ported
-yet.
+``mx.contrib.nd``; ``mx.nd.sparse`` is :mod:`.sparse` (CSR and row-sparse
+arrays).
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from .op import _nd_op, make_nd_op
 from .op import refresh_ops as _refresh_ops
 from .serialization import NotDmlcFile, dmlc_load, dmlc_save
 from . import random  # noqa: F401
+from . import sparse  # noqa: F401
 from .random import (  # noqa: F401
     uniform as random_uniform, normal as random_normal,
     randint as random_randint, exponential as random_exponential,
@@ -48,7 +49,7 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "random_negative_binomial",
            "random_generalized_negative_binomial", "sample_multinomial",
            "shuffle", "OPS", "make_nd_op", "refresh_ops",
-           "dispatch_op"] + list(_OPS)
+           "dispatch_op", "sparse"] + list(_OPS)
 
 _this = sys.modules[__name__]
 

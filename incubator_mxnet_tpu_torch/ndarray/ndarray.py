@@ -325,12 +325,12 @@ class NDArray:
         return "default"
 
     def tostype(self, stype: str) -> "NDArray":
-        """This array in storage ``stype``: only ``"default"`` until the
-        sparse types are ported."""
+        """This array in storage ``stype`` (``"default"``, ``"row_sparse"``
+        or ``"csr"``; :mod:`.sparse`)."""
         if stype == "default":
             return self
-        raise MXNetError(f"storage type {stype!r} needs ndarray.sparse, "
-                         "which is not ported yet")
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     @property
     def version(self) -> int:

@@ -27,7 +27,9 @@ import torch
 from .. import autograd
 from .. import random as _random
 from ..context import Context, as_context
+from .. import operator as _operator  # noqa: F401  (registers Custom)
 from ..ops import attention as _attn
+from ..ops import control_flow as _cf  # noqa: F401  (_foreach, _cond ...)
 from ..ops import detection as _det
 from ..ops import nn as _nn  # noqa: F401  (registers the nn ops)
 from ..ops import optimizer_ops as _opt_ops
@@ -136,6 +138,8 @@ def _dropout(data, p=0.5, mode="training", axes=(), training=None,
 
 
 register_op("dot_product_attention")(_attn.dot_product_attention)
+for _name in _attn.INTERLEAVED:
+    register_op(_name, aliases=("_contrib_" + _name,))(getattr(_attn, _name))
 
 #: op -> its aliases in the JAX registry (``ops/detection.py:53-719``)
 DETECTION_ALIASES = {

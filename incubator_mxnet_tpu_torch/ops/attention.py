@@ -6,8 +6,16 @@ kernel when :func:`~.cuda.flash_attention.flash_supported` holds: on the card
 that is the Hopper kernel, on the CPU its plain version. ``impl="xla"`` is
 the plain scores/softmax path (XLA's fused jnp graph in the JAX package).
 Under an active mesh whose ``sp`` axis has more than one rank, self-attention
-lowers to ring attention (:func:`_maybe_ring`). The ``interleaved_matmul_*``
-ops come with a later slice.
+lowers to ring attention (:func:`_maybe_ring`).
+
+The four ``interleaved_matmul_*`` ops (JAX ``:164-234``) are MXNet's
+reference-layout attention products: self-attention reads the fused QKV
+projection ``(seq, batch, heads * 3 * head_dim)``, interleaved per head as
+``[q, k, v]``; the ``qk`` products give ``(batch * heads, Lq, Lk)`` scores
+with q pre-scaled by ``head_dim ** -0.5``, and the ``valatt`` products
+``(Lq, batch, heads * head_dim)``. The JAX package leaves them to XLA; here
+they are ``torch.matmul`` (cuBLAS on the card), accumulating in float32
+(``preferred_element_type``) and cast back to the input's dtype.
 """
 from __future__ import annotations
 
@@ -16,7 +24,15 @@ import torch
 from ..util import getenv
 from .cuda.flash_attention import flash_attention, flash_supported
 
-__all__ = ["dot_product_attention"]
+__all__ = ["dot_product_attention", "interleaved_matmul_selfatt_qk",
+           "interleaved_matmul_selfatt_valatt", "interleaved_matmul_encdec_qk",
+           "interleaved_matmul_encdec_valatt", "INTERLEAVED"]
+
+#: the reference-layout ops, registered by ``ndarray/op.py``
+INTERLEAVED = ("interleaved_matmul_selfatt_qk",
+               "interleaved_matmul_selfatt_valatt",
+               "interleaved_matmul_encdec_qk",
+               "interleaved_matmul_encdec_valatt")
 
 _NEG = -1e30
 
@@ -115,3 +131,67 @@ def dot_product_attention(query, key, value, mask=None, causal=False,
         s = s.masked_fill(~cm, _NEG)
     p = torch.softmax(s, dim=-1).to(query.dtype)
     return torch.matmul(p.float(), value.float()).to(query.dtype)
+
+
+# ---------------------------------------------------------------------------
+# reference-layout interleaved ops (module docstring)
+# ---------------------------------------------------------------------------
+
+def _heads_first(x, L, B, heads, d):
+    """(L, B, heads, d) slice -> (B, heads, L, d)."""
+    return x.reshape(L, B, heads, d).permute(1, 2, 0, 3)
+
+
+def _split(packed, heads, n):
+    """``(L, B, heads * n * d)`` interleaved per head -> ``n`` tensors of
+    ``(B, heads, L, d)`` and ``d``."""
+    L, B, C = packed.shape
+    d = C // (n * heads)
+    x = packed.reshape(L, B, heads, n, d)
+    return [x[:, :, :, i, :].permute(1, 2, 0, 3) for i in range(n)], d
+
+
+def _scores(q, k, d, dtype):
+    s = torch.matmul((q * (d ** -0.5)).float(), k.float().transpose(-1, -2))
+    B, H, Lq, Lk = s.shape
+    return s.to(dtype).reshape(B * H, Lq, Lk)
+
+
+def _weighted(att, v, Lq, dtype):
+    B, H, Lk, d = v.shape
+    out = torch.matmul(att.reshape(B, H, Lq, Lk).float(), v.float())
+    return out.permute(2, 0, 1, 3).reshape(Lq, B, H * d).to(dtype)
+
+
+def interleaved_matmul_selfatt_qk(queries_keys_values, heads=1, **_):
+    """Scaled ``q k^T`` of the packed QKV projection: ``(B * heads, L,
+    L)`` (JAX counterpart: ``ops/attention.py:184``)."""
+    (q, k, _v), d = _split(queries_keys_values, int(heads), 3)
+    return _scores(q, k, d, queries_keys_values.dtype)
+
+
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
+                                      heads=1, **_):
+    """``attention @ v`` of the packed QKV projection: ``(L, B, heads *
+    d)`` (JAX counterpart: ``ops/attention.py:193``)."""
+    (_q, _k, v), _ = _split(queries_keys_values, int(heads), 3)
+    return _weighted(attention, v, v.shape[2], queries_keys_values.dtype)
+
+
+def interleaved_matmul_encdec_qk(queries, keys_values, heads=1, **_):
+    """Scaled ``q k^T`` of decoder queries ``(Lq, B, heads * d)`` over the
+    packed encoder KV projection ``(Lk, B, heads * 2 * d)``: ``(B * heads,
+    Lq, Lk)`` (JAX counterpart: ``ops/attention.py:214``)."""
+    heads = int(heads)
+    Lq, B, C = queries.shape
+    d = C // heads
+    q = _heads_first(queries, Lq, B, heads, d)
+    (k, _v), _ = _split(keys_values, heads, 2)
+    return _scores(q, k, d, queries.dtype)
+
+
+def interleaved_matmul_encdec_valatt(keys_values, attention, heads=1, **_):
+    """``attention @ v`` over the packed encoder KV projection: ``(Lq, B,
+    heads * d)`` (JAX counterpart: ``ops/attention.py:226``)."""
+    (_k, v), _ = _split(keys_values, int(heads), 2)
+    return _weighted(attention, v, attention.shape[1], keys_values.dtype)

@@ -47,7 +47,8 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_bwd_dq_reference", "flash_supported",
            "FlashAttentionFunction", "flash_attention_fwd", "KERNEL",
            "KERNEL_BWD_DKV", "KERNEL_BWD_DQ", "KERNELS",
-           "SUPPORTED_HEAD_DIMS", "MAX_TILE", "launches", "flash_block",
+           "SUPPORTED_HEAD_DIMS", "MAX_TILE", "launches", "last_tiles",
+           "flash_block",
            "FlashBlockFunction"]
 
 _NEG = -1e30
@@ -68,6 +69,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: kernel name -> launches of that CUDA kernel since import (or since a
 #: caller reset it), a captured graph's replays included
 launches = {name: 0 for name in KERNELS}
+#: kernel name -> ``(bq, bk)`` its last launch from Python took from
+#: ``MXTPU_FLASH_BQ``/``BK`` (0: the kernel's own); a graph's replays
+#: repeat the tiles of its capture
+last_tiles = {name: None for name in KERNELS}
 
 #: kernel name -> (C entry point, number of tensor pointers it takes: q, k,
 #: v, the key mask, then the fwd's o, lse or the bwd's dO, lse, delta and
@@ -311,18 +316,19 @@ def _launch(name, q, k, v, key_mask, causal, scale, window, tensors):
     mask = None if key_mask is None else key_mask.to(
         device=q.device, dtype=torch.int32).contiguous()
     lib = _library(name)
+    bq, bk = _tile("MXTPU_FLASH_BQ"), _tile("MXTPU_FLASH_BK")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, _ENTRY[name][0])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
             *(t.data_ptr() for t in tensors), _DTYPE_CODES[q.dtype], B, H,
-            Lq, k.shape[2], D, _tile("MXTPU_FLASH_BQ"),
-            _tile("MXTPU_FLASH_BK"), float(scale), int(bool(causal)),
+            Lq, k.shape[2], D, bq, bk, float(scale), int(bool(causal)),
             int(window or 0), stream)
     if err != 0:
         msg = lib.mxtpu_cuda_error_string(err).decode()
         raise MXNetError(f"{name} launch failed: {msg} (cuda error {err})")
+    last_tiles[name] = (bq, bk)
     graphs.count_launch(launches, name)
 
 

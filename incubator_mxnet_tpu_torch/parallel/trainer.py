@@ -8,8 +8,22 @@ norm in fp32 (``:390-395``), the finite verdict (``:492-497``) and the
 optimizer update, on an fp32 master copy where the weight is
 float16/bfloat16 and ``multi_precision`` is set (``:471-481``); the learning
 rate is the optimizer's before the step and its schedule position is the
-step count less one (``:425-448``, ``:611-633``). The kvstore fallback,
-numerics and autotune are not ported.
+step count less one (``:425-448``, ``:611-633``). The kvstore fallback
+and numerics are not ported.
+
+Autotune (JAX ``:596-605``): with ``MXTPU_AUTOTUNE_DIR`` set, the first
+step consults the cache under ``autotune_key`` (default: the block's class
+name, lower-cased) and every step, fused or eager, runs under
+``autotune.applied`` of the entry (``autotune_entry``): the flash kernels
+read their tiles at each launch, so the fused step captures the banked
+tiles and an eager step launches with them too. A banked tile the kernels
+do not take raises at that consult, before any capture.
+
+Profiler (JAX ``:917``): each step publishes a ``step`` frame to
+``mx.profiler`` with its ``step.place``, ``step.dispatch`` and, when the
+step waits for the card, ``step.device_wait`` segments. A guarded step
+waits for its guard's read; while ``mx.profiler`` runs, every step waits
+for the card at its end, so its frame spans its device work.
 
 Every parameter of the module goes through the optimizer, as in the JAX
 trainer (its ``_params`` is the whole ``collect_params()``, ``:216-218``):
@@ -127,6 +141,7 @@ draws, at the next replay, from the state it was last set to.
 from __future__ import annotations
 
 import contextlib
+import time
 import warnings
 from typing import Callable, Dict, List, Optional, Union
 
@@ -134,8 +149,9 @@ import numpy as onp
 import torch
 from torch import nn
 
-from .. import autograd
+from .. import autograd, autotune
 from .. import optimizer as opt_mod
+from .. import profiler as _prof
 from ..base import MXNetError, dtype_name
 from ..context import resolve_device
 from ..fault import checkpoint as ckpt
@@ -245,7 +261,8 @@ class ShardedTrainer:
                  mesh: Optional[Mesh] = None,
                  rules: Optional[ShardingRules] = None,
                  zero1: Optional[bool] = None,
-                 seq_axis: Optional[int] = None):
+                 seq_axis: Optional[int] = None,
+                 autotune_key: Optional[str] = None):
         self._device = resolve_device(device)
         self._mesh = mesh if mesh is not None else default_mesh()
         self._rules = rules if rules is not None else ShardingRules()
@@ -306,6 +323,11 @@ class ShardedTrainer:
         self._wshaped: List[List[bool]] = []
         #: per parameter: handed to the block as this rank's block
         self._local: List[bool] = []
+        #: the autotune key (module docstring) and the entry the first
+        #: step's consult found (``{}``: consulted, nothing banked)
+        self._autotune_key = autotune_key or type(block).__name__.lower()
+        self._tuned: Optional[dict] = None
+        self.autotune_entry: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
@@ -669,29 +691,64 @@ class ShardedTrainer:
         # here (one list read while the pod is healthy); note_step drives
         # the host_kill/host_stall chaos knobs
         elastic.poll()
-        inject.note_step(self._t + 1)
+        t_step0 = time.perf_counter()
+        step_no = self._t + 1
+        inject.note_step(step_no)
         if inject.active() is not None:
             batch = self._chaos_batch(batch, n_data)
         vals = self.place(*batch)
+        place_ms = (time.perf_counter() - t_step0) * 1e3
         if self._params is None:
             self._init_state(vals[:n_data])
         if self._guard is not None:
             self._maybe_snapshot()
         wd = self._watchdog
-        with wd.watch(step=self._t + 1, block=self) if wd is not None \
+        # the step waits for the card when its guard reads it, or, while
+        # mx.profiler runs, so that its frame spans its device work
+        waits = self._guard is not None or (
+            _prof.is_running() and self._device.type == "cuda")
+        with wd.watch(step=step_no, block=self) if wd is not None \
                 else contextlib.nullcontext():
             inject.maybe_delay("slow_step")
             inject.maybe_leak("trainer.step", self._device)
+            t_disp0 = time.perf_counter()
             if self._fused:
                 loss = self._fused_step(vals, capture=True)
             else:
                 loss = self._eager_step(vals)
+            t_disp1 = time.perf_counter()
             self._last_host = None
             if self._guard is not None:
                 self._apply_guard()
+            elif waits:
+                torch.cuda.current_stream(self._device).synchronize()
+        t_end = time.perf_counter()
+        _prof.record_span("step.place", place_ms, parent="step",
+                          step=step_no, t0=t_step0)
+        _prof.record_span("step.dispatch", (t_disp1 - t_disp0) * 1e3,
+                          parent="step", step=step_no, t0=t_disp0)
+        if waits:
+            _prof.record_span("step.device_wait", (t_end - t_disp1) * 1e3,
+                              parent="step", step=step_no, t0=t_disp1)
+        _prof.record_span("step", (t_end - t_step0) * 1e3, kind="frame",
+                          step=step_no, t0=t_step0)
         return loss
 
+    def _tuning(self):
+        """The autotune overlay every step runs under (module docstring);
+        the first call consults the cache."""
+        if self._tuned is None:
+            self._tuned = autotune.consult("trainer.step",
+                                           self._autotune_key,
+                                           mesh=self._mesh) or {}
+            self.autotune_entry = self._tuned or None
+        return autotune.applied(self._tuned)
+
     def _eager_step(self, vals) -> torch.Tensor:
+        with self._tuning():
+            return self._eager_step_tuned(vals)
+
+    def _eager_step_tuned(self, vals) -> torch.Tensor:
         """The step in PyTorch's own way, each parameter updated by
         ``Optimizer.step`` (JAX counterpart: the same ``step`` math,
         ``:463-481``), on the host's learning rate and, as in the JAX
@@ -752,6 +809,10 @@ class ShardedTrainer:
         """The fused step (module docstring); ``capture=False`` runs its
         function eagerly every time, on the current stream (the CPU
         tests)."""
+        with self._tuning():
+            return self._fused_step_tuned(vals, capture)
+
+    def _fused_step_tuned(self, vals, capture: bool) -> torch.Tensor:
         storage = tuple(p.data_ptr() for p in self._params)
         if storage != self._storage:
             # parameters re-initialised or moved since the graphs were

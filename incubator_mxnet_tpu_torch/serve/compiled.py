@@ -26,8 +26,15 @@ the counter the serving contract asserts on.
 weights written in place (``Parameter.set_data`` copies) need nothing,
 since the graphs read the parameters' own storage; a parameter given new
 storage (re-initialised, cast) makes every captured bucket capture again,
-each counted as a compile. Numerics taps, the autotune consult and the
-memory ledger come with later slices.
+each counted as a compile. Numerics taps and the memory ledger come with
+later slices.
+
+Autotune (JAX ``:93-105``, ``:286``): with ``MXTPU_AUTOTUNE_DIR`` set the
+model consults the cache at construction (site ``serve.compiled``, key
+``autotune_key`` or the block's class name lower-cased;
+``autotune_entry``), and each bucket captures (on the CPU: runs) under
+``autotune.applied`` of the entry, so its graph holds the banked flash
+tiles.
 
 Artifact mode (JAX ``:114-125``): over a :class:`~..gluon.SymbolBlock`
 imported from :func:`export_for_serving`'s files, a bucket runs (on the
@@ -48,6 +55,7 @@ import numpy as onp
 import torch
 from torch import nn
 
+from .. import autotune
 from ..base import MXNetError, dtype_name, torch_dtype
 from ..context import as_context, resolve_device
 from ..gluon.block import SymbolBlock, _rebuild_args
@@ -128,7 +136,8 @@ class CompiledModel:
                  input_axes: Sequence[Dict[int, str]],
                  example_args: Optional[Sequence] = None,
                  output_axes: Optional[Sequence[Dict[int, str]]] = None,
-                 pad_values: Any = 0, donate: Any = "auto", ctx=None):
+                 pad_values: Any = 0, donate: Any = "auto", ctx=None,
+                 autotune_key: Optional[str] = None):
         if not isinstance(block, nn.Module):
             raise MXNetError(f"CompiledModel wraps an nn.Module, not "
                              f"{type(block)}")
@@ -156,6 +165,9 @@ class CompiledModel:
                 "forward on arrays or example_args to establish the call "
                 "signature")
         self._block = block.eval()
+        self._autotune_key = autotune_key or type(block).__name__.lower()
+        self.autotune_entry = autotune.consult("serve.compiled",
+                                               self._autotune_key)
         self._table = table
         self._input_axes = [dict(a) for a in input_axes]
         self._output_axes = ([dict(a) for a in output_axes]
@@ -301,8 +313,9 @@ class CompiledModel:
                 outs, box["multi"] = self._forward(inputs)
                 return outs
 
-            outs = g.capture(fwd, warm=lambda: self._forward(inputs),
-                             what=what)
+            with autotune.applied(self.autotune_entry):
+                outs = g.capture(fwd, warm=lambda: self._forward(inputs),
+                                 what=what)
         except Exception as e:  # noqa: BLE001 — re-raised, naming it
             raise MXNetError(f"{what} failed: {type(e).__name__}: "
                              f"{e}") from e
@@ -366,8 +379,9 @@ class CompiledModel:
 
     def _run_eager(self, padded: List[onp.ndarray]
                    ) -> Tuple[List[torch.Tensor], bool]:
-        return self._forward([torch.from_numpy(onp.ascontiguousarray(a))
-                              .to(self._device) for a in padded])
+        with autotune.applied(self.autotune_entry):
+            return self._forward([torch.from_numpy(onp.ascontiguousarray(a))
+                                  .to(self._device) for a in padded])
 
     def _replay(self, entry: _BucketGraph, padded: List[onp.ndarray],
                 sizes: Dict[str, int]) -> List[torch.Tensor]:

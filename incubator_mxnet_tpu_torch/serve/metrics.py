@@ -12,17 +12,9 @@ from typing import Dict, List
 
 import numpy as onp
 
+from ..util import nearest_rank_percentile
+
 __all__ = ["Histogram", "ServeMetrics"]
-
-
-def _nearest_rank(sorted_vals: List[float], q: float) -> float:
-    """Nearest-rank percentile of a sorted list; NaN when empty (JAX
-    counterpart: ``util.py:93``)."""
-    if not sorted_vals:
-        return float("nan")
-    idx = min(len(sorted_vals) - 1,
-              max(0, int(round(q / 100.0 * (len(sorted_vals) - 1)))))
-    return sorted_vals[idx]
 
 
 class Histogram:
@@ -66,7 +58,7 @@ class Histogram:
         (JAX counterpart: ``telemetry/metrics.py:235``)."""
         with self._lock:
             samples = sorted(self._samples)
-        return _nearest_rank(samples, q)
+        return nearest_rank_percentile(samples, q)
 
     def summary(self) -> Dict[str, float]:
         """count/mean/min/max and the configured percentiles."""
@@ -78,7 +70,7 @@ class Histogram:
                "min": lo if n else float("nan"),
                "max": hi if n else float("nan")}
         for q in self.q:
-            out[f"p{q:g}"] = _nearest_rank(samples, q)
+            out[f"p{q:g}"] = nearest_rank_percentile(samples, q)
         return out
 
 

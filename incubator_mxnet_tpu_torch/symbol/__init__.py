@@ -637,8 +637,10 @@ class Executor:
         self._grad_req = grad_req
         self.outputs: List[NDArray] = []
         # the card replays captured graphs; tests turn this off to hold
-        # the replay against the eager run
-        self._graphed = self._device.type == "cuda"
+        # the replay against the eager run. A Custom node runs Python on
+        # the host, which no capture holds: such a graph runs eagerly
+        self._graphed = self._device.type == "cuda" and not any(
+            n._op == "Custom" for n in _topo(symbol))
         self._graphs: Dict[tuple, _Captured] = {}
         self.captures = 0
         self._last = None     # what backward reads: ("graph", c) / eager

@@ -4,15 +4,22 @@ card's peak rate for MFU.
 Counterpart: the JAX package's ``util.py`` (``ENV_VARS`` at ``util.py:105``,
 ``getenv`` at ``util.py:519``, ``parse_size`` and ``hbm_budget_bytes`` at
 ``util.py:19-52``, ``peak_tflops`` at ``util.py:60-81``). Names and
-defaults are the same; only the knobs the port reads are listed.
+defaults are the same; only the knobs the port reads are listed. Also the
+numpy-semantics switches (``set_np``, ``reset_np``, ``is_np_array``,
+``is_np_shape``, ``np_shape``, ``use_np_shape``; JAX ``util.py:540-583``),
+with the JAX package's defaults: numpy shape semantics on, the ``mx.np``
+array mode off. They are process state that ``mx.npx`` reads back.
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, Optional
 
 __all__ = ["getenv", "ENV_VARS", "parse_size", "hbm_budget_bytes",
-           "peak_tflops", "PEAK_TFLOPS_BY_KIND", "DEFAULT_PEAK_TFLOPS"]
+           "peak_tflops", "PEAK_TFLOPS_BY_KIND", "DEFAULT_PEAK_TFLOPS",
+           "set_np", "reset_np", "is_np_array", "is_np_shape", "np_shape",
+           "use_np_shape", "nearest_rank_percentile"]
 
 #: name -> (default, description)
 ENV_VARS: Dict[str, tuple] = {
@@ -125,6 +132,17 @@ ENV_VARS: Dict[str, tuple] = {
                        "unset = 64."),
     "MXTPU_FLASH_BK": ("", "Keys per flash-attention K/V tile, 1..64; "
                        "unset = 64."),
+    "MXTPU_AUTOTUNE_DIR": ("", "On-disk autotune cache root. When set, "
+                           "ShardedTrainer and serve.CompiledModel "
+                           "consult it and run under the banked winner's "
+                           "knobs (the flash tiles); user-set variables "
+                           "always win. Unset = no consult."),
+    "MXTPU_AUTOTUNE": ("1", "0 disables autotune-cache consults even "
+                       "when MXTPU_AUTOTUNE_DIR is set."),
+    "MXTPU_SPARSE_DENSE_LIMIT": (str(2 * 1024 ** 3), "Bytes a sparse "
+                                 "NDArray may materialise densely "
+                                 "(nd.sparse is a dense facade); 0 "
+                                 "disables the guard."),
     "MXTPU_PEAK_TFLOPS": ("", "Per-card bf16 peak TFLOP/s for MFU; unset = "
                           "by device name (PEAK_TFLOPS_BY_KIND)."),
     "MXTPU_BENCH_WORKLOAD": ("bert", "Workload of the port bench: bert, "
@@ -156,6 +174,17 @@ PEAK_TFLOPS_BY_KIND = {"H100": 989.0}
 #: the peak for a card not in the table (or the CPU): the H100's, the card
 #: the port is written for, so a device-blind run stays deterministic
 DEFAULT_PEAK_TFLOPS = 989.0
+
+
+def nearest_rank_percentile(sorted_vals, q: float) -> float:
+    """Nearest-rank percentile of an already sorted list; NaN when empty
+    (JAX counterpart: ``util.py:93``): the serving metrics' and the
+    profiler's summaries."""
+    if not sorted_vals:
+        return float("nan")
+    idx = min(len(sorted_vals) - 1,
+              max(0, int(round(q / 100.0 * (len(sorted_vals) - 1)))))
+    return sorted_vals[idx]
 
 
 def getenv(name: str, default: Optional[str] = None) -> Optional[str]:
@@ -209,3 +238,50 @@ def peak_tflops() -> float:
     kind = torch.cuda.get_device_name(0) if torch.cuda.is_available() else ""
     return next((v for k, v in PEAK_TFLOPS_BY_KIND.items() if k in kind),
                 DEFAULT_PEAK_TFLOPS)
+
+
+# --- numpy-semantics switches (JAX counterpart: ``util.py:540-583``) -------
+_NP_SHAPE = [True]    # numpy shape semantics are the native behaviour
+_NP_ARRAY = [False]
+
+
+def is_np_shape() -> bool:
+    return _NP_SHAPE[0]
+
+
+def is_np_array() -> bool:
+    return _NP_ARRAY[0]
+
+
+def set_np(shape: bool = True, array: bool = True) -> None:
+    _NP_SHAPE[0] = shape
+    _NP_ARRAY[0] = array
+
+
+def reset_np() -> None:
+    set_np(True, False)
+
+
+class np_shape:
+    """Scope with numpy shape semantics set to ``active``."""
+
+    def __init__(self, active: bool = True):
+        self._active = active
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = _NP_SHAPE[0]
+        _NP_SHAPE[0] = self._active
+        return self
+
+    def __exit__(self, *exc):
+        _NP_SHAPE[0] = self._prev
+
+
+def use_np_shape(fn):
+    """``fn`` run under :class:`np_shape`."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with np_shape(True):
+            return fn(*args, **kwargs)
+    return wrapped

@@ -42,7 +42,10 @@ under both cotangents, and a one-rank NCCL group carrying the collectives,
 ``mx.kv``'s ``nccl`` store and a ``ShardedTrainer`` on a one-rank mesh
 bitwise the mesh-less one; and ``parallel.MoEFFN`` (tokens dropped) and
 ``pipeline_apply`` over a one-rank ``pp`` group, forward and backward,
-card against CPU.
+card against CPU; and the rest of the surface: an ``mx.autotune`` entry's
+tiles at the kernels' launches (and an entry the kernels do not take
+refused before any launch), and ``mx.profiler``'s trace naming the three
+kernels as often as the launch tally counts them.
 Tolerances as ``chip_smoke.py``, the same for the forward and the backward:
 float32 (1e-4, 1e-4), since every kernel's products run in 3xTF32 on the
 tensor cores (about fp32 accuracy) and sum in another order than the plain
@@ -1588,3 +1591,102 @@ def test_pipeline_apply_on_card_matches_cpu():
             assert err <= 1e-5, (i, err)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_banked_tiles_reach_the_kernel_launches_on_card(tmp_path,
+                                                         monkeypatch):
+    """An ``mx.autotune`` entry banked for this card (``MXTPU_FLASH_BQ`` =
+    ``MXTPU_FLASH_BK`` = 16): the fused trainer's first step launches all
+    three kernels with those tiles, its captured step holds them (launch
+    counts with replays: 2 per kernel a step of the 2-layer BERT), the
+    environment is left as it was, and its first step's loss stays within
+    1e-5 of an untuned twin's; an entry of 128 raises at the consult,
+    before any launch."""
+    _card()
+    import os
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import bench
+    from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
+    for k in ("MXTPU_FLASH_BQ", "MXTPU_FLASH_BK"):
+        monkeypatch.delenv(k, raising=False)
+    root = str(tmp_path)
+    cache = mx.autotune.AutotuneCache(root)
+    kind = mx.autotune.chip_kind()
+    cache.put("tuned", "single", kind, {"env": {"MXTPU_FLASH_BQ": 16,
+                                                "MXTPU_FLASH_BK": 16}}, 0.0)
+    cache.put("bad", "single", kind, {"env": {"MXTPU_FLASH_BK": 128}}, 0.0)
+    batch = bench.make_batch(2, 64, vocab=100)
+    monkeypatch.setenv("MXTPU_AUTOTUNE_DIR", root)
+    tr = mx.parallel.ShardedTrainer(
+        _bert(), mx.models.bert_pretrain_loss, "adamw",
+        {"learning_rate": 1e-3}, device="cuda", n_labels=3,
+        autotune_key="tuned")
+    plain = _trainer(_bert(), None)
+    loss = float(tr.step(*batch))            # eager first step
+    assert all(fa.last_tiles[n] == (16, 16) for n in fa.KERNELS)
+    want = float(plain.step(*batch))
+    assert all(fa.last_tiles[n] == (0, 0) for n in fa.KERNELS)
+    assert abs(loss - want) <= 1e-5 * abs(want)
+    tr.step(*batch)                          # the capture
+    assert all(fa.last_tiles[n] == (16, 16) for n in fa.KERNELS)
+    assert tr.captures == 1 and tr.autotune_entry is not None
+    assert "MXTPU_FLASH_BQ" not in os.environ
+    cuda_ops.reset_launches()
+    tr.step(*batch)
+    assert tr.last_step_graphs == 1
+    assert cuda_ops.launch_counts() == {n: 2 for n in fa.KERNELS}
+    bad = mx.parallel.ShardedTrainer(
+        _bert(), mx.models.bert_pretrain_loss, "adamw",
+        {"learning_rate": 1e-3}, device="cuda", n_labels=3,
+        autotune_key="bad")
+    cuda_ops.reset_launches()
+    with pytest.raises(MXNetError, match="MXTPU_FLASH_BK=128"):
+        bad.step(*batch)
+    assert bad.captures == 0 and sum(cuda_ops.launch_counts().values()) == 0
+
+
+@pytest.mark.cuda
+def test_profiler_trace_names_the_kernels_on_card(tmp_path):
+    """``mx.profiler`` around 3 replayed fused steps of a 2-layer BERT: the
+    dumped chrome trace's device events name the three kernels as often as
+    the launch tally counted (2 a kernel a step), and ``step_report`` has
+    3 step frames with place, dispatch and device-wait segments."""
+    _card()
+    import json
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import bench
+    from incubator_mxnet_tpu_torch.ops import cuda as cuda_ops
+    batch = bench.make_batch(2, 64, vocab=100)
+    tr = _trainer(_bert(), None)
+    placed = tr.place(*batch)
+    for _ in range(2):
+        tr.step(*placed)
+    path = str(tmp_path / "trace.json")
+    prof = mx.profiler
+    prof.set_config(filename=path)
+    subs = {fa.KERNEL: "flash_fwd_kernel",
+            fa.KERNEL_BWD_DKV: "flash_bwd_dkv_kernel",
+            fa.KERNEL_BWD_DQ: "flash_bwd_dq_kernel"}
+    for _ in range(3):       # a trace now and then holds no device event,
+        prof.reset_spans()   # or loses one: it is taken again
+        torch.cuda.synchronize()
+        cuda_ops.reset_launches()
+        prof.set_state("run")
+        for _ in range(3):
+            tr.step(*placed)
+        prof.set_state("stop")
+        prof.dump()
+        with open(path) as f:
+            dev = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e["tid"] == 2]
+        launched = cuda_ops.launch_counts()
+        counts = {k: sum(sub in n for n in dev) for k, sub in subs.items()}
+        if counts == launched:
+            break
+    for name in subs:
+        assert counts[name] == launched[name] == 6, (name, counts)
+    rep = prof.step_report()
+    assert rep["steps"] == 3
+    for seg in ("place", "dispatch", "device_wait"):
+        assert rep["segments"][seg]["count"] == 3, rep["segments"]

@@ -318,6 +318,28 @@ def _resume_run(path: str, dropout: float, root: str) -> dict:
 
 
 @pytest.mark.chaos
+def test_commit_marker_appears_whole(tmp_path, monkeypatch):
+    """A rank's commit marker (and the manifest) is written under a
+    temporary name and renamed, so the primary, which polls the staging
+    directory for every rank's marker and reads it once it is there,
+    never reads a partial file."""
+    from incubator_mxnet_tpu_torch.fault import checkpoint as ck
+    path = str(tmp_path / "commit-p1.json")
+    seen = []
+    real = json.dump
+
+    def dump(doc, f, **kw):
+        seen.append(os.path.exists(path))
+        real(doc, f, **kw)
+
+    monkeypatch.setattr(json, "dump", dump)
+    ck._write_json(path, {"step": 3})
+    assert seen == [False]
+    with open(path) as f:
+        assert json.load(f) == {"step": 3}
+    assert os.listdir(tmp_path) == ["commit-p1.json"]
+
+
 def test_kill_and_resume_is_bitwise(tmp_path):
     for path in ("eager", "fused"):
         run = _resume_run(path, 0.1, str(tmp_path / path))

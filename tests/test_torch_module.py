@@ -212,7 +212,8 @@ def test_symbolic_api_imports_without_jax():
 
 def test_seams_raise_naming_their_items():
     """``contrib.sym`` composes ``_contrib_*`` ops (``box_nms`` evaluates
-    as ``contrib.nd``'s) and its control flow raises naming item 7c;
+    as ``contrib.nd``'s) and its control flow builds the JAX package's
+    ``_foreach`` node (item 7c-1);
     ``optimize_for`` with a backend nobody registered raises the JAX
     "unknown subgraph backend" error; a Monitor on a Gluon block names
     item 8; a distributed kvstore is taken as the JAX Module takes it;
@@ -229,8 +230,17 @@ def test_seams_raise_naming_their_items():
         nms.eval(x=mx.nd.array(boxes))[0].asnumpy(),
         mx.nd.contrib.box_nms(mx.nd.array(boxes),
                               overlap_thresh=0.5).asnumpy())
-    with pytest.raises(MXNetError, match="item 7c"):
-        mx.contrib.sym.foreach(lambda d, s: (d, s), x, [])
+    def body(lib):
+        def step(d, s):
+            a = lib.sym.broadcast_add(d, s, name="add")
+            return a, a
+        return step
+
+    outs, _ = mx.contrib.sym.foreach(body(mx), x, mx.sym.Variable("s0"),
+                                     name="fe")
+    jouts, _ = jmx.contrib.sym.foreach(body(jmx), jmx.sym.Variable("x"),
+                                       jmx.sym.Variable("s0"), name="fe")
+    assert outs.tojson() == jouts.tojson()
     with pytest.raises(MXNetError, match="unknown subgraph backend"):
         nms.optimize_for("MKLDNN")
     with pytest.raises(MXNetError, match="item 8"):

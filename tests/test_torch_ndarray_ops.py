@@ -39,14 +39,9 @@ from incubator_mxnet_tpu_torch import amp, autograd, nd
 from incubator_mxnet_tpu_torch.ops.registry import OPS
 
 #: JAX ``mx.nd`` names a later slice brings -> the ROADMAP queue A item
-DEFERRED = {
-    "Custom": "A7 operator.py CustomOp",
-    "interleaved_matmul_selfatt_qk": "A7 ops/attention.py",
-    "interleaved_matmul_selfatt_valatt": "A7 ops/attention.py",
-    "interleaved_matmul_encdec_qk": "A7 ops/attention.py",
-    "interleaved_matmul_encdec_valatt": "A7 ops/attention.py",
-    "sparse": "A7 ndarray/sparse.py",
-}
+#: (none since ``Custom``, the ``interleaved_matmul_*`` ops and ``sparse``
+#: came with item 7c-1)
+DEFERRED = {}
 
 METHODS = ("argmax", "argmin", "as_in_ctx", "broadcast_like", "dot", "norm",
            "one_hot", "pick", "prod", "reshape_like", "sign", "slice",
@@ -253,8 +248,9 @@ def test_mx_nd_name_audit():
     assert nd.make_loss is nd.MakeLoss
     x = nd.array([[1.0, 2.0], [3.0, 4.0]])
     assert x.stype == "default" and x.tostype("default") is x
-    with pytest.raises(mx.MXNetError, match="sparse"):
-        x.tostype("csr")
+    csr = x.tostype("csr")
+    assert csr.stype == "csr"
+    onp.testing.assert_array_equal(csr.asnumpy(), x.asnumpy())
     v = x.version
     x[0, 0] = 5.0
     assert x.version > v
